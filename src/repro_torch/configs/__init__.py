@@ -1,0 +1,3 @@
+from repro_torch.configs.base import ARCH_IDS, BlockDef, ModelConfig, get_config, register
+
+__all__ = ["ARCH_IDS", "BlockDef", "ModelConfig", "get_config", "register"]

@@ -1,0 +1,62 @@
+"""Carry the JAX package's state into the port.
+
+The functions take plain numpy arrays (``np.asarray`` of each JAX leaf), so
+this module needs neither JAX nor ``ml_dtypes``: a bfloat16 leaf arrives as
+an array whose dtype is named ``bfloat16`` and is read through a ``uint16``
+view, then reinterpreted as ``torch.bfloat16``.  Each function puts the tensors
+on ``device`` (default ``"cuda"``; raises without CUDA unless ``"cpu"``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.quant import QuantizedTensor
+
+__all__ = ["tensor_from_numpy", "qtensor_from_jax", "params_from_jax"]
+
+_QT_FIELDS = ("codes", "scale", "zero", "outlier_values", "outlier_idx",
+              "outlier_col_idx", "outlier_col_vals")
+
+
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
+    """One array (numpy, or anything ``np.asarray`` accepts) → tensor on
+    ``device``, bit for bit."""
+    device = resolve_device(device)
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _is_qtensor(x) -> bool:
+    return all(hasattr(x, f) for f in ("codes", "scale", "zero", "bits", "packed"))
+
+
+def qtensor_from_jax(qt, device="cuda") -> QuantizedTensor:
+    """A reference ``QuantizedTensor`` (read by attribute) → the port's."""
+    device = resolve_device(device)
+    arrays = {
+        f: None if getattr(qt, f, None) is None else tensor_from_numpy(getattr(qt, f), device)
+        for f in _QT_FIELDS
+    }
+    return QuantizedTensor(
+        bits=int(qt.bits), group_size=qt.group_size, packed=bool(qt.packed),
+        pack_layout=getattr(qt, "pack_layout", "linear"), pack_tile=getattr(qt, "pack_tile", None),
+        **arrays,
+    )
+
+
+def params_from_jax(tree, device="cuda"):
+    """A reference param tree (dicts, lists, arrays, QuantizedTensors) → the
+    port's tree of tensors and QuantizedTensors on ``device``."""
+    device = resolve_device(device)
+    if _is_qtensor(tree):
+        return qtensor_from_jax(tree, device)
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)

@@ -1,0 +1,26 @@
+"""Quantization substrate: uniform grids, code packing, quantized tensors."""
+
+from repro_torch.quant.grid import (
+    Grid,
+    GridSpec,
+    compute_grid,
+    dequantize_codes,
+    quantize_codes,
+    quantize_dequantize,
+)
+from repro_torch.quant.pack import pack_codes, packed_words_per_row, unpack_codes
+from repro_torch.quant.qtensor import QuantizedTensor, dequantize_tensor
+
+__all__ = [
+    "Grid",
+    "GridSpec",
+    "compute_grid",
+    "dequantize_codes",
+    "quantize_codes",
+    "quantize_dequantize",
+    "pack_codes",
+    "packed_words_per_row",
+    "unpack_codes",
+    "QuantizedTensor",
+    "dequantize_tensor",
+]

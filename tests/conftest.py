@@ -11,6 +11,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped where CUDA is absent"
+    )
+
+
 def reduce_cfg(cfg, **over):
     kw = dict(
         d_model=64,
