@@ -8,14 +8,19 @@ Phases (any failed check exits non-zero; no phase is skipped):
 2. build: compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``;
 3. kernels: holds each kernel against its plain PyTorch version at the main
    path's shapes, and times kernel, plain version and (where one exists) a
-   single PyTorch library call with CUDA events;
+   single PyTorch library call with CUDA events; the outlier-aware iteration
+   (Algorithm 3) also at its three solver-group shapes, with a 25-iteration
+   solve of kernel path against plain path;
 4. small-input reference: ``tests/test_torch_cuda.py`` on the card, where a
    reduced Phi-3 quantized and scored on the card (kernels) and on the CPU
    (plain versions) must agree, and each kernel matches its plain version
    at small and ragged shapes;
 5. main path: Phi-3-mini at full width (2 of 32 decoder layers, seeded
-   random weights): QuantEase and RTN PTQ, the serving restack, perplexity;
-   every kernel's launch counter must rise during this phase.
+   random weights): RTN and QuantEase PTQ at 4 bits, then RTN, QuantEase and
+   outlier-aware QuantEase (1 % outliers) at 3 bits, each through the
+   serving restack and perplexity; mean relative error must order
+   qe_outlier < quantease < rtn at 3 bits, the outlier artifact must carry
+   its COO planes, and every kernel's launch counter must rise.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -56,7 +61,13 @@ CD_TOKENS = 8192  # calibration tokens behind each test Σ (16 x 512)
 GEMM_M = 2048  # tokens per calibration / eval batch (4 x 512)
 GEMM_VARIANT_SHAPE = (3072, 3072)
 GEMM_PATH_SHAPES = (((3072, 3072), 4), ((8192, 3072), 2), ((3072, 8192), 1))  # (q, p), per layer
+OUTLIER_SHAPES = FUSED_SHAPES  # the same three solver groups, then bf16 operands
+OUTLIER_BLOCK = 128  # outlier_quantease's default cd_block_size, as on the path
+OUTLIER_FRAC = 0.01
+R_RTOL = 1e-4  # the exact residual R, relative to max |R|, in rows whose sweep agrees
 MAIN_OVERRIDES = dict(n_periods=2)  # depth cut: 2 of 32 decoder layers
+# (method, bits) of the main path's PTQ runs, in order.
+MAIN_RUNS = (("rtn", 4), ("quantease", 4), ("rtn", 3), ("quantease", 3), ("qe_outlier", 3))
 MAIN_BATCH, MAIN_SEQ, MAIN_CALIB_BATCHES, MAIN_EVAL_BATCHES = 4, 512, 4, 2
 
 
@@ -88,6 +99,38 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_profile(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and split the device time by
+    kernel: ``{"wall_ms", "device_ms", "busy", "by_kernel": {name: ms}}``,
+    our kernels by their source name and everything else (PyTorch's own
+    kernels: top-k, elementwise, copies) under "torch".  The host wall time
+    includes the profiler's own launch overhead, so ``busy`` (device time
+    over wall time) is a lower bound.  Empty when the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = next((k for k in ("qe_block_corr_kernel", "qe_block_sweep_kernel",
+                                 "qe_suffix_resid_kernel", "dequant_matmul_kernel") if k in e.name),
+                    "torch")
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not by_kernel:
+        return {}
+    dev = sum(by_kernel.values())
+    return dict(wall_ms=wall, device_ms=dev, busy=dev / wall, by_kernel=by_kernel)
+
+
 def bound(n_bytes: float, n_flop: float) -> tuple[float, str]:
     t_b, t_f = n_bytes / PEAK_BYTES * 1e3, n_flop / PEAK_FP32 * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -109,7 +152,7 @@ def cd_problem(gen, G, q, p, n_tokens, dev):
     return w, sigma
 
 
-def cd_state(gen, G, q, p, dev):
+def cd_state(gen, G, q, p, dev, bits=4):
     """A mid-solve fused-engine state in the kernels' transposed layout."""
     import torch
 
@@ -117,8 +160,8 @@ def cd_state(gen, G, q, p, dev):
     from repro_torch.quant import GridSpec, compute_grid, quantize_dequantize
 
     w, sigma = cd_problem(gen, G, q, p, CD_TOKENS, dev)
-    grid = compute_grid(w, GridSpec(bits=4))
-    w32, _, scale, zero, sig_tilde, pmat = qe._prep(w, sigma, GridSpec(bits=4), 0.01, grid)
+    grid = compute_grid(w, GridSpec(bits=bits))
+    w32, _, scale, zero, sig_tilde, pmat = qe._prep(w, sigma, GridSpec(bits=bits), 0.01, grid)
     w_hat = quantize_dequantize(w32, grid)
     t = lambda a: a.transpose(-1, -2).contiguous()
     base = t(pmat - w_hat @ sig_tilde)
@@ -287,6 +330,108 @@ def check_fused_iteration(gen, dev, detail):
                 + " + ".join(f"G={G} ({q},{p})" for G, q, p, dt in FUSED_SHAPES if dt == "float32"))
 
 
+def outlier_bytes_flop(G, q, p, bsz, bf16):
+    """Kernel 4's least traffic and work: six state inputs and four outputs,
+    Σ̃ᵀ read once (plus its bf16 copy); the correction, the block-suffix
+    product (nb(nb+1)/2 block pairs) and the sweep."""
+    state = G * p * q * 4
+    n_bytes = 6 * state + G * p * p * 4 + (G * p * p * 2 if bf16 else 0) + 4 * state
+    nb = p // bsz
+    n_flop = 2 * G * q * p * p + nb * (nb + 1) // 2 * 2 * bsz * bsz * q * G + G * q * p * (bsz + 8)
+    return n_bytes, n_flop
+
+
+def check_outlier_iteration(gen, dev, detail):
+    import torch
+
+    from repro_torch.core import outlier
+    from repro_torch.core import quantease as qe
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant import GridSpec
+
+    bsz = OUTLIER_BLOCK
+    totals = dict(ms=0.0, plain_ms=0.0, bytes=0.0, flop=0.0, err=0.0)
+    detail["outlier_iteration"] = []
+    for G, q, p, dt in OUTLIER_SHAPES:
+        s = cd_state(gen, G, q, p, dev, bits=3)
+        shape = s["base"].shape
+        dh = torch.where(torch.rand(shape, generator=gen, device=dev) < OUTLIER_FRAC,
+                         0.02 * torch.randn(shape, generator=gen, device=dev), 0.0)
+        sig_corr = s["sig_t"].to(torch.bfloat16) if dt == "bfloat16" else s["sig_t"]
+        args = (s["base"], s["sig_t"], sig_corr, s["w"], s["scale"], s["zero"], s["delta"], dh)
+        kw = dict(n_levels=8, quantize=True, bsz=bsz)
+        k_out = ops.quantease_outlier_iteration(*args, **kw)
+        p_out = ref.quantease_outlier_iteration_ref(*args, **kw)
+        torch.cuda.synchronize()
+        fracs, errs = zip(*(rows_within(k, pl, CD_ATOL) for k, pl in zip(k_out[:3], p_out[:3])))
+        n_diff, n_unexplained, ties = tie_flip_rows(k_out[:3], p_out[:3], s, bsz, 8, CD_ATOL)
+        check(min(fracs) >= ROWS_OK or (n_unexplained == 0 and min(fracs) >= ROWS_TIES),
+              f"outlier iteration {G}x({q},{p}) {dt}: rows ok {fracs}, "
+              f"{n_unexplained} of {n_diff} differing rows do not start with a tie flip: {ties}")
+        # R in the rows (output channels) whose sweep agrees: a flipped tie
+        # changes its row's δŴ and so that row's R.
+        same = torch.stack([((k - pl).abs() <= CD_ATOL).all(dim=-2)
+                            for k, pl in zip(k_out[:3], p_out[:3])]).all(0)
+        r_scale = float(p_out[3].abs().max())
+        r_err = float((k_out[3] - p_out[3]).abs().amax(dim=-2)[same].max()) / r_scale
+        check(r_err <= R_RTOL, f"outlier iteration {G}x({q},{p}) {dt}: R off by {r_err} of max |R|")
+        # P_s of one IHT step: top-k of 1 % of the flattened state.
+        cand = k_out[3] - k_out[0]
+        n_top = max(int(OUTLIER_FRAC * q * p), 1)
+        topk_ms = cuda_ms(lambda: torch.topk(cand.abs().reshape(G, -1), n_top, dim=-1, sorted=False))
+        del k_out, p_out, cand
+        ms = cuda_ms(lambda: ops.quantease_outlier_iteration(*args, **kw))
+        split = device_profile(lambda: ops.quantease_outlier_iteration(*args, **kw))
+        plain = cuda_ms(lambda: ref.quantease_outlier_iteration_ref(*args, **kw), reps=5, warmup=1)
+        n_bytes, n_flop = outlier_bytes_flop(G, q, p, bsz, dt == "bfloat16")
+        b_ms, b_by = bound(n_bytes, n_flop)
+        del s, args, sig_corr, dh
+        # 25 iterations from the same (W, Σ): kernel engine vs plain engine.
+        w, sigma = cd_problem(gen, G, q, p, CD_TOKENS, dev)
+        kw25 = dict(s=n_top, iterations=25, matmul_dtype=dt)
+        t0 = time.monotonic()
+        rk = outlier.outlier_quantease(w, sigma, GridSpec(bits=3), use_kernel="auto", **kw25)
+        torch.cuda.synchronize()
+        t_kernel = time.monotonic() - t0
+        solve_split = device_profile(
+            lambda: outlier.outlier_quantease(w, sigma, GridSpec(bits=3), use_kernel="auto", **kw25))
+        rp = outlier.outlier_quantease(w, sigma, GridSpec(bits=3), use_kernel="torch", **kw25)
+        ek = qe.relative_error(w, rk.w_eff, sigma)
+        ep = qe.relative_error(w, rp.w_eff, sigma)
+        rel = float(((ek - ep).abs() / ep).max())
+        check(rel <= 1e-3, f"outlier 25 iterations {G}x({q},{p}) {dt}: relative error "
+              f"{ek.tolist()} vs {ep.tolist()}")
+        del w, sigma, rk, rp
+        row = dict(G=G, q=q, p=p, dtype=dt, bsz=bsz, rows_ok=min(fracs), rows_differing=n_diff,
+                   rows_unexplained=n_unexplained, tie_rows=ties, max_abs_err=max(errs),
+                   r_rel_err=r_err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   topk_ms=topk_ms, rel_err_kernel=ek.tolist(), rel_err_plain=ep.tolist(),
+                   solve25_s=t_kernel, iteration_profile=split, solve25_profile=solve_split)
+        detail["outlier_iteration"].append(row)
+        print(f"[kernel] outlier_iteration G={G} ({q},{p}) B={bsz} {dt}: rows_ok={min(fracs):.6f} "
+              f"(rows differing {n_diff}, not starting with a tie flip {n_unexplained}) "
+              f"max_abs_err={max(errs):.3g} R rel err={r_err:.3g} ms={ms:.3f} plain_ms={plain:.1f} "
+              f"bound_ms={b_ms:.3f} ({b_by}) topk_ms={topk_ms:.3f} 25-iter solve {t_kernel:.2f}s "
+              f"rel_err {ek.mean():.6f} vs plain {ep.mean():.6f}", flush=True)
+        for what, prof in (("iteration", split), ("25-iter solve", solve_split)):
+            print(f"[profile] outlier {what} G={G} ({q},{p}) {dt}: " + (
+                "no device time in the trace" if not prof else
+                f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms "
+                f"(busy {prof['busy']:.3f}): " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in sorted(prof["by_kernel"].items()))), flush=True)
+        if dt == "float32":  # one decoder layer's fp32 iteration: the three path groups
+            totals["ms"] += ms
+            totals["plain_ms"] += plain
+            totals["bytes"] += n_bytes
+            totals["flop"] += n_flop
+        totals["err"] = max(totals["err"], max(errs))
+    b_ms, b_by = bound(totals["bytes"], totals["flop"])
+    return dict(max_abs_err=totals["err"], ms=totals["ms"], plain_ms=totals["plain_ms"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=f"one fp32 outlier-aware CD iteration of a decoder layer, B={bsz}: "
+                + " + ".join(f"G={G} ({q},{p})" for G, q, p, dt in OUTLIER_SHAPES if dt == "float32"))
+
+
 def check_dequant_matmul(gen, dev, detail):
     import torch
 
@@ -416,50 +561,64 @@ def main_path(dev, detail):
 
     blocks = []  # the solver's progress records: per-block seconds and errors
 
-    def progress(method):
+    def progress(label):
         def cb(r):
-            blocks.append(dict(method=method, period=r["period"], seconds=r["seconds"],
+            blocks.append(dict(run=label, period=r["period"], seconds=r["seconds"],
                                mean_rel_error=r["mean_rel_error"]))
-            print(f"[{method} p{r['period']} {r['done_blocks']}/{r['total_blocks']}] "
+            print(f"[{label} p{r['period']} {r['done_blocks']}/{r['total_blocks']}] "
                   f"{r['n_linears']} linears mean_err={r['mean_rel_error']:.6f} {r['seconds']}s")
         return cb
 
     ops.reset_launch_counts()
     t_main = time.monotonic()
-    results = {}
-    for method in ("rtn", "quantease"):
-        pcfg = solver.PTQConfig(method=method, spec=GridSpec(bits=4), iterations=25, emit="qt")
+    results, coo = {}, {}
+    for method, bits in MAIN_RUNS:
+        label = f"{method}@{bits}"
+        pcfg = solver.PTQConfig(method=method, spec=GridSpec(bits=bits), iterations=25, emit="qt",
+                                outlier_frac=OUTLIER_FRAC)
         t0 = time.monotonic()
         qparams, report = solver.ptq_quantize_model(
-            plan, params, calib, pcfg, progress_cb=progress(method), device=dev)
+            plan, params, calib, pcfg, progress_cb=progress(label), device=dev)
         served = quantize_params_for_serving(plan, params, qparams["dec"], device=dev)
         ppl = perplexity_on_stream(plan, served, eval_fn, n_batches=MAIN_EVAL_BATCHES, device=dev)
-        results[method] = (report, ppl, time.monotonic() - t0)
-        del qparams, served
+        results[label] = (report, ppl, time.monotonic() - t0)
+        wq = served["dec"]["b0"]["wq"]
+        q_wq, p_wq = wq.shape[-2:]
+        coo[label] = (None if wq.outlier_idx is None else tuple(wq.outlier_idx.shape),
+                      (cfg.n_periods, max(int(OUTLIER_FRAC * q_wq * p_wq), 1)))
+        del qparams, served, wq
     dense_ppl = perplexity_on_stream(plan, params, eval_fn, n_batches=MAIN_EVAL_BATCHES, device=dev)
     torch.cuda.synchronize()
     t_main = time.monotonic() - t_main
     counts = ops.launch_counts()
 
     errs = {}
-    for method, (report, ppl, secs) in results.items():
+    for label, (report, ppl, secs) in results.items():
         vals = np.array(list(report.values()))
-        check(np.all(np.isfinite(vals)) and len(vals) == n_layers, f"{method}: report {report}")
-        check(math.isfinite(ppl["ppl"]) and ppl["n_tokens"] == n_eval_tokens, f"{method}: ppl {ppl}")
-        errs[method] = vals
-        print(f"[main] {method}: {len(vals)} layers mean_rel_error={vals.mean():.6f} "
+        check(np.all(np.isfinite(vals)) and len(vals) == n_layers, f"{label}: report {report}")
+        check(math.isfinite(ppl["ppl"]) and ppl["n_tokens"] == n_eval_tokens, f"{label}: ppl {ppl}")
+        errs[label] = vals
+        print(f"[main] {label}: {len(vals)} layers mean_rel_error={vals.mean():.6f} "
               f"max_rel_error={vals.max():.6f} ppl={ppl['ppl']:.4f} nll={ppl['nll']:.6f} ({secs:.1f}s)")
     check(math.isfinite(dense_ppl["ppl"]), f"dense ppl {dense_ppl}")
     print(f"[main] dense: ppl={dense_ppl['ppl']:.4f} nll={dense_ppl['nll']:.6f}")
-    check(list(results["rtn"][0]) == list(results["quantease"][0]), "layer sets differ")
-    check(errs["quantease"].mean() < errs["rtn"].mean(),
-          f"QuantEase mean error {errs['quantease'].mean()} not below RTN's {errs['rtn'].mean()}")
+    check(len({tuple(r[0]) for r in results.values()}) == 1, "layer sets differ")
+    mean = {label: v.mean() for label, v in errs.items()}
+    check(mean["quantease@4"] < mean["rtn@4"],
+          f"QuantEase mean error {mean['quantease@4']} not below RTN's {mean['rtn@4']} at 4 bits")
+    check(mean["qe_outlier@3"] < mean["quantease@3"] < mean["rtn@3"],
+          f"at 3 bits mean errors do not order qe_outlier < quantease < rtn: {mean}")
+    # The outlier artifact carries its COO planes, stacked over the periods.
+    have, want = coo["qe_outlier@3"]
+    check(have == want and coo["quantease@3"][0] is None, f"serving params' COO planes: {coo}")
+    print(f"[main] qe_outlier@3 serving wq carries COO planes of shape {have}")
     print(f"[main] launches during the main path: {counts}  ({t_main:.1f}s)")
     for name, n in counts.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
     detail["main"] = dict(
         layers={m: dict(zip(r[0], map(float, r[0].values()))) for m, r in results.items()},
         ppl={m: r[1] for m, r in results.items()} | {"dense": dense_ppl},
+        seconds_per_run={m: r[2] for m, r in results.items()},
         blocks=blocks,
         seconds=t_main,
     )
@@ -498,6 +657,7 @@ def main() -> None:
     measured = {
         "quantease_block_sweep": check_block_sweep(gen, dev, detail),
         "quantease_fused_iteration": check_fused_iteration(gen, dev, detail),
+        "quantease_outlier_iteration": check_outlier_iteration(gen, dev, detail),
         "dequant_matmul": check_dequant_matmul(gen, dev, detail),
     }
     torch.cuda.empty_cache()

@@ -63,14 +63,15 @@ class QuantEaseConfig:
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
 
 
-def _iteration_step(use_kernel: str, device: torch.device):
-    """The per-iteration function: the plain version when ``"torch"`` is
-    asked for, else :mod:`..kernels.ops`, which routes by device."""
+def _iteration_step(use_kernel: str, device: torch.device,
+                    plain=ref.quantease_fused_iteration_ref, routed=ops.quantease_fused_iteration):
+    """The per-iteration function: ``plain`` when ``"torch"`` is asked for,
+    else ``routed`` (from :mod:`..kernels.ops`), which routes by device."""
     if use_kernel not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown use_kernel {use_kernel!r}")
     if use_kernel == "cuda" and device.type != "cuda":
         raise ValueError("use_kernel='cuda' needs CUDA tensors")
-    return ref.quantease_fused_iteration_ref if use_kernel == "torch" else ops.quantease_fused_iteration
+    return plain if use_kernel == "torch" else routed
 
 
 def layer_objective(w, w_hat, sigma) -> torch.Tensor:

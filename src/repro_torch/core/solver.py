@@ -9,9 +9,12 @@
 * Grids are computed once from the original weights and threaded through
   the solve and the emit, so emitted codes round-trip the solve exactly.
 * Per-layer relative errors (the paper's Fig. 2 metric) are reported, with
-  an optional per-block progress callback.
+  an optional per-block progress callback.  For the outlier-aware methods
+  they are errors of the effective weights Ŵ + Ĥ.
 
-Methods ``rtn`` and ``quantease`` are ported; the others raise.
+Methods ``rtn``, ``quantease``, ``qe_outlier`` and ``qe_outlier_struct``
+(Algorithm 3, unstructured and column outliers) are ported; the others
+raise.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.core import quantease
 from repro_torch.core.calib import CalibStats
+from repro_torch.core.outlier import outlier_quantease
 from repro_torch.core.quantease import relative_error
 from repro_torch.device import require_on_device
 from repro_torch.models import model as M
@@ -41,14 +45,15 @@ from repro_torch.quant import (
 __all__ = ["PTQConfig", "ptq_quantize_model", "QUANTIZABLE"]
 
 QUANTIZABLE = {"wq", "wk", "wv", "wo", "wg", "wu", "wd"}
-_METHODS = ("rtn", "quantease")
+_METHODS = ("rtn", "quantease", "qe_outlier", "qe_outlier_struct")
 
 
 @dataclasses.dataclass
 class PTQConfig:
-    method: str = "quantease"  # rtn | quantease
+    method: str = "quantease"  # rtn | quantease | qe_outlier | qe_outlier_struct
     spec: GridSpec = dataclasses.field(default_factory=lambda: GridSpec(bits=4))
     iterations: int = 25
+    outlier_frac: float = 0.01  # outlier budget of the qe_outlier methods, per matrix
     percdamp: float = 0.01
     emit: str = "fake"  # "fake" (dequantized, param dtype) | "qt" (QuantizedTensor)
     use_kernel: str = "auto"  # see QuantEaseConfig
@@ -66,32 +71,60 @@ class PTQConfig:
         )
 
 
+def _outlier_budget(cfg: PTQConfig, q: int, p: int) -> int:
+    return max(int(cfg.outlier_frac * q * p), 1)
+
+
 def _solve_group(w3, sig3, cfg: PTQConfig):
-    """(G, q, p) × (G, p, p) → (Ŵ (G, q, p), batched grid)."""
+    """(G, q, p) × (G, p, p) → (Ŵ (G, q, p), Ĥ (G, q, p) or None, batched
+    grid the solve quantized onto)."""
+    if cfg.method in ("qe_outlier", "qe_outlier_struct"):
+        res = outlier_quantease(
+            w3, sig3, cfg.spec, s=_outlier_budget(cfg, *w3.shape[-2:]),
+            iterations=cfg.iterations, structured=cfg.method.endswith("struct"),
+            percdamp=cfg.percdamp, use_kernel=cfg.use_kernel, matmul_dtype=cfg.matmul_dtype,
+        )
+        return res.w_hat, res.h, res.grid
     grid3 = compute_grid(w3, cfg.spec)
     if cfg.method == "rtn":
-        return quantize_dequantize(w3, grid3), grid3
+        return quantize_dequantize(w3, grid3), None, grid3
     w_hat, _ = quantease.quantease_quantize(
         w3, sig3, cfg.spec, grid=grid3, **cfg.qe_config().solve_kwargs()
     )
-    return w_hat, grid3
+    return w_hat, None, grid3
 
 
 def _to_2d(w: torch.Tensor, d_in: int) -> torch.Tensor:
     return w.reshape(d_in, -1).T.to(torch.float32)  # (out, in)
 
 
-def _emit_leaf(w_hat, like, cfg: PTQConfig, grid):
+def _emit_leaf(w_hat, h, like, cfg: PTQConfig, grid):
+    """One solved linear → its leaf: the dequantized effective weights
+    (``emit="fake"``), or a QuantizedTensor whose codes are Ŵ on the grid
+    the solve used and, with an Ĥ, whose COO planes hold Ĥ's top-s entries
+    (flat int32 ``row·p + col``, fp16 values; §5.4's 48 bits an outlier)."""
     if cfg.emit == "fake":
-        return w_hat.T.reshape(like.shape).to(like.dtype)
+        w_eff = w_hat if h is None else w_hat + h
+        return w_eff.T.reshape(like.shape).to(like.dtype)
     codes = quantize_codes(w_hat, grid)
     packed = cfg.spec.bits == 4 and codes.shape[-1] % 2 == 0
     if packed:
         codes = pack_codes(codes, 4)
-    return QuantizedTensor(
+    qt = QuantizedTensor(
         codes=codes, scale=grid.scale, zero=grid.zero, bits=cfg.spec.bits,
         group_size=cfg.spec.group_size, packed=packed,
     )
+    if h is not None:
+        # ‖Ĥ‖₀ ≤ s, so the top-s by |value| hold its support; ties (zeros,
+        # when the structured Ĥ has fewer entries) go to the lower index,
+        # in descending order, as the reference's top_k.
+        flat = h.reshape(-1)
+        idx = torch.sort(flat.abs(), descending=True, stable=True).indices[
+            : _outlier_budget(cfg, *w_hat.shape)]
+        qt = dataclasses.replace(
+            qt, outlier_values=flat[idx].to(torch.float16), outlier_idx=idx.to(torch.int32),
+        )
+    return qt
 
 
 def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report: dict) -> dict:
@@ -111,11 +144,12 @@ def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report
     for group in groups.values():
         w3 = torch.stack([it[2] for it in group])
         sig3 = torch.stack([it[3] for it in group])
-        w_hat3, grid3 = _solve_group(w3, sig3, cfg)
-        errs = relative_error(w3, w_hat3, sig3).tolist()
+        w_hat3, h3, grid3 = _solve_group(w3, sig3, cfg)
+        errs = relative_error(w3, w_hat3 if h3 is None else w_hat3 + h3, sig3).tolist()
         for g, (name, key, _, _) in enumerate(group):
             report[key] = float(errs[g])
-            new[name] = _emit_leaf(w_hat3[g], p_blk[name], cfg, grid3[g])
+            new[name] = _emit_leaf(w_hat3[g], None if h3 is None else h3[g], p_blk[name], cfg,
+                                   grid3[g])
     return new
 
 

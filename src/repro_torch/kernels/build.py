@@ -36,7 +36,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "quantease_cd": {
         "qe_block_sweep": ([_P] * 7 + [_I, _I, _I, _L, _L, _I, _I, _I, _P, _I], _I),
-        "qe_block_corr": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I], _I),
+        "qe_block_corr": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I], _I),
+        "qe_outlier_corr": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I], _I),
+        "qe_suffix_resid": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I], _I),
     },
     "dequant_matmul": {
         "dequant_matmul": ([_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I], _I),

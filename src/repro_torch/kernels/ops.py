@@ -15,12 +15,17 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
-from repro_torch.kernels.quantease_cd import block_sweep_cuda, fused_iteration_cuda
+from repro_torch.kernels.quantease_cd import (
+    block_sweep_cuda,
+    fused_iteration_cuda,
+    outlier_iteration_cuda,
+)
 
 __all__ = [
     "KERNELS",
     "quantease_block_sweep",
     "quantease_fused_iteration",
+    "quantease_outlier_iteration",
     "dequant_matmul",
     "launch_counts",
     "reset_launch_counts",
@@ -37,6 +42,11 @@ KERNELS = {
         fused_iteration_cuda,
         "src/repro_torch/kernels/csrc/quantease_cd.cu",
         "src/repro/kernels/quantease_cd.py:222",
+    ),
+    "quantease_outlier_iteration": (
+        outlier_iteration_cuda,
+        "src/repro_torch/kernels/csrc/quantease_cd.cu",
+        "src/repro/kernels/quantease_cd.py:452",
     ),
     "dequant_matmul": (
         dequant_matmul_cuda,
@@ -84,6 +94,17 @@ def quantease_fused_iteration(
     returns ``(w_new_t, base_new_t, delta_new_t)``."""
     args = (base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_prev_t)
     fn = ref.quantease_fused_iteration_ref if _on_cpu(*args) else fused_iteration_cuda
+    return fn(*args, n_levels=n_levels, quantize=quantize, bsz=bsz)
+
+
+def quantease_outlier_iteration(
+    base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_prev_t, dh_prev_t, *,
+    n_levels, quantize, bsz,
+):
+    """One outlier-aware fused CD iteration in the transposed ``(…, p_pad, q)``
+    layout; returns ``(w_new_t, base_new_t, delta_pure_t, r_t)``."""
+    args = (base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_prev_t, dh_prev_t)
+    fn = ref.quantease_outlier_iteration_ref if _on_cpu(*args) else outlier_iteration_cuda
     return fn(*args, n_levels=n_levels, quantize=quantize, bsz=bsz)
 
 

@@ -10,6 +10,9 @@ on the CPU.  Each mirrors a function of the JAX reference:
 * :func:`quantease_fused_iteration_ref` — one iteration of the fused engine,
   ``repro.core.quantease._fused_xla_iteration_step``, in the transposed
   ``(p_pad, q)`` layout;
+* :func:`quantease_outlier_iteration_ref` — one iteration of the
+  outlier-aware fused engine, ``repro.kernels.ref.quantease_outlier_iteration_ref``
+  (and the Pallas ``_outlier_iter_kernel``), in the transposed layout;
 * :func:`dequant_matmul_ref` — ``repro.kernels.ref.dequant_matmul_ref``.
 
 Every function takes optional leading batch dims.
@@ -23,6 +26,7 @@ __all__ = [
     "quantease_block_sweep_ref",
     "quantease_block_sweep_t_ref",
     "quantease_fused_iteration_ref",
+    "quantease_outlier_iteration_ref",
     "dequant_matmul_ref",
 ]
 
@@ -121,6 +125,59 @@ def quantease_fused_iteration_ref(
         base_new[..., sl, :] = beta0
         delta_acc[..., sl, :] = d
     return w_new, base_new, delta_acc
+
+
+def quantease_outlier_iteration_ref(
+    base_t: torch.Tensor,  # (..., p_pad, q) f32 — base invariant entering the iteration
+    sig_t: torch.Tensor,  # (..., p_pad, p_pad) f32 — Σ̃ᵀ (row j = Σ̃[:, j])
+    sig_corr: torch.Tensor,  # Σ̃ᵀ in the matmul dtype (f32 or bf16)
+    w_t: torch.Tensor,  # (..., p_pad, q) f32 — Ŵᵀ entering the iteration
+    scale_t: torch.Tensor,
+    zero_t: torch.Tensor,
+    delta_prev_t: torch.Tensor,  # (..., p_pad, q) f32 — rolling Δᵀ (δŴ_prev − dĤ_prev)
+    dh_prev_t: torch.Tensor,  # (..., p_pad, q) f32 — previous IHT step dĤᵀ
+    *,
+    n_levels: int,
+    quantize: bool,
+    bsz: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One outlier-aware fused CD iteration: the rolling-Δ sweep with the
+    Ĥ step's target move applied lazily, then the exact residual.
+
+    Per block b, in order: ``β0 = base − dĤ_prev + Σ̃ᵀ[blk, :] @ Δ_acc``
+    (operands in ``sig_corr.dtype``, fp32 accumulation), stored as the next
+    base; the intra-block sweep gives Ŵ_new and the pure δŴ; ``δŴ − dĤ_prev``
+    is published into the rolling Δ for later blocks.  At the end
+    ``R = base_out + (Σ̃ᵀ ⊙ M) @ δŴ`` with the block-suffix mask
+    ``M[c, k] = block(k) ≥ block(c)``, in the same operand dtype:
+    ``R = P − Ŵ_new Σ̃``.
+    Returns ``(w_new_t, base_new_t, delta_pure_t, r_t)``.
+    """
+    p_pad = base_t.shape[-2]
+    if p_pad % bsz:
+        raise ValueError(f"p_pad={p_pad} is not a multiple of bsz={bsz}")
+    cdt = sig_corr.dtype
+    as_op = lambda a: a.to(cdt).to(torch.float32)
+    delta_acc = delta_prev_t.clone()
+    w_new = torch.empty_like(w_t)
+    base_new = torch.empty_like(base_t)
+    dpure = torch.empty_like(base_t)
+    for b in range(p_pad // bsz):
+        sl = slice(b * bsz, (b + 1) * bsz)
+        corr = sig_corr[..., sl, :].to(torch.float32) @ as_op(delta_acc)
+        beta0 = base_t[..., sl, :] - dh_prev_t[..., sl, :] + corr
+        new, d = quantease_block_sweep_t_ref(
+            beta0, sig_t[..., sl, sl], w_t[..., sl, :], scale_t[..., sl, :],
+            zero_t[..., sl, :], n_levels=n_levels, quantize=quantize,
+        )
+        w_new[..., sl, :] = new
+        base_new[..., sl, :] = beta0
+        dpure[..., sl, :] = d
+        delta_acc[..., sl, :] = d - dh_prev_t[..., sl, :]
+    blk = torch.arange(p_pad, device=sig_corr.device) // bsz
+    sig_suffix = torch.where(blk[None, :] >= blk[:, None], sig_corr.to(torch.float32), 0.0)
+    r = base_new + sig_suffix @ as_op(dpure)
+    return w_new, base_new, dpure, r
 
 
 def dequant_matmul_ref(

@@ -160,8 +160,6 @@ def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) ->
     if isinstance(w, QuantizedTensor):
         from repro_torch.kernels import ops
 
-        if w.outlier_values is not None or w.outlier_col_idx is not None:
-            raise NotImplementedError("outlier planes arrive with Algorithm 3's slice")
         if w.pack_layout != "linear":
             raise NotImplementedError("the port reads the linear pack layout only")
         lead = x.shape[:-1]
@@ -170,6 +168,18 @@ def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) ->
             x2, w.codes, w.scale, w.zero, packed4=w.packed and w.bits == 4,
             out_dtype=x.dtype, group_size=w.group_size,
         )
+        if w.outlier_values is not None:
+            # Rank-s COO correction after the dequant-GEMM, in fp32:
+            # y[:, rows] += x[:, cols] · vals.
+            idx = w.outlier_idx.long()
+            rows, cols = idx // w.shape[-1], idx % w.shape[-1]
+            contrib = x2[:, cols].to(torch.float32) * w.outlier_values.to(torch.float32)
+            y2 = y2.to(torch.float32).index_add(1, rows, contrib).to(x.dtype)
+        if w.outlier_col_idx is not None:
+            cols = w.outlier_col_idx.long()
+            y2 = (y2.to(torch.float32)
+                  + x2[:, cols].to(torch.float32) @ w.outlier_col_vals.to(torch.float32).T
+                  ).to(x.dtype)
         return y2.reshape(*lead, *(out_shape or (w.shape[0],)))
     d_in = x.shape[-1]
     y = x @ w.reshape(d_in, -1)

@@ -4,6 +4,7 @@ from repro_torch.quant.grid import (
     Grid,
     GridSpec,
     compute_grid,
+    compute_grid_excluding_outliers,
     dequantize_codes,
     quantize_codes,
     quantize_dequantize,
@@ -15,6 +16,7 @@ __all__ = [
     "Grid",
     "GridSpec",
     "compute_grid",
+    "compute_grid_excluding_outliers",
     "dequantize_codes",
     "quantize_codes",
     "quantize_dequantize",

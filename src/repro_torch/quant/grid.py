@@ -22,6 +22,7 @@ __all__ = [
     "GridSpec",
     "Grid",
     "compute_grid",
+    "compute_grid_excluding_outliers",
     "quantize_codes",
     "dequantize_codes",
     "quantize_dequantize",
@@ -92,6 +93,34 @@ def compute_grid(w: torch.Tensor, spec: GridSpec) -> Grid:
     else:
         wmin = torch.clamp_max(_group_reduce(w, spec.group_size, lambda a, d: a.amin(d)), 0.0)
         wmax = torch.clamp_min(_group_reduce(w, spec.group_size, lambda a, d: a.amax(d)), 0.0)
+        scale = torch.clamp_min((wmax - wmin) / n, 1e-12)
+        zero = torch.round(-wmin / scale)
+    return Grid(spec=spec, scale=scale, zero=zero)
+
+
+def compute_grid_excluding_outliers(
+    w: torch.Tensor, spec: GridSpec, outlier_mask: torch.Tensor
+) -> Grid:
+    """Grid over non-outlier weights only (QuantEase §4.3 range shrink).
+
+    ``outlier_mask`` is boolean, shaped like ``w``, True where the weight is
+    an outlier: those weights leave the quantization pool before the
+    per-channel ranges are taken, since Ĥ carries them."""
+    w = w.to(torch.float32)
+    n = spec.n_levels - 1
+    keep = ~outlier_mask
+    zeros = torch.zeros((), dtype=torch.float32, device=w.device)
+    if spec.symmetric:
+        amax = _group_reduce(torch.where(keep, w.abs(), zeros), spec.group_size,
+                             lambda a, d: a.amax(d))
+        scale = torch.clamp_min(2.0 * amax / n, 1e-12)
+        zero = torch.full_like(scale, float(1 << (spec.bits - 1)))
+    else:
+        big = torch.tensor(3.4e38, dtype=torch.float32, device=w.device)
+        wmin = torch.clamp_max(
+            _group_reduce(torch.where(keep, w, big), spec.group_size, lambda a, d: a.amin(d)), 0.0)
+        wmax = torch.clamp_min(
+            _group_reduce(torch.where(keep, w, -big), spec.group_size, lambda a, d: a.amax(d)), 0.0)
         scale = torch.clamp_min((wmax - wmin) / n, 1e-12)
         zero = torch.round(-wmin / scale)
     return Grid(spec=spec, scale=scale, zero=zero)

@@ -4,8 +4,13 @@ parameters.
 A linear layer computes ``y = x @ Wᵀ`` with ``W: (q, p)`` (out, in).  The
 tensor stores ``codes`` (``(q, p)`` uint8, or ``(q, p/2)`` packed two per
 byte for 4 bits) and ``scale``/``zero`` (``(q, n_groups)`` fp32).  Leading
-dims (a period stack) are allowed on every field.  The outlier fields keep
-the reference's schema; the port's path leaves them ``None``.
+dims (a period stack) are allowed on every field.
+
+Outlier-aware QuantEase (Algorithm 3) adds Ĥ as planes beside the codes:
+unstructured outliers as COO (``outlier_idx``: flat int32 ``row·p + col``,
+``outlier_values``: fp16), added after the dequant; structured outliers as
+whole columns (``outlier_col_idx``: ``(c,)`` int32, ``outlier_col_vals``:
+``(q, c)``), which replace the dequantized columns.
 """
 
 from __future__ import annotations
@@ -58,6 +63,20 @@ class QuantizedTensor:
     def grid(self) -> Grid:
         return Grid(spec=self.spec, scale=self.scale, zero=self.zero)
 
+    def bits_per_weight(self) -> float:
+        """Average storage bits per weight with the outlier overhead (paper
+        §5.4 accounting: an unstructured outlier costs a 16-bit value and a
+        32-bit index, a structured one a 16-bit value)."""
+        n = 1
+        for d in self.shape:
+            n *= d
+        total = float(n * self.bits) + self.scale.numel() * 32 * 2  # scales + zeros
+        if self.outlier_values is not None:
+            total += self.outlier_values.numel() * (16 + 32)
+        if self.outlier_col_idx is not None:
+            total += self.outlier_col_vals.numel() * 16
+        return total / n
+
     def map_arrays(self, fn) -> "QuantizedTensor":
         """Apply ``fn`` to every array field (slicing a period, a device move)."""
         kw = {
@@ -69,7 +88,18 @@ class QuantizedTensor:
 
 
 def dequantize_tensor(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
-    if qt.outlier_values is not None or qt.outlier_col_idx is not None:
-        raise NotImplementedError("outlier planes arrive with Algorithm 3's slice")
-    scale, zero = qt.grid.per_column(qt.shape[-1])
-    return ((qt.unpacked_codes().to(torch.float32) - zero) * scale).to(dtype)
+    """``(codes − z)·s``, then the COO outliers added and the structured
+    outlier columns set, in fp32; leading (stack) dims allowed."""
+    q, p = qt.shape[-2:]
+    scale, zero = qt.grid.per_column(p)
+    w = (qt.unpacked_codes().to(torch.float32) - zero) * scale
+    if qt.outlier_values is not None:
+        flat = w.reshape(-1, q * p)
+        idx = qt.outlier_idx.reshape(flat.shape[0], -1).long()
+        vals = qt.outlier_values.reshape(flat.shape[0], -1).to(torch.float32)
+        w = flat.scatter_add(1, idx, vals).reshape(w.shape)
+    if qt.outlier_col_idx is not None:
+        cols = qt.outlier_col_idx.long()
+        cols = cols[..., None, :].expand(*cols.shape[:-1], q, cols.shape[-1])
+        w = w.scatter(-1, cols, qt.outlier_col_vals.to(torch.float32))
+    return w.to(dtype)

@@ -13,22 +13,18 @@ __all__ = ["quantize_params_for_serving"]
 
 
 def _stack_qts(leaves: list) -> QuantizedTensor:
-    first = leaves[0]
-    static = lambda l: (l.bits, l.group_size, l.packed, l.pack_layout, l.pack_tile,
-                        tuple(l.codes.shape), tuple(l.scale.shape))
+    """Stack one leaf's per-period QuantizedTensors: codes, grid and any
+    outlier planes gain a leading period dim."""
+    values = lambda l: [getattr(l, f.name) for f in dataclasses.fields(l)]
+    static = lambda l: tuple(tuple(v.shape) if isinstance(v, torch.Tensor) else v for v in values(l))
     if len({static(l) for l in leaves}) != 1:
         raise NotImplementedError(
-            "stacking QuantizedTensors of different bits or layouts (mixed "
-            "precision) is not ported yet"
+            "stacking QuantizedTensors of different bits, layouts or outlier "
+            "budgets (mixed precision) is not ported yet"
         )
-    if any(l.outlier_values is not None or l.outlier_col_idx is not None for l in leaves):
-        raise NotImplementedError("outlier planes arrive with Algorithm 3's slice")
-    return dataclasses.replace(
-        first,
-        codes=torch.stack([l.codes for l in leaves]),
-        scale=torch.stack([l.scale for l in leaves]),
-        zero=torch.stack([l.zero for l in leaves]),
-    )
+    first = leaves[0]
+    arrays = [f.name for f in dataclasses.fields(first) if isinstance(getattr(first, f.name), torch.Tensor)]
+    return dataclasses.replace(first, **{f: torch.stack([getattr(l, f) for l in leaves]) for f in arrays})
 
 
 def _stack_trees(trees: list):
@@ -42,7 +38,8 @@ def _stack_trees(trees: list):
 
 def quantize_params_for_serving(plan, params: dict, solver_qt_dec: list, *, device="cuda") -> dict:
     """Restack per-period block lists (``ptq_quantize_model(..., emit="qt")``'s
-    ``["dec"]``) into the stacked layout the model runs, for uniform bits.
+    ``["dec"]``) into the stacked layout the model runs, for uniform bits;
+    outlier planes (COO or columns) stack with the codes.
     The params must live on ``device`` (default ``"cuda"``)."""
     require_on_device(params["embed"], device)
     out = dict(params)
