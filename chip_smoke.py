@@ -10,7 +10,11 @@ Phases (any failed check exits non-zero; no phase is skipped):
    path's shapes, and times kernel, plain version and (where one exists) a
    single PyTorch library call with CUDA events; the outlier-aware iteration
    (Algorithm 3) also at its three solver-group shapes, with a 25-iteration
-   solve of kernel path against plain path;
+   solve of kernel path against plain path; the dequant-GEMM also at the
+   decode batch (m = 8); paged attention (kernel 5) at the serving shape
+   (8 sequences of up to 1536 tokens, 32 kv heads of 96) in bf16, int8 and
+   int4 pages, at a long shape (32 x 4096 tokens, bf16 and int4) and at a
+   GQA shape with a window and a softcap;
 4. small-input reference: ``tests/test_torch_cuda.py`` on the card, where a
    reduced Phi-3 quantized and scored on the card (kernels) and on the CPU
    (plain versions) must agree, and each kernel matches its plain version
@@ -20,7 +24,13 @@ Phases (any failed check exits non-zero; no phase is skipped):
    outlier-aware QuantEase (1 % outliers) at 3 bits, each through the
    serving restack and perplexity; mean relative error must order
    qe_outlier < quantease < rtn at 3 bits, the outlier artifact must carry
-   its COO planes, and every kernel's launch counter must rise.
+   its COO planes, and every PTQ kernel's launch counter must rise;
+6. serving: the 4-bit QuantEase artifact of phase 5 answers 24 requests
+   (prompts of 16-1024 tokens, 4 sharing a 256-token prefix, 32 new tokens
+   each) on the paged engine with bf16, int8 and int4 KV, again on bf16
+   (repeat: same tokens), on bf16 with 40 % of the pages (preemption), and on
+   the contiguous engine; paged and contiguous first-decode logits must agree,
+   and kernel 5 must launch once per decode step and period.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -69,6 +79,31 @@ MAIN_OVERRIDES = dict(n_periods=2)  # depth cut: 2 of 32 decoder layers
 # (method, bits) of the main path's PTQ runs, in order.
 MAIN_RUNS = (("rtn", 4), ("quantease", 4), ("rtn", 3), ("quantease", 3), ("qe_outlier", 3))
 MAIN_BATCH, MAIN_SEQ, MAIN_CALIB_BATCHES, MAIN_EVAL_BATCHES = 4, 512, 4, 2
+SERVED_RUN = "quantease@4"  # the artifact phase 6 serves
+GEMM_DECODE_M = 8  # the serving GEMM at decode: one token per lane, max_batch 8
+# Kernel 5's shapes: (label, B, KVp, G, hd, max length, window, softcap, page kinds).
+PAGE = 16
+PAGED_SHAPES = (
+    ("serving", 8, 32, 1, 96, 1536, None, None, ("bf16", "int8", "int4")),
+    ("long", 32, 32, 1, 96, 4096, None, None, ("bf16", "int4")),
+    ("gqa", 8, 8, 4, 128, 1536, 256, 50.0, ("bf16", "int8", "int4")),
+)
+PAGED_ATOL = 2e-2  # the kernel keeps p in fp32, the plain version rounds it to bf16
+# Phase 6: the serving traffic and engines.
+SERVE_REQUESTS, SERVE_PROMPT_LO, SERVE_PROMPT_HI, SERVE_NEW_TOKENS = 24, 16, 1024, 32
+SERVE_PREFIX, SERVE_N_SHARED = 256, 4
+SERVE_PAGED = dict(max_batch=8, max_seq=1536, page_size=PAGE, prefill_chunk=128)
+SERVE_CONTIG = dict(max_batch=8, max_seq=1536)
+SERVE_SMALL_POOL = 0.3  # of the ample page count: forces preemption (0.4 does not)
+# First-decode logits, paged bf16 against contiguous bf16, as a share of the
+# contiguous run's max |logit| (bf16 activations; kernel 5 keeps p in fp32
+# where decode_attention rounds it to bf16); also the margin below which
+# the greedy streams may part.
+SERVE_LOGIT_TOL = 2e-2
+# int4/int8 KV against bf16: max |Δ logit| / max |logit| below this.  int4's
+# step (max/7) is 18x int8's (max/127); at full width int4 moves the first
+# logits by ~0.26 of max |logit| and int8 by ~0.02.
+SERVE_KV_BOUND = 0.5
 
 
 def fail(msg: str) -> None:
@@ -122,7 +157,8 @@ def device_profile(fn) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         name = next((k for k in ("qe_block_corr_kernel", "qe_block_sweep_kernel",
-                                 "qe_suffix_resid_kernel", "dequant_matmul_kernel") if k in e.name),
+                                 "qe_suffix_resid_kernel", "dequant_matmul_kernel",
+                                 "paged_attention_kernel") if k in e.name),
                     "torch")
         by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     if not by_kernel:
@@ -492,6 +528,36 @@ def check_dequant_matmul(gen, dev, detail):
             tot[k] += count * v
         tot["bytes"] += count * n_bytes
         tot["flop"] += count * n_flop
+    # The same three shapes at the decode batch (m = 8): 7/8 of each 64-row
+    # tile idles; timed here, not redesigned.
+    detail["dequant_matmul_decode"] = []
+    dec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flop=0.0)
+    for (q, p), count in GEMM_PATH_SHAPES:
+        x, codes, scale, zero = problem(q, p, 1)
+        x = x[:GEMM_DECODE_M].contiguous()
+        kc = pack_codes(codes, 4)
+        y = ops.dequant_matmul(x, kc, scale, zero, packed4=True, out_dtype=torch.bfloat16)
+        y_ref = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        check(float((y.float() - y_ref).abs().max()) <= 1e-2 * float(y_ref.abs().max()),
+              f"dequant_matmul decode shape ({q},{p})")
+        ms = cuda_ms(lambda: ops.dequant_matmul(x, kc, scale, zero, packed4=True, out_dtype=torch.bfloat16),
+                     reps=50)
+        plain = cuda_ms(lambda: ops_plain(x, kc, scale, zero), reps=50)
+        xf, wt = x.float(), ((codes.float() - zero) * scale).T.contiguous()
+        lib = cuda_ms(lambda: torch.matmul(xf, wt), reps=50)
+        n_bytes = GEMM_DECODE_M * p * 2 + q * p // 2 + 2 * q * 4 + GEMM_DECODE_M * q * 2
+        b_ms, b_by = bound(n_bytes, 2 * GEMM_DECODE_M * q * p)
+        detail["dequant_matmul_decode"].append(dict(m=GEMM_DECODE_M, q=q, p=p, ms=ms, plain_ms=plain,
+                                                    library_ms=lib, bound_ms=b_ms, per_layer=count))
+        print(f"[kernel] dequant_matmul decode (m={GEMM_DECODE_M}, {q}, {p}) packed4 bf16: ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bytes", n_bytes)):
+            dec[k] += count * v
+    b_dec, _ = bound(dec["bytes"], 0)
+    print(f"[kernel] dequant_matmul decode, one decoder layer's 7 linears at m={GEMM_DECODE_M}: "
+          f"ms={dec['ms']:.4f} plain_ms={dec['plain_ms']:.4f} library_ms={dec['library_ms']:.4f} "
+          f"bound_ms={b_dec:.4f}", flush=True)
     b_ms, b_by = bound(tot["bytes"], tot["flop"])
     return dict(max_abs_err=err_max, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
                 bound_by=b_by, library_ms=tot["library_ms"],
@@ -508,6 +574,117 @@ def ops_plain(x, kc, scale, zero):
 
     codes = unpack_codes(kc, 4, kc.shape[-1] * 2)
     return ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.bfloat16)
+
+
+def paged_problem(gen, dev, B, KVp, G, hd, max_len, kind):
+    """Phase 3's kernel-5 inputs: bf16 pages quantized as the engine writes
+    them (``_kv_quantize`` / ``_kv_quantize4``), each sequence on its own
+    pages, table entries past its length on the null page 0."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    n_pgs = -(-max_len // PAGE)
+    P = 1 + B * n_pgs
+    q = torch.randn(B, KVp, G, hd, generator=gen, device=dev).to(torch.bfloat16)
+    if max_len == 1536:  # the serving shape: lengths drawn from 1..1536
+        lengths = torch.randint(1, max_len + 1, (B,), generator=gen, device=dev)
+    else:
+        lengths = torch.full((B,), max_len, device=dev)
+    kv = [torch.randn(P, PAGE, KVp, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2)]
+    scales = [None, None]
+    if kind != "bf16":
+        quantize = M._kv_quantize4 if kind == "int4" else M._kv_quantize
+        (k, ks), (v, vs) = quantize(kv[0]), quantize(kv[1])
+        kv, scales = [k, v], [ks, vs]
+    pages = torch.arange(1, P, device=dev, dtype=torch.int32).reshape(B, n_pgs)
+    used = (lengths[:, None] + PAGE - 1) // PAGE
+    table = torch.where(torch.arange(n_pgs, device=dev)[None] < used, pages, 0).to(torch.int32)
+    return dict(q=q, k_pages=kv[0], v_pages=kv[1], page_table=table,
+                lengths=lengths.to(torch.int32), k_scale_pages=scales[0], v_scale_pages=scales[1])
+
+
+def paged_bytes_flop(d, kind, window):
+    """Kernel 5's least traffic and work: each valid K/V row (and its scales)
+    read once, q read and the output written once; 4·G·hd flop per valid
+    position and kv head (the two dots)."""
+    B, KVp, G, hd = d["q"].shape
+    lengths = d["lengths"].long()
+    rows = int((lengths if window is None else lengths.clamp(max=window)).sum())
+    row_bytes = KVp * (hd * {"bf16": 2, "int8": 1, "int4": 0.5}[kind] + (4 if kind != "bf16" else 0))
+    n_bytes = 2 * rows * row_bytes + 2 * B * KVp * G * hd * 2
+    return n_bytes, 4 * G * hd * KVp * rows
+
+
+def sdpa_yardstick(d):
+    """The bf16 K/V of ``d`` gathered contiguous, and one
+    ``scaled_dot_product_attention`` call over it with a length mask (the
+    port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, KVp, G, hd = d["q"].shape
+    S = d["page_table"].shape[1] * PAGE
+    gather = lambda pages: pages[d["page_table"].long()].reshape(B, S, KVp, hd).transpose(1, 2).contiguous()
+    k, v = gather(d["k_pages"]), gather(d["v_pages"])
+    q = d["q"].reshape(B, KVp * G, 1, hd)
+    if G > 1:
+        k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    mask = (torch.arange(S, device=k.device)[None] < d["lengths"][:, None])[:, None, None]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+
+
+def check_paged_attention(gen, dev, detail):
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    detail["paged_attention"] = []
+    err_max, row_of_path = 0.0, None
+    for label, B, KVp, G, hd, max_len, window, cap, kinds in PAGED_SHAPES:
+        for kind in kinds:
+            d = paged_problem(gen, dev, B, KVp, G, hd, max_len, kind)
+            call = lambda fn: fn(d["q"], d["k_pages"], d["v_pages"], d["page_table"], d["lengths"],
+                                 window=window, attn_softcap=cap, k_scale_pages=d["k_scale_pages"],
+                                 v_scale_pages=d["v_scale_pages"])
+            out = call(ops.paged_attention)
+            want = call(ref.paged_attention_ref)
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(out.float()).all()) and err <= PAGED_ATOL,
+                  f"paged_attention {label} {kind}: max abs err {err} > {PAGED_ATOL}")
+            err_max = max(err_max, err)
+            ms = cuda_ms(lambda: call(ops.paged_attention), reps=20)
+            # The kernel's own device time: at the serving shape it is shorter
+            # than the wrapper's host work, which the events above include.
+            prof = device_profile(lambda: [call(ops.paged_attention) for _ in range(20)])
+            dev_ms = prof.get("by_kernel", {}).get("paged_attention_kernel")
+            dev_ms = None if dev_ms is None else dev_ms / 20
+            plain = cuda_ms(lambda: call(ref.paged_attention_ref), reps=5, warmup=1)
+            lib = sdpa_yardstick(d) if kind == "bf16" else None
+            n_bytes, n_flop = paged_bytes_flop(d, kind, window)
+            b_ms, b_by = bound(n_bytes, n_flop)
+            row = dict(shape=label, B=B, KVp=KVp, G=G, hd=hd, max_len=max_len, window=window,
+                       softcap=cap, kind=kind, tokens=int(d["lengths"].sum()), max_abs_err=err, ms=ms,
+                       device_ms=dev_ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+            detail["paged_attention"].append(row)
+            print(f"[kernel] paged_attention {label} B={B} KVp={KVp} G={G} hd={hd} {kind} "
+                  f"(window {window}, softcap {cap}, {row['tokens']} tokens): max_abs_err={err:.3g} "
+                  f"ms={ms:.4f} device_ms={dev_ms if dev_ms is None else round(dev_ms, 4)} plain_ms={plain:.3f} "
+                  f"library_ms={lib if lib is None else round(lib, 4)} "
+                  f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            if (label, kind) == ("serving", "bf16"):
+                row_of_path = row
+            del d, out, want
+            torch.cuda.empty_cache()
+    # The kernel's time is its device time (the profiler's); ``call_ms`` is the
+    # wrapper call timed with events, host work included.
+    r = row_of_path
+    return dict(max_abs_err=err_max, ms=r["device_ms"] if r["device_ms"] is not None else r["ms"],
+                call_ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                shape="one decode step's attention at the serving shape: 8 sequences of 1-1536 "
+                      "tokens, 32 kv heads of 96, bf16 pages of 16")
 
 
 # ---------------------------------------------------------------------------
@@ -586,6 +763,8 @@ def main_path(dev, detail):
         q_wq, p_wq = wq.shape[-2:]
         coo[label] = (None if wq.outlier_idx is None else tuple(wq.outlier_idx.shape),
                       (cfg.n_periods, max(int(OUTLIER_FRAC * q_wq * p_wq), 1)))
+        if label == SERVED_RUN:
+            artifact = served
         del qparams, served, wq
     dense_ppl = perplexity_on_stream(plan, params, eval_fn, n_batches=MAIN_EVAL_BATCHES, device=dev)
     torch.cuda.synchronize()
@@ -614,7 +793,7 @@ def main_path(dev, detail):
     print(f"[main] qe_outlier@3 serving wq carries COO planes of shape {have}")
     print(f"[main] launches during the main path: {counts}  ({t_main:.1f}s)")
     for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        check(n > 0 or name == "paged_attention", f"kernel {name} was not launched on the main path")
     detail["main"] = dict(
         layers={m: dict(zip(r[0], map(float, r[0].values()))) for m, r in results.items()},
         ppl={m: r[1] for m, r in results.items()} | {"dense": dense_ppl},
@@ -622,6 +801,170 @@ def main_path(dev, detail):
         blocks=blocks,
         seconds=t_main,
     )
+    return counts, plan, artifact
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: serving the QuantEase artifact at full width
+# ---------------------------------------------------------------------------
+
+
+def serve_traffic(vocab: int) -> list:
+    """24 prompts of 16-1024 tokens (numpy seed 0); 4 prompts longer than
+    the prefix, spread over the arrival order so that later ones arrive
+    after an earlier one has prefilled, share a 256-token prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SERVE_PROMPT_LO, SERVE_PROMPT_HI + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lengths]
+    prefix = rng.integers(0, vocab, SERVE_PREFIX).astype(np.int32)
+    long = [i for i, p in enumerate(prompts) if len(p) > SERVE_PREFIX + PAGE]
+    for i in long[:: max(len(long) // SERVE_N_SHARED, 1)][:SERVE_N_SHARED]:
+        prompts[i][:SERVE_PREFIX] = prefix
+    return prompts
+
+
+def serve_run(label, make_engine, prompts):
+    """Submit every prompt at once, run to the end, and collect the run's
+    numbers (engine-clock times: ``time.monotonic``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Request
+
+    eng = make_engine()
+    t0 = time.monotonic()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS))
+    fin = eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    reqs = sorted(fin, key=lambda r: r.rid)
+    ttft = np.array([r.first_token_t - r.submit_t for r in reqs]) * 1e3
+    n_tok = sum(len(r.output) for r in reqs)
+    paged = hasattr(eng, "pool")
+    stats = dict(
+        run=label, requests=len(reqs), wall_s=wall, tokens=n_tok,
+        decode_steps=eng.n_decode_steps, decode_s=eng.decode_seconds,
+        decode_tok_s=n_tok / eng.decode_seconds, e2e_tok_s=n_tok / wall,
+        ms_per_step=eng.decode_seconds / eng.n_decode_steps * 1e3,
+        ttft_p50_ms=float(np.median(ttft)), ttft_p90_ms=float(np.percentile(ttft, 90)),
+        prefill_chunks=eng.n_prefill_chunks if paged else eng.n_prefills,
+        prefill_s=eng.prefill_seconds if paged else None,
+        prefix_hit_tokens=eng.n_prefix_hit_tokens if paged else 0,
+        preemptions=eng.n_preemptions if paged else 0,
+        kv_read_bytes=eng.kv_read_bytes() if paged else None,
+        statuses=sorted({r.status for r in reqs}),
+    )
+    print(f"[serve] {label}: {stats['requests']} requests, {n_tok} tokens in {wall:.2f}s; "
+          f"decode {stats['decode_tok_s']:.1f} tok/s, {stats['ms_per_step']:.2f} ms/step over "
+          f"{eng.n_decode_steps} steps; TTFT p50 {stats['ttft_p50_ms']:.1f} ms p90 "
+          f"{stats['ttft_p90_ms']:.1f} ms; prefill chunks {stats['prefill_chunks']}; prefix-hit "
+          f"tokens {stats['prefix_hit_tokens']}; preemptions {stats['preemptions']}; "
+          f"kv_read_bytes {stats['kv_read_bytes']}; statuses {stats['statuses']}", flush=True)
+    outputs = {r.rid: r.output for r in reqs}
+    return stats, outputs, eng
+
+
+def agree_under_margin(trace_a, trace_b, out_a, out_b, tol_of):
+    """Per request: the number of leading tokens compared, and whether they
+    agree up to the first step where either run's top-2 margin is below
+    ``tol_of(logits)`` (a near-tie there may go either way)."""
+    import numpy as np
+
+    bad = []
+    for rid in out_a:
+        for j, (la, lb) in enumerate(zip(trace_a[rid], trace_b[rid])):
+            if min(np.diff(np.sort(l)[-2:])[0] for l in (la, lb)) < tol_of(la):
+                break
+            if out_a[rid][j] != out_b[rid][j]:
+                bad.append((rid, j))
+                break
+    return bad
+
+
+def serving(dev, detail, plan, artifact):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServingEngine, ServingEngine
+
+    cfg = plan.cfg
+    prompts = serve_traffic(cfg.vocab)
+    plans = {kv: M.make_plan(cfg, kv_cache_dtype=kv) for kv in ("bf16", "int8", "int4")}
+    ample = 1 + SERVE_PAGED["max_batch"] * -(-SERVE_PAGED["max_seq"] // PAGE)
+    small = int(SERVE_SMALL_POOL * ample)
+    paged = lambda kv, **kw: lambda: PagedServingEngine(plans[kv], artifact, device=dev,
+                                                         **SERVE_PAGED, **kw)
+    runs = (
+        ("paged bf16", paged("bf16", record_logits=True)),
+        ("paged bf16 repeat", paged("bf16")),
+        ("paged int8", paged("int8", record_logits=True)),
+        ("paged int4", paged("int4", record_logits=True)),
+        (f"paged bf16, {small} of {ample} pages", paged("bf16", n_pages=small)),
+        ("contiguous bf16", lambda: ServingEngine(plans["bf16"], artifact, device=dev,
+                                                  record_logits=True, **SERVE_CONTIG)),
+    )
+    ops.reset_launch_counts()
+    t_serve = time.monotonic()
+    res = {}
+    for label, make in runs:
+        res[label] = serve_run(label, make, prompts)
+    t_serve = time.monotonic() - t_serve
+    counts = ops.launch_counts()
+    print(f"[serve] launches during serving: {counts}  ({t_serve:.1f}s)", flush=True)
+    # Where a paged bf16 run's time goes: its first 8 requests under the
+    # profiler (device busy share, device time by kernel); not counted above.
+    prof = device_profile(lambda: serve_run("paged bf16, 8 requests, profiled", paged("bf16"),
+                                            prompts[:SERVE_PAGED["max_batch"]]))
+    print("[profile] paged bf16 serving: " + (
+        "no device time in the trace" if not prof else
+        f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms (busy {prof['busy']:.3f}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(prof["by_kernel"].items()))), flush=True)
+
+    for label, (stats, outputs, eng) in res.items():
+        allowed = {"completed", "preempted_resumed"} if "pages" in label else {"completed"}
+        check(stats["requests"] == SERVE_REQUESTS and set(stats["statuses"]) <= allowed
+              and all(len(o) == SERVE_NEW_TOKENS for o in outputs.values()),
+              f"{label}: requests {stats['requests']}, statuses {stats['statuses']}")
+    small_label = runs[4][0]
+    check(res[small_label][0]["preemptions"] >= 1, f"{small_label}: no preemption")
+    check(res["paged bf16 repeat"][1] == res["paged bf16"][1], "the repeat bf16 paged run gave other tokens")
+    bf, contig = res["paged bf16"][2], res["contiguous bf16"][2]
+    first = lambda eng: {rid: tr[0] for rid, tr in eng.logit_trace.items()}
+    f_bf, f_ct = first(bf), first(contig)
+    scale = max(float(np.abs(l).max()) for l in f_ct.values())
+    d_ct = max(float(np.abs(f_bf[i] - f_ct[i]).max()) for i in f_ct)
+    bad = agree_under_margin(contig.logit_trace, bf.logit_trace, res["contiguous bf16"][1],
+                             res["paged bf16"][1], lambda l: SERVE_LOGIT_TOL * float(np.abs(l).max()))
+    same = np.mean([res["paged bf16"][1][i] == res["contiguous bf16"][1][i] for i in range(SERVE_REQUESTS)])
+    d_q = {kv: max(float(np.abs(first(res[f"paged {kv}"][2])[i] - f_bf[i]).max()) for i in f_bf)
+           for kv in ("int8", "int4")}
+    paged_steps = sum(r[0]["decode_steps"] for label, r in res.items() if label.startswith("paged"))
+    print(f"[serve] paged bf16 vs contiguous: first-decode max |Δ logit| {d_ct:.4g} (max |logit| "
+          f"{scale:.4g}, tolerance {SERVE_LOGIT_TOL * scale:.4g}); identical outputs "
+          f"{same:.3f} of requests; tokens parting above the margin: {bad}; KV quantization "
+          f"max |Δ logit| int8 {d_q['int8']:.4g}, int4 {d_q['int4']:.4g} (bound "
+          f"{SERVE_KV_BOUND * scale:.4g})", flush=True)
+    check(d_ct <= SERVE_LOGIT_TOL * scale,
+          f"paged vs contiguous first-decode logits differ by {d_ct} (max |logit| {scale})")
+    check(not bad, f"paged vs contiguous tokens part above the margin at {bad}")
+    check(d_q["int8"] < d_q["int4"] < SERVE_KV_BOUND * scale,
+          f"KV quantization perturbs first-decode logits by {d_q} (max |logit| {scale})")
+    check(counts["paged_attention"] == paged_steps * cfg.n_periods * len(cfg.pattern),
+          f"paged_attention launched {counts['paged_attention']} times for {paged_steps} paged "
+          f"decode steps x {cfg.n_periods} periods")
+    check(counts["dequant_matmul"] > 0, "the serving GEMM did not launch while serving")
+    detail["serving"] = dict(
+        runs=[r[0] for r in res.values()], seconds=t_serve, launches=counts,
+        first_decode_max_diff_contiguous=d_ct, logit_scale=scale, identical_share=float(same),
+        kv_quant_max_diff=d_q, prompt_lengths=[len(p) for p in prompts], profile=prof,
+    )
+    for eng in (r[2] for r in res.values()):
+        eng.logit_trace.clear()
     return counts
 
 
@@ -659,11 +1002,16 @@ def main() -> None:
         "quantease_fused_iteration": check_fused_iteration(gen, dev, detail),
         "quantease_outlier_iteration": check_outlier_iteration(gen, dev, detail),
         "dequant_matmul": check_dequant_matmul(gen, dev, detail),
+        "paged_attention": check_paged_attention(gen, dev, detail),
     }
     torch.cuda.empty_cache()
     card_tests()
     torch.cuda.empty_cache()
-    counts = main_path(dev, detail)
+    counts_ptq, plan, artifact = main_path(dev, detail)
+    counts_serve = serving(dev, detail, plan, artifact)
+    # Each path's counts were read just after it ran, from 0.
+    counts = {k: counts_ptq[k] + counts_serve[k] for k in counts_ptq}
+    detail["launches"] = dict(ptq=counts_ptq, serving=counts_serve)
 
     kernels = []
     for name, (_, source, replaces) in ops.KERNELS.items():
@@ -672,7 +1020,7 @@ def main() -> None:
             name=name, route="cuda", source=source, replaces=replaces, launches=counts[name],
             max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=m["library_ms"],
-            shape=m["shape"],
+            shape=m["shape"], **({"call_ms": m["call_ms"]} if "call_ms" in m else {}),
         ))
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

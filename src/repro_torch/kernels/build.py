@@ -25,13 +25,14 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "quantease_cd": _CSRC / "quantease_cd.cu",
     "dequant_matmul": _CSRC / "dequant_matmul.cu",
+    "paged_attention": _CSRC / "paged_attention.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of every exported function: (argtypes, restype).
 _SIGNATURES = {
     "quantease_cd": {
@@ -42,6 +43,9 @@ _SIGNATURES = {
     },
     "dequant_matmul": {
         "dequant_matmul": ([_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I], _I),
+    },
+    "paged_attention": {
+        "paged_attention": ([_P, _I, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_F, _P, _I], _I),
     },
 }
 

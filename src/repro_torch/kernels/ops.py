@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
 from repro_torch.kernels.quantease_cd import (
     block_sweep_cuda,
     fused_iteration_cuda,
@@ -27,6 +28,7 @@ __all__ = [
     "quantease_fused_iteration",
     "quantease_outlier_iteration",
     "dequant_matmul",
+    "paged_attention",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -52,6 +54,11 @@ KERNELS = {
         dequant_matmul_cuda,
         "src/repro_torch/kernels/csrc/dequant_matmul.cu",
         "src/repro/kernels/dequant_matmul.py:103",
+    ),
+    "paged_attention": (
+        paged_attention_cuda,
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:130",
     ),
 }
 
@@ -124,3 +131,25 @@ def dequant_matmul(
     return dequant_matmul_cuda(
         x, codes, scale, zero, packed4=packed4, out_dtype=out_dtype, group_size=group_size
     )
+
+
+def paged_attention(
+    q, k_pages, v_pages, page_table, lengths, *,
+    window=None, attn_softcap=None, k_scale_pages=None, v_scale_pages=None,
+):
+    """Paged decode attention (the serving hot path); returns (B, KVp, G, hd).
+
+    Quantized pages must come with both scale planes, and uint8 pages are
+    int4 packed fold-in-half: raw codes never enter the dots undecoded."""
+    quantized = k_scale_pages is not None
+    if (v_scale_pages is None) != (k_scale_pages is None):
+        raise ValueError("k_scale_pages and v_scale_pages must be passed together")
+    if k_pages.dtype == torch.int8 and not quantized:
+        raise ValueError("int8 KV pages require scale planes (dequant-in-kernel)")
+    if k_pages.dtype == torch.uint8 and not quantized:
+        raise ValueError("int4-packed KV pages require scale planes (dequant-in-kernel)")
+    args = (q, k_pages, v_pages, page_table, lengths)
+    scales = (k_scale_pages, v_scale_pages) if quantized else ()
+    fn = ref.paged_attention_ref if _on_cpu(*args, *scales) else paged_attention_cuda
+    return fn(*args, window=window, attn_softcap=attn_softcap,
+              k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)

@@ -13,7 +13,8 @@ on the CPU.  Each mirrors a function of the JAX reference:
 * :func:`quantease_outlier_iteration_ref` — one iteration of the
   outlier-aware fused engine, ``repro.kernels.ref.quantease_outlier_iteration_ref``
   (and the Pallas ``_outlier_iter_kernel``), in the transposed layout;
-* :func:`dequant_matmul_ref` — ``repro.kernels.ref.dequant_matmul_ref``.
+* :func:`dequant_matmul_ref` — ``repro.kernels.ref.dequant_matmul_ref``;
+* :func:`paged_attention_ref` — ``repro.kernels.ref.paged_attention_ref``.
 
 Every function takes optional leading batch dims.
 """
@@ -28,6 +29,7 @@ __all__ = [
     "quantease_fused_iteration_ref",
     "quantease_outlier_iteration_ref",
     "dequant_matmul_ref",
+    "paged_attention_ref",
 ]
 
 
@@ -200,3 +202,40 @@ def dequant_matmul_ref(
     idx = torch.arange(p, device=codes.device) // gsz
     w = (codes.to(torch.float32) - zero[:, idx]) * scale[:, idx]
     return (x.to(torch.float32) @ w.T).to(out_dtype)
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # (B, KVp, G, hd): one decode token per sequence
+    k_pages: torch.Tensor,  # (n_pages, psz, KVp, hd) bf16/f32/int8, or (…, hd/2) uint8 int4
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, n_pgs) int32; padded entries point at the null page
+    lengths: torch.Tensor,  # (B,) int32: valid tokens per sequence
+    *,
+    window=None,
+    attn_softcap=None,
+    k_scale_pages=None,  # (n_pages, psz, KVp, 1) f32
+    v_scale_pages=None,
+) -> torch.Tensor:
+    """Paged decode attention: gather each sequence's pages in position order
+    (unpacking fold-in-half int4 pages to int8 codes) and run
+    :func:`repro_torch.models.common.decode_attention`, so a paged read is
+    bit-identical to the contiguous read of the same KV.  Returns
+    (B, KVp, G, hd)."""
+    from repro_torch.models.common import decode_attention
+    from repro_torch.quant.pack import kv_unpack_int4
+
+    B, KVp, G, hd = q.shape
+    S = page_table.shape[1] * k_pages.shape[1]
+    pt = page_table.long()
+    k, v = k_pages[pt], v_pages[pt]
+    if k_pages.dtype == torch.uint8:
+        k, v = kv_unpack_int4(k), kv_unpack_int4(v)
+    k, v = k.reshape(B, S, KVp, hd), v.reshape(B, S, KVp, hd)
+    ks = vs = None
+    if k_scale_pages is not None:
+        ks = k_scale_pages[pt].reshape(B, S, KVp, 1)
+        vs = v_scale_pages[pt].reshape(B, S, KVp, 1)
+    return decode_attention(
+        q[:, None], k, v, lengths, window=window, attn_softcap=attn_softcap,
+        k_scale=ks, v_scale=vs,
+    )[:, 0]

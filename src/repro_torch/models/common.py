@@ -35,6 +35,7 @@ __all__ = [
     "capture_gram_stats",
     "apply_linear",
     "flash_attention",
+    "decode_attention",
 ]
 
 
@@ -191,7 +192,7 @@ def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) ->
 
 
 # --------------------------------------------------------------------------
-# Attention (train / teacher-forced mode)
+# Attention
 # --------------------------------------------------------------------------
 
 
@@ -203,6 +204,7 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     attn_softcap: Optional[float] = None,
+    q_offset: int = 0,
     q_chunk: int = 512,
 ) -> torch.Tensor:
     """Softmax attention in grouped-head layout, query chunk by query chunk.
@@ -211,7 +213,10 @@ def flash_attention(
     dtype, scores and the P·V sum are fp32 over the (exact) upcast operands,
     P is cast to v's dtype before the second product, normalisation comes
     last.  Each query chunk sees all keys at once, which is the reference's
-    single-kv-chunk case (Sk ≤ 1024) exactly.  Returns (B, Sq, KVp, G, hd).
+    single-kv-chunk case (Sk ≤ 1024) exactly; above that the reference's
+    online softmax over kv chunks differs from it by fp32 rounding.
+    ``q_offset`` is the absolute position of the first query (chunked
+    prefill attends a suffix of the keys).  Returns (B, Sq, KVp, G, hd).
     """
     B, Sq, KVp, G, hd = q.shape
     Sk = k.shape[1]
@@ -223,7 +228,7 @@ def flash_attention(
         qb = (q[:, q0 : q0 + q_chunk] * scale).to(q.dtype).to(torch.float32)
         s = torch.einsum("bqkgd,btkd->bkgqt", qb, kf)
         s = softcap(s, attn_softcap)
-        q_pos = q0 + torch.arange(qb.shape[1], device=q.device)
+        q_pos = q_offset + q0 + torch.arange(qb.shape[1], device=q.device)
         mask = torch.ones(qb.shape[1], Sk, dtype=torch.bool, device=q.device)
         if causal:
             mask &= q_pos[:, None] >= k_pos[None, :]
@@ -236,3 +241,41 @@ def flash_attention(
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))
     return torch.cat(outs, 1).to(k.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, KVp, G, hd)
+    k_cache: torch.Tensor,  # (B, S, KVp, hd) bf16, or int8 codes
+    v_cache: torch.Tensor,  # (B, S, KVp, hd)
+    cache_len,  # (B,) or scalar: valid prefix length
+    *,
+    window: Optional[int] = None,
+    attn_softcap: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # (B, S, KVp, 1) fp32 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-token attention against a KV cache, with the reference's
+    roundings: q is pre-scaled in its own dtype, the cache is cast to q's
+    dtype, scores accumulate in fp32, P is cast to q's dtype before the P·V
+    product.  With int8 caches the per-(token, head) scales fold in after
+    the dots, ``q·(s·k₈) = s·(q·k₈)`` and ``Σ p·(s·v₈) = Σ (p·s)·v₈``.
+    Positions ``>= cache_len`` (and, with a window, ``< cache_len - window``)
+    are masked.  Returns (B, 1, KVp, G, hd) in q's dtype.
+    """
+    S, hd = k_cache.shape[1], k_cache.shape[-1]
+    qs = (q * (1.0 / math.sqrt(hd))).to(q.dtype)
+    s = torch.einsum("bokgd,btkd->bkgot", qs.float(), k_cache.to(q.dtype).float())
+    if k_scale is not None:
+        s = s * k_scale[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+    s = softcap(s, attn_softcap)
+    pos = torch.arange(S, device=q.device)[None, :]
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = pos < clen
+    if window is not None:
+        valid = valid & (pos >= clen - window)
+    s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, -1)
+    if v_scale is not None:
+        p = p * v_scale[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+    out = torch.einsum("bkgot,btkd->bokgd", p.to(q.dtype).float(), v_cache.to(q.dtype).float())
+    return out.to(q.dtype)

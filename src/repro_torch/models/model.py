@@ -10,6 +10,14 @@ Param tree (leaves in ``cfg.dtype``), the reference's layout:
 Attention blocks with dense MLPs are ported; other block kinds and the
 encoder-decoder and prefix families raise ``NotImplementedError``.  The
 stack is a Python loop over periods (the reference scans them).
+
+Serving: :func:`prefill` / :func:`decode_step` run on a contiguous per-slot
+KV cache (:func:`init_cache`), :func:`paged_prefill_chunk` /
+:func:`paged_decode_step` on a block-paged one (:func:`init_paged_cache`),
+whose decode attention goes through ``kernels.ops.paged_attention``.  Cache
+leaves carry a leading period axis, as the reference's.  The reference
+returns a new cache from each call; here the cache tensors are updated in
+place and the same dict is returned, so callers keep the reference's form.
 """
 
 from __future__ import annotations
@@ -27,13 +35,14 @@ from repro_torch.models.common import (
     activation,
     apply_linear,
     apply_norm,
+    decode_attention,
     flash_attention,
     make_head_plan,
     rope,
     softcap,
     _record_linear,
 )
-from repro_torch.quant import QuantizedTensor
+from repro_torch.quant import QuantizedTensor, kv_pack_int4, kv_unpack_int4
 
 __all__ = [
     "ModelPlan",
@@ -43,7 +52,17 @@ __all__ = [
     "train_loss",
     "tree_map",
     "period_slice",
+    "cache_shapes",
+    "init_cache",
+    "paged_cache_shapes",
+    "init_paged_cache",
+    "prefill",
+    "decode_step",
+    "paged_prefill_chunk",
+    "paged_decode_step",
 ]
+
+KV_CACHE_DTYPES = ("bf16", "int8", "int4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +70,10 @@ class ModelPlan:
     cfg: ModelConfig
     heads: HeadPlan
     vocab_pad: int
+    # "bf16" | "int8" | "int4".  int4 is paged-engine only: pages store two
+    # codes per byte (quant.kv_pack_int4, fold-in-half) and the contiguous
+    # cache refuses it.
+    kv_cache_dtype: str = "bf16"
 
     @property
     def dtype(self):
@@ -65,10 +88,13 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"block {b} is not ported yet")
 
 
-def make_plan(cfg: ModelConfig) -> ModelPlan:
+def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16") -> ModelPlan:
     _check_supported(cfg)
+    if kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}; expected one of {KV_CACHE_DTYPES}")
     return ModelPlan(
-        cfg=cfg, heads=make_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.hd), vocab_pad=cfg.vocab
+        cfg=cfg, heads=make_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.hd), vocab_pad=cfg.vocab,
+        kv_cache_dtype=kv_cache_dtype,
     )
 
 
@@ -173,7 +199,7 @@ def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Forward blocks (train / teacher-forced mode)
+# Forward blocks
 # ---------------------------------------------------------------------------
 
 
@@ -193,17 +219,127 @@ def _apply_out_proj(w, o, name=None):
     if isinstance(w, QuantizedTensor):
         return apply_linear(w, o2, name=name)
     _record_linear(name, o2)
-    return o2 @ w.reshape(-1, w.shape[-1])
+    # A bf16 o (paged prefill over bf16 pages) meets an fp32 weight exactly
+    # upcast, as the reference's einsum promotes it.
+    return o2.to(w.dtype) @ w.reshape(-1, w.shape[-1])
 
 
-def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids):
+def _kv_quantize(x: torch.Tensor):
+    """Per-(token, head) symmetric int8: (…, hd) → codes int8, scale fp32 (…, 1)."""
+    x32 = x.to(torch.float32)
+    scale = x32.abs().amax(-1, keepdim=True) / 127.0 + 1e-12
+    codes = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _kv_quantize4(x: torch.Tensor):
+    """Per-(token, head) symmetric int4, fold-in-half packed: (…, hd) →
+    uint8 (…, hd/2), scale fp32 (…, 1).  Codes lie in [-7, 7]."""
+    x32 = x.to(torch.float32)
+    scale = x32.abs().amax(-1, keepdim=True) / 7.0 + 1e-12
+    codes = torch.clamp(torch.round(x32 / scale), -7, 7).to(torch.int8)
+    return kv_pack_int4(codes), scale
+
+
+def _write_kv(cache, idx, k, v, kv_dtype):
+    """Write k/v (quantized for int8/int4 caches) at ``cache[...][idx]``."""
+    if kv_dtype in ("int8", "int4"):
+        quantize = _kv_quantize4 if kv_dtype == "int4" else _kv_quantize
+        k, ks = quantize(k)
+        v, vs = quantize(v)
+        cache["ks"][idx] = ks
+        cache["vs"][idx] = vs
+    cache["k"][idx] = k.to(cache["k"].dtype)
+    cache["v"][idx] = v.to(cache["v"].dtype)
+
+
+def _paged_attention(cfg, b, q, k, v, cache, *, mode, pos_ids, q_offset, kv_dtype,
+                     page_table, page_write):
+    """Paged KV: decode writes the new token at ``(page_write, pos % psz)``
+    and attends through ``ops.paged_attention``; chunked prefill (one
+    sequence) writes the chunk into its pages and attends the gathered
+    context with ``flash_attention`` at ``q_offset``."""
+    from repro_torch.kernels import ops as kops
+
+    kc = cache["k"]  # (n_pages, psz, KVp, hd or hd/2)
+    psz = kc.shape[1]
+    quantized = kv_dtype in ("int8", "int4")
+    if mode == "decode":
+        pos_b = pos_ids[:, 0]
+        # Inactive lanes all write (NULL_PAGE, 0): duplicates whose winner is
+        # unspecified on the card, harmless because the null page is never
+        # read unmasked.
+        _write_kv(cache, (page_write, pos_b % psz), k[:, 0], v[:, 0], kv_dtype)
+        o = kops.paged_attention(
+            q[:, 0], kc, cache["v"], page_table, (pos_b + 1).to(torch.int32),
+            window=b.window, attn_softcap=cfg.attn_softcap,
+            k_scale_pages=cache["ks"] if quantized else None,
+            v_scale_pages=cache["vs"] if quantized else None,
+        )
+        return o[:, None]
+    pos = pos_ids.reshape(-1)  # (S,) absolute positions
+    row = page_table[0].long()  # (n_pgs,)
+    n = row.shape[0]
+    # Pad positions past the table go to the null page explicitly (indexing
+    # does not clamp; a clamp would clobber the last real page).
+    pg = pos // psz
+    pidx = torch.where(pg < n, row[torch.clamp(pg, max=n - 1)], torch.zeros_like(pg))
+    _write_kv(cache, (pidx, pos % psz), k[0], v[0], kv_dtype)
+    n_ctx = n * psz
+    kctx = kc[row].reshape(1, n_ctx, *kc.shape[2:])
+    vctx = cache["v"][row].reshape(1, n_ctx, *kc.shape[2:])
+    if kv_dtype == "int4":
+        kctx, vctx = kv_unpack_int4(kctx), kv_unpack_int4(vctx)
+    if quantized:
+        ksg = cache["ks"][row].reshape(1, n_ctx, -1, 1)
+        vsg = cache["vs"][row].reshape(1, n_ctx, -1, 1)
+        kctx = (kctx.to(torch.float32) * ksg).to(q.dtype)
+        vctx = (vctx.to(torch.float32) * vsg).to(q.dtype)
+    return flash_attention(q, kctx, vctx, causal=True, window=b.window,
+                           attn_softcap=cfg.attn_softcap, q_offset=q_offset)
+
+
+def _fill_cache(cache, k, v, window, kv_dtype="bf16"):
+    """Prefill: write the contiguous cache (a ring buffer for windowed layers
+    whose capacity is below the prompt)."""
+    cap, S = cache["k"].shape[1], k.shape[1]
+    if window is not None and cap < S:
+        slots = torch.arange(S - cap, S, device=k.device) % cap
+        _write_kv(cache, (slice(None), slots), k[:, S - cap :], v[:, S - cap :], kv_dtype)
+    else:
+        _write_kv(cache, (slice(None), slice(0, S)), k, v, kv_dtype)
+
+
+def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids, mode="train", cache=None,
+                   kv_dtype="bf16", page_table=None, page_write=None, q_offset=0):
+    """Self-attention sublayer in ``train``, ``prefill`` or ``decode`` mode;
+    with ``page_table`` set the KV cache is block-paged."""
     h = apply_norm(p["ln"], x, cfg.norm)
     q, k, v = _qkv(cfg, hp, p, h)
     q = rope(q, pos_ids, cfg.rope_theta)
     k = rope(k, pos_ids, cfg.rope_theta)
-    o = flash_attention(
-        q, k, v, causal=b.causal, window=b.window, attn_softcap=cfg.attn_softcap
-    )
+    if page_table is not None:
+        o = _paged_attention(cfg, b, q, k, v, cache, mode=mode, pos_ids=pos_ids,
+                             q_offset=q_offset, kv_dtype=kv_dtype, page_table=page_table,
+                             page_write=page_write)
+    elif mode == "decode":
+        kc = cache["k"]
+        B, cap = kc.shape[:2]
+        pos_b = pos_ids[:, 0]
+        # Ring buffers make the window implicit; the valid prefix is per slot.
+        slot = pos_b % cap if b.window is not None else pos_b
+        _write_kv(cache, (torch.arange(B, device=kc.device), slot), k[:, 0], v[:, 0], kv_dtype)
+        o = decode_attention(
+            q, kc, cache["v"], torch.clamp(pos_b + 1, max=cap), window=None,
+            attn_softcap=cfg.attn_softcap,
+            k_scale=cache.get("ks"), v_scale=cache.get("vs"),
+        )
+    else:
+        o = flash_attention(
+            q, k, v, causal=b.causal, window=b.window, attn_softcap=cfg.attn_softcap
+        )
+        if mode == "prefill":
+            _fill_cache(cache, k, v, b.window, kv_dtype)
     out = _apply_out_proj(p["wo"], o, name="wo")
     if cfg.post_norms:
         out = apply_norm(p["post_ln"], out, cfg.norm)
@@ -223,10 +359,8 @@ def _mlp_sublayer(cfg, b: BlockDef, p, x):
     return x + y
 
 
-def _block_apply(cfg, hp, b, p, x, *, mode="train", pos_ids):
-    if mode != "train":
-        raise NotImplementedError("prefill/decode arrive with the serving slice")
-    x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids)
+def _block_apply(cfg, hp, b, p, x, *, pos_ids, **attn_kw):
+    x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids, **attn_kw)
     return _mlp_sublayer(cfg, b, p, x)
 
 
@@ -239,12 +373,17 @@ def period_slice(stack, i: int):
     )
 
 
-def _run_stack(plan: ModelPlan, stack_params: dict, pattern, x, *, mode: str, pos_ids):
+def _run_stack(plan: ModelPlan, stack_params: dict, pattern, x, *, mode: str, pos_ids,
+               caches=None, **attn_kw):
+    """Loop over periods.  ``caches`` (leaves with a leading period axis) are
+    written in place through each period's views."""
     cfg, hp = plan.cfg, plan.heads
     for period in range(cfg.n_periods):
         p_period = period_slice(stack_params, period)
         for i, b in enumerate(pattern):
-            x = _block_apply(cfg, hp, b, p_period[f"b{i}"], x, mode=mode, pos_ids=pos_ids)
+            cache = None if caches is None else {k: t[period] for k, t in caches[f"b{i}"].items()}
+            x = _block_apply(cfg, hp, b, p_period[f"b{i}"], x, mode=mode, pos_ids=pos_ids,
+                             cache=cache, kv_dtype=plan.kv_cache_dtype, **attn_kw)
     return x
 
 
@@ -321,3 +460,163 @@ def train_loss(plan: ModelPlan, params, batch: dict) -> torch.Tensor:
         x, _logit_head(plan, params), labels, mask,
         real_vocab=cfg.vocab, logit_softcap=cfg.logit_softcap,
     )
+
+
+# ---------------------------------------------------------------------------
+# Serving: caches, prefill, decode
+# ---------------------------------------------------------------------------
+
+
+def _block_cache_shape(plan: ModelPlan, b: BlockDef, B: int, cap: int) -> dict:
+    hp = plan.heads
+    c = min(cap, b.window) if b.window is not None else cap
+    if plan.kv_cache_dtype == "int4":
+        raise ValueError(
+            "kv_cache_dtype='int4' is paged-engine only (packed pages, "
+            "quant.kv_pack_int4); the contiguous cache supports bf16 and int8"
+        )
+    kv = (B, c, hp.kv_pad, hp.head_dim)
+    if plan.kv_cache_dtype == "int8":
+        sc = ((B, c, hp.kv_pad, 1), torch.float32)
+        return {"k": (kv, torch.int8), "v": (kv, torch.int8), "ks": sc, "vs": sc}
+    return {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
+
+
+def _stacked(plan: ModelPlan, per_block: dict) -> dict:
+    n = plan.cfg.n_periods
+    return {blk: {k: ((n, *shape), dt) for k, (shape, dt) in leaves.items()}
+            for blk, leaves in per_block.items()}
+
+
+def cache_shapes(plan: ModelPlan, B: int, cap: int) -> dict:
+    """``{"b<i>": {leaf: (shape, dtype)}}`` of the contiguous decode cache,
+    stacked over periods."""
+    return _stacked(plan, {f"b{i}": _block_cache_shape(plan, b, B, cap)
+                           for i, b in enumerate(plan.cfg.pattern)})
+
+
+def paged_cache_shapes(plan: ModelPlan, n_pages: int, page_size: int) -> dict:
+    """``{"b<i>": {leaf: (shape, dtype)}}`` of the block-paged decode cache.
+
+    Per attention layer ``k``/``v`` pages ``(n_pages, page_size, KVp, hd)``
+    (int8 adds fp32 ``ks``/``vs`` scale planes ``(…, 1)``; int4 stores uint8
+    pages of width ``hd/2`` with the same scale planes), stacked over
+    periods: page id ``p`` addresses slot ``p`` of every layer's array.  No
+    batch axis: ownership lives in the page tables.  Only self-attention
+    decoder stacks page.
+    """
+    cfg, hp = plan.cfg, plan.heads
+    if any(b.kind != "attn" or b.cross for b in cfg.pattern):
+        raise ValueError("paged KV serving supports self-attention decoder stacks only")
+    if cfg.family == "encdec" or cfg.n_prefix:
+        raise ValueError("paged KV serving: decoder-only models only")
+    kv_dt = plan.kv_cache_dtype
+    if kv_dt == "int4":
+        if hp.head_dim % 2:
+            raise ValueError(
+                f"int4 KV pages need an even head dim (fold-in-half packing), got hd={hp.head_dim}"
+            )
+        kdt, page_hd = torch.uint8, hp.head_dim // 2
+    else:
+        kdt, page_hd = (torch.int8 if kv_dt == "int8" else torch.bfloat16), hp.head_dim
+    page = ((n_pages, page_size, hp.kv_pad, page_hd), kdt)
+    sh = {"k": page, "v": page}
+    if kv_dt in ("int8", "int4"):
+        sh["ks"] = sh["vs"] = ((n_pages, page_size, hp.kv_pad, 1), torch.float32)
+    return _stacked(plan, {f"b{i}": sh for i in range(len(cfg.pattern))})
+
+
+def _zeros(shapes: dict, device) -> dict:
+    dev = resolve_device(device)
+    return {blk: {k: torch.zeros(shape, dtype=dt, device=dev) for k, (shape, dt) in leaves.items()}
+            for blk, leaves in shapes.items()}
+
+
+def init_cache(plan: ModelPlan, B: int, cap: int, *, device="cuda") -> dict:
+    return _zeros(cache_shapes(plan, B, cap), device)
+
+
+def init_paged_cache(plan: ModelPlan, n_pages: int, page_size: int, *, device="cuda") -> dict:
+    return _zeros(paged_cache_shapes(plan, n_pages, page_size), device)
+
+
+def _final_logits(plan, params, x):
+    cfg = plan.cfg
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return softcap(_head_logits(x, _logit_head(plan, params))[:, 0], cfg.logit_softcap)
+
+
+def _positions(pos, B: int, device) -> torch.Tensor:
+    return torch.broadcast_to(torch.as_tensor(pos, device=device).long(), (B,))
+
+
+@torch.no_grad()
+def prefill(plan: ModelPlan, params, batch: dict, cache):
+    """Full-sequence forward filling ``cache``; returns ``(last_logits, cache)``."""
+    dev = params["embed"].device
+    tokens = as_tokens(batch["tokens"], dev)
+    x = _embed_tokens(plan, params, tokens)
+    pos = torch.arange(tokens.shape[1], device=dev)
+    x = _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="prefill", pos_ids=pos,
+                   caches=cache)
+    return _final_logits(plan, params, x[:, -1:]), cache
+
+
+@torch.no_grad()
+def decode_step(plan: ModelPlan, params, tokens, cache, pos):
+    """One decode step.  tokens: (B, 1); pos: scalar or (B,) positions (one
+    per slot: continuous batching).  Returns ``(logits, cache)``."""
+    dev = params["embed"].device
+    tokens = as_tokens(tokens, dev)
+    pos_b = _positions(pos, tokens.shape[0], dev)
+    x = _embed_tokens(plan, params, tokens)
+    x = _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="decode",
+                   pos_ids=pos_b[:, None], caches=cache)
+    return _final_logits(plan, params, x), cache
+
+
+@torch.no_grad()
+def paged_prefill_chunk(plan: ModelPlan, params, tokens, cache, page_table, offset):
+    """One chunked-prefill step for a single sequence.
+
+    ``tokens``: (1, C), chunk ``[offset, offset + C)`` of the prompt,
+    right-padded (pad positions write into the null page or into slots that
+    decode rewrites before any length mask exposes them).  ``page_table``:
+    (1, n_pgs), the sequence's page row; ``offset``: the absolute position of
+    ``tokens[:, 0]``.  Writes the chunk's KV into its pages and attends the
+    gathered context.  Returns the cache (no logits: the engine replays the
+    last prompt token as the first decode).
+    """
+    dev = params["embed"].device
+    tokens = as_tokens(tokens, dev)
+    if tokens.shape[0] != 1:
+        raise ValueError("paged prefill processes one sequence per call")
+    offset = int(offset)
+    x = _embed_tokens(plan, params, tokens)
+    pos = offset + torch.arange(tokens.shape[1], device=dev)
+    _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="prefill", pos_ids=pos,
+               caches=cache, page_table=torch.as_tensor(page_table, device=dev),
+               q_offset=offset)
+    return cache
+
+
+@torch.no_grad()
+def paged_decode_step(plan: ModelPlan, params, tokens, cache, pos, page_table, page_write):
+    """One decode step over the paged KV pool.
+
+    ``tokens``: (B, 1); ``pos``: (B,) positions; ``page_table``: (B, n_pgs)
+    int32 (padded entries → null page); ``page_write``: (B,) the page
+    holding position ``pos[b]`` (inactive lanes: the null page).  Writes each
+    lane's new KV at ``(page_write, pos % page_size)`` and attends with
+    lengths ``pos + 1``.  Returns ``(logits, cache)``.
+    """
+    dev = params["embed"].device
+    tokens = as_tokens(tokens, dev)
+    pos_b = _positions(pos, tokens.shape[0], dev)
+    x = _embed_tokens(plan, params, tokens)
+    x = _run_stack(
+        plan, params["dec"], plan.cfg.pattern, x, mode="decode", pos_ids=pos_b[:, None],
+        caches=cache, page_table=torch.as_tensor(page_table, device=dev, dtype=torch.int32),
+        page_write=torch.as_tensor(page_write, device=dev).long(),
+    )
+    return _final_logits(plan, params, x), cache

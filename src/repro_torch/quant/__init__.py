@@ -9,7 +9,13 @@ from repro_torch.quant.grid import (
     quantize_codes,
     quantize_dequantize,
 )
-from repro_torch.quant.pack import pack_codes, packed_words_per_row, unpack_codes
+from repro_torch.quant.pack import (
+    kv_pack_int4,
+    kv_unpack_int4,
+    pack_codes,
+    packed_words_per_row,
+    unpack_codes,
+)
 from repro_torch.quant.qtensor import QuantizedTensor, dequantize_tensor
 
 __all__ = [
@@ -20,6 +26,8 @@ __all__ = [
     "dequantize_codes",
     "quantize_codes",
     "quantize_dequantize",
+    "kv_pack_int4",
+    "kv_unpack_int4",
     "pack_codes",
     "packed_words_per_row",
     "unpack_codes",

@@ -6,13 +6,17 @@ occupies bits ``[(k*bits) % 8, …)`` of byte ``(k*bits) // 8``.  For 4 bits
 byte ``b`` holds column ``2b`` in its low nibble and ``2b + 1`` in its high
 nibble, the linear layout the dequant-GEMM kernel reads.  3-bit codes
 straddle bytes and are a storage format only.
+
+int4 KV pages (paged serving) pack fold-in-half instead: byte ``d`` of a
+head row holds element ``d`` in its low nibble and ``d + hd/2`` in its high
+nibble, both two's complement (:func:`kv_pack_int4`).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["pack_codes", "unpack_codes", "packed_words_per_row"]
+__all__ = ["pack_codes", "unpack_codes", "packed_words_per_row", "kv_pack_int4", "kv_unpack_int4"]
 
 
 def packed_words_per_row(p: int, bits: int) -> int:
@@ -64,3 +68,22 @@ def unpack_codes(packed: torch.Tensor, bits: int, p: int) -> torch.Tensor:
         three = torch.arange(3, dtype=torch.int32, device=packed.device)
         return (tri << three).sum(-1).to(torch.uint8)
     raise ValueError(f"unsupported bits={bits}")
+
+
+def kv_pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """``(…, hd)`` signed codes in [-7, 7] → ``(…, hd/2)`` uint8, fold-in-half."""
+    hd = codes.shape[-1]
+    if hd % 2:
+        raise ValueError(f"int4 KV packing requires an even head dim, got {hd}")
+    c = codes.to(torch.int32)
+    lo = c[..., : hd // 2] & 0xF
+    hi = c[..., hd // 2 :] & 0xF
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def kv_unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`kv_pack_int4`: ``(…, hd)`` int8 codes in [-8, 7]."""
+    b = packed.to(torch.int32)
+    lo = ((b & 0xF) ^ 8) - 8  # sign-extend the 4-bit two's complement
+    hi = ((b >> 4) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)

@@ -9,7 +9,8 @@ installed:
 Tolerances: atol 2e-4 on CD iterates (fp reassociation; a rounding tie that
 flips cascades along its row, so the fused checks hold rows), 1e-4 of
 max |R| on the outlier iteration's exact residual in rows whose sweep
-agrees, rtol 1e-6 / atol 1e-4 on fp32 GEMM output.
+agrees, rtol 1e-6 / atol 1e-4 on fp32 GEMM output, atol 2e-2 (bf16 q) and
+1e-5 (fp32 q) on paged attention.
 """
 
 import dataclasses
@@ -238,8 +239,10 @@ def test_slice_on_card_matches_cpu(cuda):
         launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
         out[dev.type] = (rep, ppl, launched)
     (rk, pk, lk), (rp, pp, lp) = out["cuda"], out["cpu"]
-    # QuantEase runs every kernel but the outlier-aware iteration (Algorithm 3's).
-    assert all(n > 0 for k, n in lk.items() if k != "quantease_outlier_iteration")
+    # QuantEase runs every kernel but the outlier-aware iteration (Algorithm 3's)
+    # and paged attention (the serving engine's).
+    assert all(n > 0 for k, n in lk.items()
+               if k not in ("quantease_outlier_iteration", "paged_attention"))
     assert all(n == 0 for n in lp.values())
     assert list(rk) == list(rp)
     # The first period's linears see the same Σ up to fp32 rounding.
@@ -304,3 +307,153 @@ def test_outlier_slice_on_card_matches_cpu(cuda, method):
         if k.startswith("dec.p0."):
             assert rk[k] == pytest.approx(rp[k], rel=1e-3), k
     assert pk == pytest.approx(pp, rel=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def _paged(seed, dev, *, kind, B=5, KVp=3, G=1, hd=96, psz=16, P=40, npg=6,
+           q_dtype=torch.bfloat16, lengths=None):
+    """Random pages of ``kind`` (bf16, int8, int4) and a page table whose
+    entries past each sequence's last page point at the null page 0."""
+    from repro_torch.quant import kv_pack_int4
+
+    r = np.random.default_rng(seed)
+    q = torch.from_numpy(r.standard_normal((B, KVp, G, hd)).astype(np.float32)).to(dev, q_dtype)
+    shape = (P, psz, KVp, hd)
+    ks = vs = None
+    if kind == "bf16":
+        kp = torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+        vp = torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+    else:
+        lim = 127 if kind == "int8" else 7
+        kp, vp = (torch.from_numpy(r.integers(-lim, lim + 1, shape).astype(np.int8)) for _ in range(2))
+        if kind == "int4":
+            kp, vp = kv_pack_int4(kp), kv_pack_int4(vp)
+        kp, vp = kp.to(dev), vp.to(dev)
+        ks, vs = (torch.from_numpy((r.random((P, psz, KVp, 1)) * 0.02 + 1e-3).astype(np.float32)).to(dev)
+                  for _ in range(2))
+    if lengths is None:
+        lengths = r.integers(1, npg * psz + 1, B)
+        lengths[: min(B, 3)] = [1, psz, npg * psz][: min(B, 3)]  # one token, one page, full table
+    lengths = np.asarray(lengths)
+    pt = r.permutation(np.arange(1, P))[: B * npg].reshape(B, npg)  # no page shared
+    for b, n in enumerate(lengths):
+        pt[b, -(-int(n) // psz):] = 0
+    return dict(q=q, k_pages=kp, v_pages=vp,
+                page_table=torch.from_numpy(pt.astype(np.int32)).to(dev),
+                lengths=torch.from_numpy(lengths.astype(np.int32)).to(dev),
+                k_scale_pages=ks, v_scale_pages=vs)
+
+
+def _pa(fn, d, **kw):
+    return fn(d["q"], d["k_pages"], d["v_pages"], d["page_table"], d["lengths"],
+              k_scale_pages=d["k_scale_pages"], v_scale_pages=d["v_scale_pages"], **kw)
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (37, None), (None, 50.0), (20, 5.0)])
+@pytest.mark.parametrize("G,hd", [(1, 96), (4, 128), (2, 16), (8, 256)])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_paged_attention(cuda, kind, G, hd, window, cap):
+    """Kernel 5 against its plain version, bf16 q (atol 2e-2: the kernel keeps
+    p in fp32, the plain version rounds it to bf16, as the TPU kernel and its
+    oracle differ) and fp32 q (atol 1e-5: only the summation order differs)."""
+    for q_dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        d = _paged(G * hd + len(kind), cuda, kind=kind, G=G, hd=hd, q_dtype=q_dtype)
+        before = ops.launch_counts()["paged_attention"]
+        out = _pa(ops.paged_attention, d, window=window, attn_softcap=cap)
+        assert ops.launch_counts()["paged_attention"] == before + 1
+        want = _pa(ref.paged_attention_ref, d, window=window, attn_softcap=cap)
+        assert out.dtype == q_dtype and out.shape == d["q"].shape
+        torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_paged_attention_reads_no_masked_bytes(cuda, kind):
+    """NaN in the null page, in the masked tail of each last page and (for
+    quantized pages) in their scales: the kernel never loads them, so its
+    output is finite and equals the plain version on clean pages."""
+    d = _paged(3, cuda, kind=kind, lengths=[1, 16, 37, 70, 96], npg=6)
+    want = _pa(ref.paged_attention_ref, d)
+    poisoned = dict(d)
+    psz = d["k_pages"].shape[1]
+    nan_plane = "k_pages" if kind == "bf16" else "k_scale_pages"
+    for name in ({nan_plane, nan_plane.replace("k_", "v_")}):
+        t = d[name].clone()
+        t[0] = float("nan")
+        for b, n in enumerate(d["lengths"].tolist()):
+            if n % psz:
+                t[int(d["page_table"][b, (n - 1) // psz]), n % psz:] = float("nan")
+        poisoned[name] = t
+    out = _pa(ops.paged_attention, poisoned)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+
+
+def test_paged_attention_is_deterministic(cuda):
+    d = _paged(4, cuda, kind="bf16", B=8, KVp=32, npg=96, P=800)
+    a, b = _pa(ops.paged_attention, d), _pa(ops.paged_attention, d)
+    assert torch.equal(a, b)
+
+
+def test_paged_attention_refuses_what_it_does_not_take(cuda):
+    d = _paged(5, cuda, kind="int8")
+    args = [d[k] for k in ("q", "k_pages", "v_pages", "page_table", "lengths")]
+    scales = dict(k_scale_pages=d["k_scale_pages"], v_scale_pages=d["v_scale_pages"])
+    with pytest.raises(ValueError):
+        ops.paged_attention(*args)  # int8 pages without scale planes
+    with pytest.raises(ValueError):
+        ops.paged_attention(*args, k_scale_pages=d["k_scale_pages"])  # one plane
+    with pytest.raises(ValueError):
+        ops.paged_attention(args[0].half(), *args[1:], **scales)  # fp16 q
+    with pytest.raises(ValueError):
+        ops.paged_attention(*args[:3], args[3].long(), args[4], **scales)  # int64 table
+    with pytest.raises(ValueError):
+        ops.paged_attention(*args[:4], args[4].cpu(), **scales)  # another device
+    with pytest.raises(ValueError):
+        ops.paged_attention(args[0], args[1].float(), args[2].float(), *args[3:], **scales)
+    with pytest.raises(ValueError):
+        ops.paged_attention(args[0], args[1][..., :48], args[2][..., :48], *args[3:], **scales)
+    big_g = _paged(6, cuda, kind="bf16", G=9, hd=16)
+    with pytest.raises(ValueError):
+        _pa(ops.paged_attention, big_g)
+
+
+def test_paged_engine_on_card_matches_cpu(cuda):
+    """A reduced fp32 Phi-3 served by the paged engine (bf16 and int4 KV) on
+    the card and on the CPU: the first-decode logits agree within 1e-3 of
+    their max |logit| (cuBLAS and the CPU's GEMMs round differently, which
+    can flip a bf16 cache entry), kernel 5 runs once per decode step and
+    period on the card and never on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServingEngine, Request
+
+    cfg = dataclasses.replace(
+        get_config("phi3_mini_3_8b"), d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
+        d_ff=256, vocab=300, n_periods=2, dtype=torch.float32,
+    )
+    r = np.random.default_rng(7)
+    prompts = [r.integers(0, 300, n).astype(np.int32) for n in (5, 40, 17, 64, 23)]
+    for kv in ("bf16", "int4"):
+        plan = M.make_plan(cfg, kv_cache_dtype=kv)
+        params_cpu = M.init_params(plan, 3, device="cpu")
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            params = M.tree_map(lambda a: a.to(dev), params_cpu)
+            eng = PagedServingEngine(plan, params, max_batch=3, max_seq=128, page_size=16,
+                                     prefill_chunk=32, record_logits=True, device=dev)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(rid=i, prompt=p, max_new_tokens=4))
+            before = ops.launch_counts()["paged_attention"]
+            eng.run()
+            launched = ops.launch_counts()["paged_attention"] - before
+            out[dev.type] = ({i: t[0] for i, t in eng.logit_trace.items()}, launched,
+                             eng.n_decode_steps)
+        (lk, nk, sk), (lp, np_, _) = out["cuda"], out["cpu"]
+        assert nk == sk * cfg.n_periods and np_ == 0
+        for i in lp:
+            scale = float(np.abs(lp[i]).max())
+            np.testing.assert_allclose(lk[i], lp[i], rtol=0, atol=1e-3 * scale)

@@ -123,9 +123,9 @@ def test_progress_records_carry_reference_keys(slice_runs):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Importing every module of the port (Algorithm 3's ``core.outlier``
-    among them), and chip_smoke, loads neither jax nor the reference
-    package."""
+    """Importing every module of the port (Algorithm 3's ``core.outlier``,
+    the serving engines and the fault plans among them), and chip_smoke,
+    loads neither jax nor the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -133,7 +133,9 @@ def test_port_imports_no_jax_and_no_reference():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
-        "need = ['repro_torch.core.outlier', 'repro_torch.kernels.quantease_cd', 'repro_torch.core.solver']\n"
+        "need = ['repro_torch.core.outlier', 'repro_torch.kernels.quantease_cd', 'repro_torch.core.solver',\n"
+        "        'repro_torch.serve.engine', 'repro_torch.serve.kv_cache', 'repro_torch.faults',\n"
+        "        'repro_torch.kernels.paged_attention']\n"
         "bad += [m + ' not loaded' for m in need if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
     )
@@ -142,7 +144,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 21 and bad == "[]", out.stdout
+    assert int(n) >= 27 and bad == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_a_card():
