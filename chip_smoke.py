@@ -10,8 +10,14 @@ Phases (any failed check exits non-zero; no phase is skipped):
    path's shapes, and times kernel, plain version and (where one exists) a
    single PyTorch library call with CUDA events; the outlier-aware iteration
    (Algorithm 3) also at its three solver-group shapes, with a 25-iteration
-   solve of kernel path against plain path; the dequant-GEMM also at the
-   decode batch (m = 8); paged attention (kernel 5) at the serving shape
+   solve of kernel path against plain path; the dequant-GEMM's variants at
+   m = 2048 (bf16 x on tc_large, fp32 x on simt), then the path's three
+   shapes at the eval batch (m = 2048), a prefill chunk (128) and the decode
+   batch (8), per decoder layer, with the variant each took, bounds on the
+   bf16 tensor cores and in fp32, fp32 cuBLAS on the dequantized weight and
+   bf16 cuBLAS on (c − z), a split-K repeat held bit for bit, and the
+   per-layer time at m = 8 and 2048 held below fp32 cuBLAS's; paged
+   attention (kernel 5) at the serving shape
    (8 sequences of up to 1536 tokens, 32 kv heads of 96) in bf16, int8 and
    int4 pages, at a long shape (32 x 4096 tokens, bf16 and int4) and at a
    GQA shape with a window and a softcap;
@@ -24,13 +30,15 @@ Phases (any failed check exits non-zero; no phase is skipped):
    outlier-aware QuantEase (1 % outliers) at 3 bits, each through the
    serving restack and perplexity; mean relative error must order
    qe_outlier < quantease < rtn at 3 bits, the outlier artifact must carry
-   its COO planes, and every PTQ kernel's launch counter must rise;
+   its COO planes, every PTQ kernel's launch counter must rise, and the
+   dequant-GEMM must run tensor-core variants only (no simt launch);
 6. serving: the 4-bit QuantEase artifact of phase 5 answers 24 requests
    (prompts of 16-1024 tokens, 4 sharing a 256-token prefix, 32 new tokens
    each) on the paged engine with bf16, int8 and int4 KV, again on bf16
    (repeat: same tokens), on bf16 with 40 % of the pages (preemption), and on
    the contiguous engine; paged and contiguous first-decode logits must agree,
-   and kernel 5 must launch once per decode step and period.
+   kernel 5 must launch once per decode step and period, and the decode
+   steps' GEMMs must run tc_small (no simt launch).
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -51,10 +59,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FLOP/s
-# outside the tensor cores.  Every kernel here runs fp32 arithmetic.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
+# outside the tensor cores, and dense bf16 FLOP/s on the tensor cores (the
+# dequant-GEMM's tc_large and tc_small variants; every other kernel here
+# runs fp32 arithmetic).
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16_TC = 989e12
 CD_ATOL = 1e-4
 ROWS_OK = 0.999  # rows (output channels) within CD_ATOL in every output
 ROWS_TIES = 0.998  # the floor when each row past ROWS_OK starts with a tie flip
@@ -81,6 +92,7 @@ MAIN_RUNS = (("rtn", 4), ("quantease", 4), ("rtn", 3), ("quantease", 3), ("qe_ou
 MAIN_BATCH, MAIN_SEQ, MAIN_CALIB_BATCHES, MAIN_EVAL_BATCHES = 4, 512, 4, 2
 SERVED_RUN = "quantease@4"  # the artifact phase 6 serves
 GEMM_DECODE_M = 8  # the serving GEMM at decode: one token per lane, max_batch 8
+GEMM_PREFILL_M = 128  # the serving GEMM on a prefill chunk (prefill_chunk = 128)
 # Kernel 5's shapes: (label, B, KVp, G, hd, max length, window, softcap, page kinds).
 PAGE = 16
 PAGED_SHAPES = (
@@ -134,6 +146,36 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls queued back to back
+    behind a sleep kernel that outlasts their enqueue, then timed with events
+    on the card.  Unlike :func:`cuda_ms` it leaves out the host work between
+    launches (at the decode batch the wrapper's host time is longer than its
+    kernels)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e6 * host_ms) + 100_000)  # ~2x the enqueue time at <= 2 GHz
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    b.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    check(enqueue_ms <= 2 * host_ms,
+          f"device_ms: enqueueing took {enqueue_ms:.3f} ms, longer than the sleep in front of it")
+    return ms / reps
+
+
 def device_profile(fn) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and split the device time by
     kernel: ``{"wall_ms", "device_ms", "busy", "by_kernel": {name: ms}}``,
@@ -157,8 +199,9 @@ def device_profile(fn) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         name = next((k for k in ("qe_block_corr_kernel", "qe_block_sweep_kernel",
-                                 "qe_suffix_resid_kernel", "dequant_matmul_kernel",
-                                 "paged_attention_kernel") if k in e.name),
+                                 "qe_suffix_resid_kernel", "dequant_matmul_tc_large_kernel",
+                                 "dequant_matmul_tc_small_kernel", "dequant_matmul_reduce_kernel",
+                                 "dequant_matmul_kernel", "paged_attention_kernel") if k in e.name),
                     "torch")
         by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     if not by_kernel:
@@ -167,8 +210,8 @@ def device_profile(fn) -> dict:
     return dict(wall_ms=wall, device_ms=dev, busy=dev / wall, by_kernel=by_kernel)
 
 
-def bound(n_bytes: float, n_flop: float) -> tuple[float, str]:
-    t_b, t_f = n_bytes / PEAK_BYTES * 1e3, n_flop / PEAK_FP32 * 1e3
+def bound(n_bytes: float, n_flop: float, peak: float = PEAK_FP32) -> tuple[float, str]:
+    t_b, t_f = n_bytes / PEAK_BYTES * 1e3, n_flop / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -472,96 +515,154 @@ def check_dequant_matmul(gen, dev, detail):
     import torch
 
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.dequant_matmul import (
+        SMALL_M_MAX,
+        dequant_matmul_cuda,
+        plan_dequant_matmul,
+        split_for,
+    )
     from repro_torch.quant import pack_codes
 
     m = GEMM_M
     detail["dequant_matmul"] = []
     err_max = 0.0
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def problem(q, p, n_groups):
+    def problem(m, q, p, n_groups):
         x = torch.randn(m, p, generator=gen, device=dev).to(torch.bfloat16)
         codes = torch.randint(0, 16, (q, p), generator=gen, device=dev, dtype=torch.uint8)
         scale = torch.rand(q, n_groups, generator=gen, device=dev) * 0.01 + 1e-3
         zero = torch.randint(0, 16, (q, n_groups), generator=gen, device=dev).float()
         return x, codes, scale, zero
 
-    # Variants: uint8 / packed4 x per-channel / group 128, bf16 and fp32 out.
+    # Variants: uint8 / packed4 x per-channel / group 128, bf16 and fp32 out;
+    # bf16 x (tc_large at m = 2048), then fp32 x (simt).
     vq, vp = GEMM_VARIANT_SHAPE
-    for packed4 in (False, True):
-        for gsz in (None, 128):
-            for out_dtype in (torch.bfloat16, torch.float32):
-                x, codes, scale, zero = problem(vq, vp, 1 if gsz is None else -(-vp // 128))
-                kc = pack_codes(codes, 4) if packed4 else codes
-                y = ops.dequant_matmul(x, kc, scale, zero, packed4=packed4, out_dtype=out_dtype, group_size=gsz)
-                y_ref = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32, group_size=gsz)
-                torch.cuda.synchronize()
-                err = float((y.float() - y_ref).abs().max())
-                tol = (1e-2 if out_dtype == torch.bfloat16 else 1e-4) * float(y_ref.abs().max())
-                check(err <= tol, f"dequant_matmul packed4={packed4} gsz={gsz} {out_dtype}: {err} > {tol}")
-                err_max = max(err_max, err / float(y_ref.abs().max()))
-                print(f"[kernel] dequant_matmul (m={m}, {vq}, {vp}) packed4={packed4} group={gsz} "
-                      f"out={str(out_dtype)[6:]}: max_abs_err={err:.3g} (tol {tol:.3g})")
-    # The path's own configuration (4-bit packed, per-channel, bf16) at its three shapes,
-    # weighted by launches per decoder layer (wq wk wv wo; wg wu; wd).
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flop=0.0)
-    for (q, p), count in GEMM_PATH_SHAPES:
-        x, codes, scale, zero = problem(q, p, 1)
-        kc = pack_codes(codes, 4)
-        y = ops.dequant_matmul(x, kc, scale, zero, packed4=True, out_dtype=torch.bfloat16)
-        y_ref = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        err = float((y.float() - y_ref).abs().max())
-        check(err <= 1e-2 * float(y_ref.abs().max()), f"dequant_matmul path shape ({q},{p}): {err}")
-        ms = cuda_ms(lambda: ops.dequant_matmul(x, kc, scale, zero, packed4=True, out_dtype=torch.bfloat16))
-        plain = cuda_ms(lambda: ops_plain(x, kc, scale, zero))
-        xf = x.float()
-        wt = ((codes.float() - zero) * scale).T.contiguous()
-        lib = cuda_ms(lambda: torch.matmul(xf, wt))
-        n_bytes = m * p * 2 + q * p // 2 + 2 * q * 4 + m * q * 2
-        n_flop = 2 * m * q * p
-        b_ms, b_by = bound(n_bytes, n_flop)
-        detail["dequant_matmul"].append(dict(m=m, q=q, p=p, ms=ms, plain_ms=plain, library_ms=lib,
-                                             bound_ms=b_ms, per_layer=count))
-        print(f"[kernel] dequant_matmul path (m={m}, {q}, {p}) packed4 bf16: ms={ms:.3f} "
-              f"plain_ms={plain:.3f} library_ms={lib:.3f} bound_ms={b_ms:.3f} ({b_by})")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
-            tot[k] += count * v
-        tot["bytes"] += count * n_bytes
-        tot["flop"] += count * n_flop
-    # The same three shapes at the decode batch (m = 8): 7/8 of each 64-row
-    # tile idles; timed here, not redesigned.
-    detail["dequant_matmul_decode"] = []
-    dec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flop=0.0)
-    for (q, p), count in GEMM_PATH_SHAPES:
-        x, codes, scale, zero = problem(q, p, 1)
-        x = x[:GEMM_DECODE_M].contiguous()
-        kc = pack_codes(codes, 4)
-        y = ops.dequant_matmul(x, kc, scale, zero, packed4=True, out_dtype=torch.bfloat16)
-        y_ref = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        check(float((y.float() - y_ref).abs().max()) <= 1e-2 * float(y_ref.abs().max()),
-              f"dequant_matmul decode shape ({q},{p})")
-        ms = cuda_ms(lambda: ops.dequant_matmul(x, kc, scale, zero, packed4=True, out_dtype=torch.bfloat16),
-                     reps=50)
-        plain = cuda_ms(lambda: ops_plain(x, kc, scale, zero), reps=50)
-        xf, wt = x.float(), ((codes.float() - zero) * scale).T.contiguous()
-        lib = cuda_ms(lambda: torch.matmul(xf, wt), reps=50)
-        n_bytes = GEMM_DECODE_M * p * 2 + q * p // 2 + 2 * q * 4 + GEMM_DECODE_M * q * 2
-        b_ms, b_by = bound(n_bytes, 2 * GEMM_DECODE_M * q * p)
-        detail["dequant_matmul_decode"].append(dict(m=GEMM_DECODE_M, q=q, p=p, ms=ms, plain_ms=plain,
-                                                    library_ms=lib, bound_ms=b_ms, per_layer=count))
-        print(f"[kernel] dequant_matmul decode (m={GEMM_DECODE_M}, {q}, {p}) packed4 bf16: ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by})")
-        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bytes", n_bytes)):
-            dec[k] += count * v
-    b_dec, _ = bound(dec["bytes"], 0)
-    print(f"[kernel] dequant_matmul decode, one decoder layer's 7 linears at m={GEMM_DECODE_M}: "
-          f"ms={dec['ms']:.4f} plain_ms={dec['plain_ms']:.4f} library_ms={dec['library_ms']:.4f} "
-          f"bound_ms={b_dec:.4f}", flush=True)
-    b_ms, b_by = bound(tot["bytes"], tot["flop"])
-    return dict(max_abs_err=err_max, ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=b_ms,
-                bound_by=b_by, library_ms=tot["library_ms"],
-                shape=f"one decoder layer's 7 linears at m={m}, 4-bit packed per-channel, bf16")
+    for x_dtype in (torch.bfloat16, torch.float32):
+        for packed4 in (False, True):
+            for gsz in (None, 128):
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    if x_dtype == torch.float32 and (packed4, out_dtype) != (True, torch.bfloat16):
+                        continue  # the unchanged simt kernel: one configuration per grid
+                    x, codes, scale, zero = problem(m, vq, vp, 1 if gsz is None else -(-vp // 128))
+                    x = x.to(x_dtype)
+                    kc = pack_codes(codes, 4) if packed4 else codes
+                    before = dict(dequant_matmul_cuda.launches_by_variant)
+                    y = ops.dequant_matmul(x, kc, scale, zero, packed4=packed4, out_dtype=out_dtype,
+                                           group_size=gsz)
+                    y_ref = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32, group_size=gsz)
+                    torch.cuda.synchronize()
+                    took = [v for v, n in dequant_matmul_cuda.launches_by_variant.items() if n != before[v]]
+                    err = float((y.float() - y_ref).abs().max())
+                    tol = (1e-2 if out_dtype == torch.bfloat16 else 1e-4) * float(y_ref.abs().max())
+                    check(err <= tol, f"dequant_matmul x={x_dtype} packed4={packed4} gsz={gsz} {out_dtype}: "
+                          f"{err} > {tol}")
+                    check(took == ["simt" if x_dtype == torch.float32 else "tc_large"],
+                          f"dequant_matmul x={x_dtype} at m={m} took {took}")
+                    err_max = max(err_max, err / float(y_ref.abs().max()))
+                    print(f"[kernel] dequant_matmul (m={m}, {vq}, {vp}) x={str(x_dtype)[6:]} packed4={packed4} "
+                          f"group={gsz} out={str(out_dtype)[6:]} variant={'/'.join(took)}: max_abs_err={err:.3g} "
+                          f"(tol {tol:.3g})")
+    # The path's own configuration (4-bit packed, per-channel, bf16) at its
+    # three shapes, weighted by launches per decoder layer (wq wk wv wo; wg
+    # wu; wd), at the eval batch (m = 2048), a prefill chunk (128) and the
+    # decode batch (8).  Bounds: bytes at 3.35 TB/s against bf16 operations
+    # on the tensor cores (the variant's peak) and, beside them, fp32 at 67
+    # TFLOP/s.  library_ms is fp32 cuBLAS on the dequantized weight;
+    # library_bf16_ms is cuBLAS bf16 on (c − z), times s: the same factored
+    # function.  ms and the library times are device times (the profiler's:
+    # at m = 8 the wrapper's host work is longer than its kernels);
+    # call_ms and library_call_ms time each call with events, host included.
+    detail["dequant_matmul_path"] = []
+    layers = {}
+    for mm in (GEMM_M, GEMM_PREFILL_M, GEMM_DECODE_M):
+        reps = 10 if mm == GEMM_M else 50
+        tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0, library_call_ms=0.0,
+                   library_bf16_ms=0.0, bytes=0.0, flop=0.0)
+        for (q, p), count in GEMM_PATH_SHAPES:
+            x, codes, scale, zero = problem(mm, q, p, 1)
+            kc = pack_codes(codes, 4)
+            run = lambda: ops.dequant_matmul(x, kc, scale, zero, packed4=True, out_dtype=torch.bfloat16)
+            variant, split = plan_dequant_matmul(mm, q, p, None, torch.bfloat16, n_sm)
+            y = run()
+            y_ref = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            err = float((y.float() - y_ref).abs().max())
+            check(err <= 1e-2 * float(y_ref.abs().max()), f"dequant_matmul path shape m={mm} ({q},{p}): {err}")
+            y32 = ops.dequant_matmul(x, kc, scale, zero, packed4=True, out_dtype=torch.float32)
+            err32 = float((y32 - y_ref).abs().max())
+            check(err32 <= 1e-4 * float(y_ref.abs().max()),
+                  f"dequant_matmul path shape m={mm} ({q},{p}) fp32 out: {err32}")
+            if split > 1:  # split-K partials are summed in a fixed order: a repeat is bit-identical
+                check(torch.equal(y32, ops.dequant_matmul(x, kc, scale, zero, packed4=True,
+                                                          out_dtype=torch.float32)),
+                      f"dequant_matmul m={mm} ({q},{p}) split {split}: a repeat differs")
+            ms, call = device_ms(run, reps), cuda_ms(run, reps=reps)
+            plain = cuda_ms(lambda: ops_plain(x, kc, scale, zero), reps=reps)
+            xf, wt = x.float(), ((codes.float() - zero) * scale).T.contiguous()
+            lib_fn = lambda: torch.matmul(xf, wt)
+            lib, lib_call = device_ms(lib_fn, reps), cuda_ms(lib_fn, reps=reps)
+            wb, s_row = (codes.float() - zero).bfloat16().T.contiguous(), scale[:, 0]
+            lib16 = device_ms(lambda: torch.matmul(x, wb) * s_row, reps)
+            del xf, wt, wb
+            n_bytes = mm * p * 2 + q * p // 2 + 2 * q * 4 + mm * q * 2
+            n_flop = 2 * mm * q * p
+            b_ms, b_by = bound(n_bytes, n_flop, PEAK_BF16_TC if variant != "simt" else PEAK_FP32)
+            b32, _ = bound(n_bytes, n_flop)
+            detail["dequant_matmul_path"].append(dict(
+                m=mm, q=q, p=p, variant=variant, split=split, ms=ms, call_ms=call, plain_ms=plain,
+                library_ms=lib, library_call_ms=lib_call, library_bf16_ms=lib16, bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32, per_layer=count,
+                max_abs_err=err, max_abs_err_fp32=err32))
+            print(f"[kernel] dequant_matmul path (m={mm}, {q}, {p}) packed4 bf16 {variant}/{split}: "
+                  f"ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"library_call_ms={lib_call:.4f} library_bf16_ms={lib16:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) fp32 bound {b32:.4f} max_abs_err={err:.3g} fp32 out "
+                  f"{err32:.3g}", flush=True)
+            for k, v in (("ms", ms), ("call_ms", call), ("plain_ms", plain), ("library_ms", lib),
+                         ("library_call_ms", lib_call), ("library_bf16_ms", lib16), ("bytes", n_bytes),
+                         ("flop", n_flop)):
+                tot[k] += count * v
+            variants = tot.setdefault("variants", [])
+            variants.append(f"{variant}/{split}")
+        tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["flop"], PEAK_BF16_TC)
+        tot["bound_fp32_ms"], _ = bound(tot["bytes"], tot["flop"])
+        layers[mm] = tot
+        print(f"[kernel] dequant_matmul, one decoder layer's 7 linears at m={mm} ({', '.join(tot['variants'])}): "
+              f"ms={tot['ms']:.4f} call_ms={tot['call_ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+              f"library_ms={tot['library_ms']:.4f} library_call_ms={tot['library_call_ms']:.4f} "
+              f"library_bf16_ms={tot['library_bf16_ms']:.4f} bound_ms={tot['bound_ms']:.4f} "
+              f"({tot['bound_by']}, bf16 tensor cores) fp32 bound {tot['bound_fp32_ms']:.4f}", flush=True)
+    detail["dequant_matmul_layer"] = layers
+    # The threshold between the tiles: both, pinned at their planned splits,
+    # per decoder layer at m = 64 (tc_small's largest) and 128 (a prefill
+    # chunk), device time.
+    tiles = {}
+    for mm in (SMALL_M_MAX, GEMM_PREFILL_M):
+        for variant in ("tc_small", "tc_large"):
+            t = 0.0
+            for (q, p), count in GEMM_PATH_SHAPES:
+                x, codes, scale, zero = problem(mm, q, p, 1)
+                kc = pack_codes(codes, 4)
+                plan = (variant, split_for(variant, mm, q, p, n_sm))
+                t += count * device_ms(lambda: dequant_matmul_cuda(x, kc, scale, zero, packed4=True,
+                                                                   plan=plan), 50)
+            tiles[f"m={mm} {variant}"] = t
+        print(f"[kernel] dequant_matmul tiles at m={mm}, per decoder layer (device ms): "
+              f"tc_small {tiles[f'm={mm} tc_small']:.4f}, tc_large {tiles[f'm={mm} tc_large']:.4f}; "
+              f"the plan takes {plan_dequant_matmul(mm, 3072, 3072, None, torch.bfloat16, n_sm)[0]}",
+              flush=True)
+    detail["dequant_matmul_tiles"] = tiles
+    for mm in (GEMM_M, GEMM_DECODE_M):
+        check(layers[mm]["ms"] <= layers[mm]["library_ms"],
+              f"dequant_matmul at m={mm}: {layers[mm]['ms']} ms of device time per layer, slower "
+              f"than fp32 cuBLAS on the dequantized weight ({layers[mm]['library_ms']} ms)")
+    big = layers[GEMM_M]
+    return dict(max_abs_err=err_max, ms=big["ms"], call_ms=big["call_ms"], plain_ms=big["plain_ms"],
+                bound_ms=big["bound_ms"],
+                bound_by=big["bound_by"], library_ms=big["library_ms"],
+                library_bf16_ms=big["library_bf16_ms"],
+                shape=f"one decoder layer's 7 linears at m={m}, 4-bit packed per-channel, bf16 x "
+                f"({', '.join(big['variants'])})")
 
 
 def ops_plain(x, kc, scale, zero):
@@ -722,6 +823,7 @@ def main_path(dev, detail):
     from repro_torch.data import DataConfig, make_batch_fn
     from repro_torch.eval.scorer import perplexity_on_stream
     from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
     from repro_torch.models import model as M
     from repro_torch.quant import GridSpec
     from repro_torch.serve.qparams import quantize_params_for_serving
@@ -791,9 +893,13 @@ def main_path(dev, detail):
     have, want = coo["qe_outlier@3"]
     check(have == want and coo["quantease@3"][0] is None, f"serving params' COO planes: {coo}")
     print(f"[main] qe_outlier@3 serving wq carries COO planes of shape {have}")
-    print(f"[main] launches during the main path: {counts}  ({t_main:.1f}s)")
+    variants = dict(dequant_matmul_cuda.launches_by_variant)
+    print(f"[main] launches during the main path: {counts}; dequant_matmul by variant {variants}  "
+          f"({t_main:.1f}s)")
     for name, n in counts.items():
         check(n > 0 or name == "paged_attention", f"kernel {name} was not launched on the main path")
+    check(variants["simt"] == 0 and variants["tc_large"] > 0,
+          f"the bf16 main path's dequant-GEMMs took {variants}: tensor-core variants only expected")
     detail["main"] = dict(
         layers={m: dict(zip(r[0], map(float, r[0].values()))) for m, r in results.items()},
         ppl={m: r[1] for m, r in results.items()} | {"dense": dense_ppl},
@@ -889,6 +995,7 @@ def serving(dev, detail, plan, artifact):
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
     from repro_torch.models import model as M
     from repro_torch.serve import PagedServingEngine, ServingEngine
 
@@ -915,7 +1022,9 @@ def serving(dev, detail, plan, artifact):
         res[label] = serve_run(label, make, prompts)
     t_serve = time.monotonic() - t_serve
     counts = ops.launch_counts()
-    print(f"[serve] launches during serving: {counts}  ({t_serve:.1f}s)", flush=True)
+    variants = dict(dequant_matmul_cuda.launches_by_variant)
+    print(f"[serve] launches during serving: {counts}; dequant_matmul by variant {variants}  "
+          f"({t_serve:.1f}s)", flush=True)
     # Where a paged bf16 run's time goes: its first 8 requests under the
     # profiler (device busy share, device time by kernel); not counted above.
     prof = device_profile(lambda: serve_run("paged bf16, 8 requests, profiled", paged("bf16"),
@@ -958,8 +1067,11 @@ def serving(dev, detail, plan, artifact):
           f"paged_attention launched {counts['paged_attention']} times for {paged_steps} paged "
           f"decode steps x {cfg.n_periods} periods")
     check(counts["dequant_matmul"] > 0, "the serving GEMM did not launch while serving")
+    check(variants["simt"] == 0 and variants["tc_small"] > 0,
+          f"serving's dequant-GEMMs took {variants}: the decode steps must run tc_small, and "
+          "nothing simt")
     detail["serving"] = dict(
-        runs=[r[0] for r in res.values()], seconds=t_serve, launches=counts,
+        runs=[r[0] for r in res.values()], seconds=t_serve, launches=counts, gemm_variants=variants,
         first_decode_max_diff_contiguous=d_ct, logit_scale=scale, identical_share=float(same),
         kv_quant_max_diff=d_q, prompt_lengths=[len(p) for p in prompts], profile=prof,
     )
@@ -1020,7 +1132,7 @@ def main() -> None:
             name=name, route="cuda", source=source, replaces=replaces, launches=counts[name],
             max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=m["library_ms"],
-            shape=m["shape"], **({"call_ms": m["call_ms"]} if "call_ms" in m else {}),
+            shape=m["shape"], **{k: m[k] for k in ("call_ms", "library_bf16_ms") if k in m},
         ))
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

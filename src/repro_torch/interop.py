@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.quant import QuantizedTensor
+from repro_torch.quant import QuantizedTensor, check_zero_points
 
 __all__ = ["tensor_from_numpy", "qtensor_from_jax", "params_from_jax"]
 
@@ -36,17 +36,22 @@ def _is_qtensor(x) -> bool:
 
 
 def qtensor_from_jax(qt, device="cuda") -> QuantizedTensor:
-    """A reference ``QuantizedTensor`` (read by attribute) → the port's."""
+    """A reference ``QuantizedTensor`` (read by attribute) → the port's.
+
+    Raises ``ValueError`` if a zero point is not an integer in
+    ``[0, 2^bits − 1]`` (the dequant-GEMM's precondition)."""
     device = resolve_device(device)
     arrays = {
         f: None if getattr(qt, f, None) is None else tensor_from_numpy(getattr(qt, f), device)
         for f in _QT_FIELDS
     }
-    return QuantizedTensor(
+    out = QuantizedTensor(
         bits=int(qt.bits), group_size=qt.group_size, packed=bool(qt.packed),
         pack_layout=getattr(qt, "pack_layout", "linear"), pack_tile=getattr(qt, "pack_tile", None),
         **arrays,
     )
+    check_zero_points(out)
+    return out
 
 
 def params_from_jax(tree, device="cuda"):

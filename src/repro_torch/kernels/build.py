@@ -42,7 +42,7 @@ _SIGNATURES = {
         "qe_suffix_resid": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I], _I),
     },
     "dequant_matmul": {
-        "dequant_matmul": ([_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I], _I),
+        "dequant_matmul": ([_P, _I, _P, _I, _P, _P, _P, _I] + [_I] * 7 + [_P, _P, _I], _I),
     },
     "paged_attention": {
         "paged_attention": ([_P, _I, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_F, _P, _I], _I),

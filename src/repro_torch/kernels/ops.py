@@ -6,7 +6,8 @@ not take.  There is no fallback from a CUDA tensor to the plain version.
 
 :data:`KERNELS` names every ported kernel with its wrapper, its source and
 the TPU kernel it replaces; :func:`launch_counts` reads the wrappers'
-launch counters.
+launch counters (the dequant-GEMM's wrapper also counts per variant in
+``dequant_matmul_cuda.launches_by_variant``).
 """
 
 from __future__ import annotations
@@ -70,6 +71,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for w, _, _ in KERNELS.values():
         w.launches = 0
+        for v in getattr(w, "launches_by_variant", {}):
+            w.launches_by_variant[v] = 0
 
 
 def _on_cpu(*tensors) -> bool:

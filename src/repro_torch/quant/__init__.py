@@ -16,7 +16,7 @@ from repro_torch.quant.pack import (
     packed_words_per_row,
     unpack_codes,
 )
-from repro_torch.quant.qtensor import QuantizedTensor, dequantize_tensor
+from repro_torch.quant.qtensor import QuantizedTensor, check_zero_points, dequantize_tensor
 
 __all__ = [
     "Grid",
@@ -32,5 +32,6 @@ __all__ = [
     "packed_words_per_row",
     "unpack_codes",
     "QuantizedTensor",
+    "check_zero_points",
     "dequantize_tensor",
 ]

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.quant.grid import Grid, GridSpec
 
-__all__ = ["QuantizedTensor", "dequantize_tensor"]
+__all__ = ["QuantizedTensor", "dequantize_tensor", "check_zero_points"]
 
 
 @dataclasses.dataclass
@@ -103,3 +103,22 @@ def dequantize_tensor(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
         cols = cols[..., None, :].expand(*cols.shape[:-1], q, cols.shape[-1])
         w = w.scatter(-1, cols, qt.outlier_col_vals.to(torch.float32))
     return w.to(dtype)
+
+
+def check_zero_points(qt: QuantizedTensor) -> None:
+    """Raise ``ValueError`` unless every zero point is an integer in
+    ``[0, 2^bits − 1]``.
+
+    The dequant-GEMM's tensor-core variants rely on it (``c − z`` is then an
+    exact bf16 integer and the scale factors out of each group's sum), and
+    every grid ``compute_grid``/``compute_grid_excluding_outliers`` make
+    satisfies it.  One host sync: call it where an artifact enters the port,
+    not per GEMM."""
+    z = qt.zero
+    ok = (z == torch.round(z)) & (z >= 0) & (z <= (1 << qt.bits) - 1)
+    if not bool(ok.all()):
+        bad = z[~ok].flatten()[:4].tolist()
+        raise ValueError(
+            f"zero points must be integers in [0, {(1 << qt.bits) - 1}] for {qt.bits}-bit codes; "
+            f"found {bad}"
+        )

@@ -7,7 +7,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import require_on_device
-from repro_torch.quant import QuantizedTensor
+from repro_torch.quant import QuantizedTensor, check_zero_points
 
 __all__ = ["quantize_params_for_serving"]
 
@@ -40,8 +40,19 @@ def quantize_params_for_serving(plan, params: dict, solver_qt_dec: list, *, devi
     """Restack per-period block lists (``ptq_quantize_model(..., emit="qt")``'s
     ``["dec"]``) into the stacked layout the model runs, for uniform bits;
     outlier planes (COO or columns) stack with the codes.
-    The params must live on ``device`` (default ``"cuda"``)."""
+    The params must live on ``device`` (default ``"cuda"``).  Raises
+    ``ValueError`` if a zero point is not an integer in ``[0, 2^bits − 1]``
+    (the dequant-GEMM's precondition, checked here once per artifact)."""
     require_on_device(params["embed"], device)
     out = dict(params)
     out["dec"] = _stack_trees(solver_qt_dec)
+    _check_tree(out["dec"])
     return out
+
+
+def _check_tree(tree) -> None:
+    if isinstance(tree, QuantizedTensor):
+        check_zero_points(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _check_tree(v)

@@ -9,7 +9,9 @@ installed:
 Tolerances: atol 2e-4 on CD iterates (fp reassociation; a rounding tie that
 flips cascades along its row, so the fused checks hold rows), 1e-4 of
 max |R| on the outlier iteration's exact residual in rows whose sweep
-agrees, rtol 1e-6 / atol 1e-4 on fp32 GEMM output, atol 2e-2 (bf16 q) and
+agrees, rtol 1e-6 / atol 1e-4 on fp32 GEMM output (every variant; the
+tensor-core variants flush their truncating MMA sums into an IEEE fp32
+total every 128 k), 1e-2 of max |y| on bf16 GEMM output, atol 2e-2 (bf16 q) and
 1e-5 (fp32 q) on paged attention.
 """
 
@@ -175,6 +177,104 @@ def test_dequant_matmul(cuda, p, gsz, packed4, x_dtype):
             torch.testing.assert_close(y, y_ref, rtol=1e-6, atol=1e-4)
         else:
             assert float((y.float() - y_ref).abs().max()) <= 1e-2 * float(y_ref.abs().max())
+
+
+GEMM_MS = (1, 8, 13, 64, 65, 128, 300)
+
+
+def _dq_check(y, y_ref, out_dtype):
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(y, y_ref, rtol=1e-6, atol=1e-4)
+    else:
+        assert float((y.float() - y_ref).abs().max()) <= 1e-2 * float(y_ref.abs().max())
+
+
+# tc_small takes group sizes that are multiples of 128 (its 128-k super-step);
+# a group of 16 goes to tc_large, and the refusal is tested below.
+TC_CASES = [(v, g) for v in ("tc_large", "tc_small") for g in (None, 16, 128, 256)
+            if not (v == "tc_small" and g == 16)]
+
+
+@pytest.mark.parametrize("packed4", [False, True])
+@pytest.mark.parametrize("p", [70, 384, 3072])
+@pytest.mark.parametrize("variant,gsz", TC_CASES)
+def test_dequant_matmul_tensor_core_variants(cuda, variant, gsz, p, packed4):
+    """Each tensor-core variant, pinned, at its planned split, against the
+    plain version (bf16 x; fp32 out at rtol 1e-6 / atol 1e-4)."""
+    from repro_torch.kernels import dequant_matmul as dq
+
+    n_groups = 1 if gsz is None else -(-p // gsz)
+    x, codes, scale, zero = _gemm(p + n_groups, max(GEMM_MS), 130, p, n_groups, cuda, torch.bfloat16)
+    kc = pack_codes(codes, 4) if packed4 else codes
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in GEMM_MS:
+        xm = x[:m].contiguous()
+        y_ref = ref.dequant_matmul_ref(xm, codes, scale, zero, out_dtype=torch.float32, group_size=gsz)
+        plan = (variant, dq.split_for(variant, m, 130, p, n_sm))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            before = dict(dq.dequant_matmul_cuda.launches_by_variant)
+            y = dq.dequant_matmul_cuda(xm, kc, scale, zero, packed4=packed4, out_dtype=out_dtype,
+                                       group_size=gsz, plan=plan)
+            assert dq.dequant_matmul_cuda.launches_by_variant[variant] == before[variant] + 1
+            assert y.dtype == out_dtype and y.shape == (m, 130)
+            _dq_check(y, y_ref, out_dtype)
+
+
+@pytest.mark.parametrize("m,x_dtype,gsz,variant", [
+    (8, torch.bfloat16, None, "tc_small"),
+    (64, torch.bfloat16, 128, "tc_small"),
+    (8, torch.bfloat16, 16, "tc_large"),
+    (300, torch.bfloat16, None, "tc_large"),
+    (8, torch.float32, None, "simt"),
+    (300, torch.float32, 128, "simt"),
+    (8, torch.bfloat16, 24, "simt"),
+])
+def test_dequant_matmul_variant_counters_as_planned(cuda, m, x_dtype, gsz, variant):
+    """The wrapper launches the planned variant and counts it: fp32 x and a
+    group size that is not a multiple of 16 go to simt."""
+    from repro_torch.kernels import dequant_matmul as dq
+
+    p = 384
+    n_groups = 1 if gsz is None else -(-p // gsz)
+    x, codes, scale, zero = _gemm(m + p, m, 96, p, n_groups, cuda, x_dtype)
+    before = dict(dq.dequant_matmul_cuda.launches_by_variant)
+    y = ops.dequant_matmul(x, pack_codes(codes, 4), scale, zero, packed4=True,
+                           out_dtype=torch.float32, group_size=gsz)
+    after = dq.dequant_matmul_cuda.launches_by_variant
+    assert {v: after[v] - before[v] for v in after} == {v: int(v == variant) for v in after}
+    y_ref = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32, group_size=gsz)
+    _dq_check(y, y_ref, torch.float32)
+
+
+@pytest.mark.parametrize("variant,m", [("tc_small", 8), ("tc_small", 64), ("tc_large", 128)])
+def test_dequant_matmul_split_k_repeat_is_bitwise(cuda, variant, m):
+    """Split-K partials are summed in slice order without atomics: a repeat
+    is bit-identical, and every split agrees with the unsplit sum."""
+    from repro_torch.kernels import dequant_matmul as dq
+
+    x, codes, scale, zero = _gemm(m, m, 200, 3072, 1, cuda, torch.bfloat16)
+    kc = pack_codes(codes, 4)
+    run = lambda split: dq.dequant_matmul_cuda(x, kc, scale, zero, packed4=True,
+                                               out_dtype=torch.float32, plan=(variant, split))
+    for split in (3, 24):
+        a, b = run(split), run(split)
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, run(1), rtol=1e-6, atol=1e-4)
+
+
+def test_dequant_matmul_refuses_a_variant_that_does_not_take_the_operands(cuda):
+    """No fallback: a pinned variant that cannot take the operands raises."""
+    from repro_torch.kernels import dequant_matmul as dq
+
+    x, codes, scale, zero = _gemm(1, 8, 32, 384, 24, cuda, torch.bfloat16)
+    with pytest.raises(RuntimeError):  # tc_small's super-step straddles groups of 16
+        dq.dequant_matmul_cuda(x, codes, scale, zero, group_size=16, plan=("tc_small", 1))
+    with pytest.raises(RuntimeError):  # the tensor-core variants take bf16 x only
+        dq.dequant_matmul_cuda(x.float(), codes, scale, zero, group_size=16, plan=("tc_large", 1))
+    with pytest.raises(RuntimeError):  # simt does not split k
+        dq.dequant_matmul_cuda(x, codes, scale, zero, group_size=16, plan=("simt", 2))
+    with pytest.raises(ValueError):
+        dq.dequant_matmul_cuda(x, codes, scale, zero, group_size=16, plan=("wgmma", 1))
 
 
 def test_wrappers_refuse_what_kernels_do_not_take(cuda):
