@@ -8,9 +8,14 @@ Phases (any failed check exits non-zero; no phase is skipped):
 2. build: compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``;
 3. kernels: holds each kernel against its plain PyTorch version at the main
    path's shapes, and times kernel, plain version and (where one exists) a
-   single PyTorch library call with CUDA events; the outlier-aware iteration
-   (Algorithm 3) also at its three solver-group shapes, with a 25-iteration
-   solve of kernel path against plain path; the dequant-GEMM's variants at
+   single PyTorch library call with CUDA events; the fused and the
+   outlier-aware iteration (Algorithm 3) at the three solver-group shapes,
+   each with a 25-iteration solve of kernel path against plain path and its
+   device time split by kernel, and their SGEMMs alone (the block
+   corrections of one iteration at the planned split and at two others, the
+   outlier iteration's suffix product) against fp32 ``torch.matmul`` for
+   the same products, with an A/B line against the earlier 64 x 64 tile's
+   time at G=1 (3072, 8192); the dequant-GEMM's variants at
    m = 2048 (bf16 x on tc_large, fp32 x on simt), then the path's three
    shapes at the eval batch (m = 2048), a prefill chunk (128) and the decode
    batch (8), per decoder layer, with the variant each took, bounds on the
@@ -86,6 +91,12 @@ OUTLIER_SHAPES = FUSED_SHAPES  # the same three solver groups, then bf16 operand
 OUTLIER_BLOCK = 128  # outlier_quantease's default cd_block_size, as on the path
 OUTLIER_FRAC = 0.01
 R_RTOL = 1e-4  # the exact residual R, relative to max |R|, in rows whose sweep agrees
+# The A/B against the correction's earlier 64 x 64 tile, which is no longer
+# in the tree: its device time from PERF.md §5, the G=1 (3072, 8192)
+# qe_outlier solve's split (NVIDIA H100 80GB HBM3, 700 W).
+OLD_TILE_SHAPE = (1, 3072, 8192, "float32")
+OLD_TILE_SOLVE_CORR_MS = 703.0  # qe_block_corr_kernel in one 25-iteration solve
+OLD_TILE_CORR_MS = OLD_TILE_SOLVE_CORR_MS / 25
 MAIN_OVERRIDES = dict(n_periods=2)  # depth cut: 2 of 32 decoder layers
 # (method, bits) of the main path's PTQ runs, in order.
 MAIN_RUNS = (("rtn", 4), ("quantease", 4), ("rtn", 3), ("quantease", 3), ("qe_outlier", 3))
@@ -198,8 +209,9 @@ def device_profile(fn) -> dict:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = next((k for k in ("qe_block_corr_kernel", "qe_block_sweep_kernel",
-                                 "qe_suffix_resid_kernel", "dequant_matmul_tc_large_kernel",
+        name = next((k for k in ("qe_block_corr_kernel", "qe_corr_reduce_kernel",
+                                 "qe_block_sweep_kernel", "qe_suffix_resid_kernel",
+                                 "dequant_matmul_tc_large_kernel",
                                  "dequant_matmul_tc_small_kernel", "dequant_matmul_reduce_kernel",
                                  "dequant_matmul_kernel", "paged_attention_kernel") if k in e.name),
                     "torch")
@@ -208,6 +220,35 @@ def device_profile(fn) -> dict:
         return {}
     dev = sum(by_kernel.values())
     return dict(wall_ms=wall, device_ms=dev, busy=dev / wall, by_kernel=by_kernel)
+
+
+def ptxas_summary(name: str) -> str:
+    """Registers and spill stores of each kernel of library ``name``, from
+    the ``-Xptxas -v`` report the build keeps: ``kernel<template args>
+    regs/spill`` per entry, template args read from the mangled name."""
+    import re
+
+    from repro_torch.kernels import build
+
+    out = []
+    for chunk in build.ptxas_log(name).split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        kernel = re.search(r"(qe_[a-z_]+_kernel)", mangled)
+        targs = re.search(r"_kernelI(\w+?)EEv", mangled)
+        args = []
+        for num, flag, bf16 in re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)",
+                                          targs.group(1) if targs else ""):
+            if num:
+                args.append(num)
+            elif flag:
+                args.append("outlier" if flag == "1" else "plain")
+            else:
+                args.append("f32" if bf16 == "f" else "bf16")
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append(f"{kernel.group(1) if kernel else mangled}{'<' + ','.join(args) + '>' if args else ''} "
+                   f"{regs.group(1) if regs else '?'} regs/{spill.group(1) if spill else '?'} B spill")
+    return "; ".join(out)
 
 
 def bound(n_bytes: float, n_flop: float, peak: float = PEAK_FP32) -> tuple[float, str]:
@@ -342,6 +383,106 @@ def fused_bytes_flop(G, q, p, bsz, bf16):
     return n_bytes, n_flop
 
 
+def print_profile(label, prof):
+    print(f"[profile] {label}: " + (
+        "no device time in the trace" if not prof else
+        f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms "
+        f"(busy {prof['busy']:.3f}): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(prof["by_kernel"].items()))), flush=True)
+
+
+SGEMM_SUMS = ("corr_ms", "lib_corr_ms", "corr_flop", "corr_bound_ms",
+              "suffix_ms", "lib_suffix_ms", "suffix_flop", "suffix_bound_ms")
+
+
+def sgemm_layer(what, key, totals):
+    """One decoder layer's SGEMM line: summed device ms, TFLOP/s and fp32
+    bound, beside fp32 ``torch.matmul`` for the same products."""
+    ms, lib, flop = totals[f"{key}_ms"], totals[f"lib_{key}_ms"], totals[f"{key}_flop"]
+    return (f"{what} alone {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), fp32 torch.matmul "
+            f"{lib:.3f} ms ({flop / lib / 1e9:.1f} TFLOP/s), fp32 bound "
+            f"{totals[f'{key}_bound_ms']:.3f} ms")
+
+
+def corr_yardsticks(label, s, sig_corr, bsz, dh=None, reps=5):
+    """The SGEMMs of kernels 2 and 4 at one shape, device time: the nb block
+    corrections of one iteration alone (the C entry on this state, at the
+    planner's plan and at two others; no sweeps), for kernel 4 (``dh``
+    given) the suffix product alone, and fp32 ``torch.matmul`` (TF32 off)
+    for the same products: ``Σ̃ᵀ[blk, :] @ Δ`` per block and
+    ``Σ̃ᵀ[blk, blk0:] @ δŴ[blk0:]`` per block row.  Kernel 4 also times the
+    alternative to staging dĤ in the correction: plain-Δ corrections plus
+    one store of δŴ − dĤ per block (``torch.sub``, as a stand-in for a
+    sweep that wrote it).  Returns a dict of ms, TFLOP/s and bounds."""
+    import torch
+
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import quantease_cd as qcd
+
+    base, delta, sig32 = s["base"], s["delta"], s["sig_t"]
+    G, p, q = base.shape
+    dev = base.device
+    bf16 = sig_corr.dtype == torch.bfloat16
+    tile = qcd.corr_tile_rows(bsz)
+    cps = qcd.ctas_per_sm(dev.index, tile, bf16, dh is not None)
+    plan = qcd.plan_corr(G, q, bsz, p, sm_count(dev.index), cps)
+    out = torch.empty_like(base)
+
+    def corrections(plan, dh_t):
+        part = torch.empty(plan[1] * G * bsz * q, device=dev) if plan[1] > 1 else None
+        return lambda: [qcd.correction_cuda(sig_corr, delta, delta, base, out, col0=c, bsz=bsz,
+                                            plan=plan, part=part, dh_t=dh_t)
+                        for c in range(0, p, bsz)]
+
+    row = dict(plan=list(plan), ctas_per_sm=cps, corr_ms=device_ms(corrections(plan, dh), reps))
+    alts = {}
+    for alt in sorted({(tile, 1), (tile, 2 * plan[1])} - {plan}):
+        try:
+            qcd.check_corr_plan(alt, p)
+        except ValueError:
+            continue
+        alts[f"{alt[0]}x{alt[1]}"] = device_ms(corrections(alt, dh), reps)
+    row["corr_alt_ms"] = alts
+    blocks = [sig32[:, c:c + bsz] for c in range(0, p, bsz)]
+    row["lib_corr_ms"] = device_ms(lambda: [torch.matmul(b, delta) for b in blocks], reps)
+    corr_flop = 2 * G * q * p * p
+    elem = 2 if bf16 else 4
+    corr_bytes = G * p * p * elem + G * p * q * 4 * (3 if dh is None else 4)
+    row["corr_flop"] = corr_flop
+    row["corr_bound_ms"], _ = bound(corr_bytes, corr_flop)
+    row["corr_tflops"] = corr_flop / row["corr_ms"] / 1e9
+    row["lib_corr_tflops"] = corr_flop / row["lib_corr_ms"] / 1e9
+    line = (f"[kernel] {label} corrections alone, plan {plan[0]}x{plan[1]} ({cps} CTAs/SM): "
+            f"{row['corr_ms']:.3f} ms ({row['corr_tflops']:.1f} TFLOP/s; "
+            + ", ".join(f"plan {k}: {v:.3f}" for k, v in alts.items())
+            + f"), fp32 torch.matmul {row['lib_corr_ms']:.3f} ms ({row['lib_corr_tflops']:.1f} TFLOP/s), "
+            f"fp32 bound {row['corr_bound_ms']:.3f} ms")
+    if dh is not None:
+        nb = p // bsz
+        suf_flop = nb * (nb + 1) // 2 * 2 * bsz * bsz * q * G
+        r = torch.empty_like(base)
+        row["suffix_ms"] = device_ms(
+            lambda: qcd.suffix_cuda(sig_corr, delta, base, r, bsz=bsz, tile_rows=plan[0]), reps)
+        row["lib_suffix_ms"] = device_ms(
+            lambda: [torch.matmul(sig32[:, c:c + bsz, c:], delta[:, c:]) for c in range(0, p, bsz)], reps)
+        row["suffix_flop"] = suf_flop
+        row["suffix_bound_ms"], _ = bound(G * p * p * elem / 2 + 3 * G * p * q * 4, suf_flop)
+        row["suffix_tflops"] = suf_flop / row["suffix_ms"] / 1e9
+        row["lib_suffix_tflops"] = suf_flop / row["lib_suffix_ms"] / 1e9
+        row["corr_plain_delta_ms"] = device_ms(corrections(plan, None), reps)
+        tmp = torch.empty_like(base)
+        row["dh_store_ms"] = device_ms(lambda: [torch.sub(delta[:, c:c + bsz], dh[:, c:c + bsz],
+                                                          out=tmp[:, c:c + bsz])
+                                                for c in range(0, p, bsz)], reps)
+        line += (f"; suffix alone {row['suffix_ms']:.3f} ms ({row['suffix_tflops']:.1f} TFLOP/s), "
+                 f"fp32 torch.matmul {row['lib_suffix_ms']:.3f} ms ({row['lib_suffix_tflops']:.1f} "
+                 f"TFLOP/s), fp32 bound {row['suffix_bound_ms']:.3f} ms; dĤ staged in the correction "
+                 f"{row['corr_ms']:.3f} ms vs plain Δ {row['corr_plain_delta_ms']:.3f} ms + a δŴ − dĤ "
+                 f"store per block {row['dh_store_ms']:.3f} ms")
+    print(line, flush=True)
+    return row
+
+
 def check_fused_iteration(gen, dev, detail):
     import torch
 
@@ -349,7 +490,8 @@ def check_fused_iteration(gen, dev, detail):
     from repro_torch.kernels import ops, ref
     from repro_torch.quant import GridSpec
 
-    totals = dict(ms=0.0, plain_ms=0.0, bytes=0.0, flop=0.0, err=0.0)
+    totals = dict(ms=0.0, plain_ms=0.0, bytes=0.0, flop=0.0, err=0.0, library_ms=0.0,
+                  **dict.fromkeys(SGEMM_SUMS, 0.0))
     detail["fused_iteration"] = []
     for G, q, p, dt in FUSED_SHAPES:
         bsz = min(256, p)  # QuantEaseConfig's block size, as on the path
@@ -372,6 +514,7 @@ def check_fused_iteration(gen, dev, detail):
         plain = cuda_ms(lambda: ref.quantease_fused_iteration_ref(*args, **kw), reps=10, warmup=1)
         n_bytes, n_flop = fused_bytes_flop(G, q, p, bsz, dt == "bfloat16")
         b_ms, b_by = bound(n_bytes, n_flop)
+        sgemm = corr_yardsticks(f"fused_iteration G={G} ({q},{p}) B={bsz} {dt}", s, sig_corr, bsz)
         del s, args, sig_corr
         # 25 iterations from the same (W, Σ): kernel engine vs plain engine.
         w, sigma = cd_problem(gen, G, q, p, CD_TOKENS, dev)
@@ -381,6 +524,8 @@ def check_fused_iteration(gen, dev, detail):
         wk, _ = qe.quantease_quantize(w, sigma, spec, use_kernel="auto", **kw25)
         torch.cuda.synchronize()
         t_kernel = time.monotonic() - t0
+        solve_split = device_profile(
+            lambda: qe.quantease_quantize(w, sigma, spec, use_kernel="auto", **kw25))
         wp, _ = qe.quantease_quantize(w, sigma, spec, use_kernel="torch", **kw25)
         ek = qe.relative_error(w, wk, sigma)
         ep = qe.relative_error(w, wp, sigma)
@@ -390,21 +535,29 @@ def check_fused_iteration(gen, dev, detail):
         row = dict(G=G, q=q, p=p, dtype=dt, rows_ok=min(fracs), rows_differing=n_diff,
                    rows_unexplained=n_unexplained, tie_rows=ties, max_abs_err=max(errs), ms=ms,
                    plain_ms=plain, bound_ms=b_ms, bound_by=b_by, rel_err_kernel=ek.tolist(),
-                   rel_err_plain=ep.tolist(), solve25_s=t_kernel)
+                   rel_err_plain=ep.tolist(), solve25_s=t_kernel, sgemm=sgemm,
+                   solve25_profile=solve_split)
         detail["fused_iteration"].append(row)
         print(f"[kernel] fused_iteration G={G} ({q},{p}) {dt}: rows_ok={min(fracs):.6f} "
               f"(rows differing {n_diff}, not starting with a tie flip {n_unexplained}) "
               f"max_abs_err={max(errs):.3g} ms={ms:.3f} plain_ms={plain:.1f} bound_ms={b_ms:.3f} "
               f"({b_by}) 25-iter solve {t_kernel:.2f}s rel_err {ek.mean():.6f} vs plain {ep.mean():.6f}")
+        print_profile(f"fused 25-iter solve G={G} ({q},{p}) {dt}", solve_split)
         if dt == "float32":  # one decoder layer's fp32 iteration: the three path groups
             totals["ms"] += ms
             totals["plain_ms"] += plain
             totals["bytes"] += n_bytes
             totals["flop"] += n_flop
+            for k in ("corr_ms", "lib_corr_ms", "corr_flop", "corr_bound_ms"):
+                totals[k] += sgemm[k]
+            totals["library_ms"] += sgemm["lib_corr_ms"]
         totals["err"] = max(totals["err"], max(errs))
     b_ms, b_by = bound(totals["bytes"], totals["flop"])
+    print(f"[kernel] fused_iteration, one decoder layer's fp32 iteration: ms={totals['ms']:.3f} "
+          f"bound_ms={b_ms:.3f}; {sgemm_layer('corrections', 'corr', totals)}", flush=True)
     return dict(max_abs_err=totals["err"], ms=totals["ms"], plain_ms=totals["plain_ms"],
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, library_ms=totals["library_ms"],
+                corr_ms=totals["corr_ms"],
                 shape="one fp32 CD iteration of a decoder layer: "
                 + " + ".join(f"G={G} ({q},{p})" for G, q, p, dt in FUSED_SHAPES if dt == "float32"))
 
@@ -429,7 +582,8 @@ def check_outlier_iteration(gen, dev, detail):
     from repro_torch.quant import GridSpec
 
     bsz = OUTLIER_BLOCK
-    totals = dict(ms=0.0, plain_ms=0.0, bytes=0.0, flop=0.0, err=0.0)
+    totals = dict(ms=0.0, plain_ms=0.0, bytes=0.0, flop=0.0, err=0.0, library_ms=0.0,
+                  **dict.fromkeys(SGEMM_SUMS, 0.0))
     detail["outlier_iteration"] = []
     for G, q, p, dt in OUTLIER_SHAPES:
         s = cd_state(gen, G, q, p, dev, bits=3)
@@ -464,6 +618,7 @@ def check_outlier_iteration(gen, dev, detail):
         plain = cuda_ms(lambda: ref.quantease_outlier_iteration_ref(*args, **kw), reps=5, warmup=1)
         n_bytes, n_flop = outlier_bytes_flop(G, q, p, bsz, dt == "bfloat16")
         b_ms, b_by = bound(n_bytes, n_flop)
+        sgemm = corr_yardsticks(f"outlier_iteration G={G} ({q},{p}) B={bsz} {dt}", s, sig_corr, bsz, dh)
         del s, args, sig_corr, dh
         # 25 iterations from the same (W, Σ): kernel engine vs plain engine.
         w, sigma = cd_problem(gen, G, q, p, CD_TOKENS, dev)
@@ -485,7 +640,8 @@ def check_outlier_iteration(gen, dev, detail):
                    rows_unexplained=n_unexplained, tie_rows=ties, max_abs_err=max(errs),
                    r_rel_err=r_err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                    topk_ms=topk_ms, rel_err_kernel=ek.tolist(), rel_err_plain=ep.tolist(),
-                   solve25_s=t_kernel, iteration_profile=split, solve25_profile=solve_split)
+                   solve25_s=t_kernel, iteration_profile=split, solve25_profile=solve_split,
+                   sgemm=sgemm)
         detail["outlier_iteration"].append(row)
         print(f"[kernel] outlier_iteration G={G} ({q},{p}) B={bsz} {dt}: rows_ok={min(fracs):.6f} "
               f"(rows differing {n_diff}, not starting with a tie flip {n_unexplained}) "
@@ -493,20 +649,30 @@ def check_outlier_iteration(gen, dev, detail):
               f"bound_ms={b_ms:.3f} ({b_by}) topk_ms={topk_ms:.3f} 25-iter solve {t_kernel:.2f}s "
               f"rel_err {ek.mean():.6f} vs plain {ep.mean():.6f}", flush=True)
         for what, prof in (("iteration", split), ("25-iter solve", solve_split)):
-            print(f"[profile] outlier {what} G={G} ({q},{p}) {dt}: " + (
-                "no device time in the trace" if not prof else
-                f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms "
-                f"(busy {prof['busy']:.3f}): " + ", ".join(
-                    f"{k} {v:.2f}" for k, v in sorted(prof["by_kernel"].items()))), flush=True)
+            print_profile(f"outlier {what} G={G} ({q},{p}) {dt}", prof)
+        if (G, q, p, dt) == OLD_TILE_SHAPE:
+            new = solve_split.get("by_kernel", {}).get("qe_block_corr_kernel")
+            print(f"[A/B] G={G} ({q},{p}) B={bsz} fp32 corrections per outlier iteration: the 64 x 64 "
+                  f"tile {OLD_TILE_CORR_MS:.2f} ms (PERF.md §5: {OLD_TILE_SOLVE_CORR_MS:.0f} ms of "
+                  f"qe_block_corr_kernel in a 25-iteration solve) vs the 128 x 128 tile "
+                  f"{'not traced' if new is None else f'{new / 25:.2f} ms'} in this run's solve "
+                  f"({sgemm['corr_ms']:.2f} ms alone)", flush=True)
         if dt == "float32":  # one decoder layer's fp32 iteration: the three path groups
             totals["ms"] += ms
             totals["plain_ms"] += plain
             totals["bytes"] += n_bytes
             totals["flop"] += n_flop
+            for k in SGEMM_SUMS:
+                totals[k] += sgemm[k]
+            totals["library_ms"] += sgemm["lib_corr_ms"] + sgemm["lib_suffix_ms"]
         totals["err"] = max(totals["err"], max(errs))
     b_ms, b_by = bound(totals["bytes"], totals["flop"])
+    print(f"[kernel] outlier_iteration, one decoder layer's fp32 iteration: ms={totals['ms']:.3f} "
+          f"bound_ms={b_ms:.3f}; {sgemm_layer('corrections', 'corr', totals)}; "
+          f"{sgemm_layer('suffix', 'suffix', totals)}", flush=True)
     return dict(max_abs_err=totals["err"], ms=totals["ms"], plain_ms=totals["plain_ms"],
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, library_ms=totals["library_ms"],
+                corr_ms=totals["corr_ms"], suffix_ms=totals["suffix_ms"],
                 shape=f"one fp32 outlier-aware CD iteration of a decoder layer, B={bsz}: "
                 + " + ".join(f"G={G} ({q},{p})" for G, q, p, dt in OUTLIER_SHAPES if dt == "float32"))
 
@@ -1105,6 +1271,7 @@ def main() -> None:
     secs = build.build_all()
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.monotonic() - t0:.2f}s", flush=True)
+    print(f"[build] quantease_cd, -Xptxas -v: {ptxas_summary('quantease_cd')}", flush=True)
 
     detail = {"card": card}
     gen = torch.Generator(device=dev)
@@ -1132,7 +1299,8 @@ def main() -> None:
             name=name, route="cuda", source=source, replaces=replaces, launches=counts[name],
             max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound_ms"], bound_by=m["bound_by"], library_ms=m["library_ms"],
-            shape=m["shape"], **{k: m[k] for k in ("call_ms", "library_bf16_ms") if k in m},
+            shape=m["shape"],
+            **{k: m[k] for k in ("call_ms", "library_bf16_ms", "corr_ms", "suffix_ms") if k in m},
         ))
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device", "require_on_device"]
+__all__ = ["resolve_device", "require_on_device", "sm_count"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -34,3 +36,10 @@ def require_on_device(t: torch.Tensor, device="cuda", what: str = "params") -> t
             f"move them there or pass device={t.device.type!r}"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernel
+    planners size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

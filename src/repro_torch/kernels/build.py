@@ -19,7 +19,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_dir", "build_all", "load", "check"]
+__all__ = ["SOURCES", "build_dir", "build_all", "load", "check", "ptxas_log"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
@@ -37,9 +37,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "quantease_cd": {
         "qe_block_sweep": ([_P] * 7 + [_I, _I, _I, _L, _L, _I, _I, _I, _P, _I], _I),
-        "qe_block_corr": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I], _I),
-        "qe_outlier_corr": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I], _I),
-        "qe_suffix_resid": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I], _I),
+        "qe_block_corr": ([_P, _I] + [_P] * 5 + [_I] * 7 + [_P, _I], _I),
+        "qe_outlier_corr": ([_P, _I] + [_P] * 6 + [_I] * 7 + [_P, _I], _I),
+        "qe_suffix_resid": ([_P, _I] + [_P] * 3 + [_I] * 5 + [_P, _I], _I),
+        "qe_corr_ctas_per_sm": ([_I] * 4, _I),
     },
     "dequant_matmul": {
         "dequant_matmul": ([_P, _I, _P, _I, _P, _P, _P, _I] + [_I] * 7 + [_P, _P, _I], _I),
@@ -122,6 +123,14 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_log(name: str) -> str:
+    """The compiler's ``-Xptxas -v`` report for library ``name`` (registers,
+    shared memory and spills per kernel), as :func:`build_all` kept it;
+    empty if the library was not built here."""
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def check(err: int, what: str) -> None:

@@ -20,17 +20,56 @@
 // What bounds them.
 //   * The correction product (per block: corr = Σ̃ᵀ[blk, :] @ Δ, a B x q x
 //     p_pad fp32 GEMM) carries 2·q·p_pad² FLOP per iteration and is bound by
-//     fp32 operations (67 TFLOP/s outside the tensor cores; TF32 would break
-//     parity with the fp32 reference).  It is tiled 64 x 64 with a 16-deep
-//     k-tile in shared memory, a 4 x 4 register micro-tile, and the next
-//     k-tile loaded into registers during the current one.  Splitting the
-//     iteration per block lets every block's product use the whole card
-//     (q/64 x B/64 CTAs per layer) and read the Σ̃ᵀ slab (B x p_pad) once
-//     from memory, where one CTA per q-tile looping over all blocks would
-//     stream all of Σ̃ (256 MB at p = 8192) once per CTA.  Where that leaves
-//     fewer than two tiles per SM (one layer, q = 3072: 96 tiles at B = 128)
-//     the wrapper splits k, and a second small kernel adds the partial sums
-//     in a fixed order.
+//     fp32 operations: 67 TFLOP/s on the CUDA cores (TF32 or the tensor
+//     cores would break parity with the fp32 reference).  Splitting the
+//     iteration per block lets every block's product use the whole card and
+//     read the Σ̃ᵀ slab (B x p_pad) once from memory, where one CTA per
+//     q-tile looping over all blocks would stream all of Σ̃ (256 MB at
+//     p = 8192) once per CTA.  One main loop (sgemm_mainloop) serves the
+//     correction and the suffix product; what it does about each limit:
+//       - Shared-memory rate.  An SM delivers 32 floats of shared memory
+//         per clock to its 128 FP32 lanes, so an SGEMM must read at most
+//         0.25 floats per FMA.  Each thread holds an 8 x 8 accumulator
+//         (2·BM threads per BM x 128 CTA tile; warps of 32 x 64, lanes
+//         4 x 8; a thread's rows are 4 apart and its columns two runs of 4,
+//         32 apart): per k it reads 8 A and 8 B floats for 64 FMAs, exactly
+//         that 0.25, against 0.5 for the 4 x 4 tile this loop replaced.  At
+//         that ratio the loop runs the FMA and shared-memory pipes at the
+//         same rate, so the pair, not either alone, caps it; a larger tile
+//         per thread (8 x 16) is the lever past it.
+//       - Bank conflicts.  A stays [row][k] in shared memory, as a copy
+//         lands it (Σ̃ᵀ rows are k-contiguous and cp.async cannot
+//         transpose); a thread reads several consecutive k of each of its
+//         rows at once (the compiler widens the pairs to 16-byte reads), and
+//         rows padded to 20 floats (24 bf16) put the 4 rows a warp reads in
+//         4 different bank groups.  B is [k][q] as in memory; 8 lanes read
+//         128 contiguous bytes.
+//       - Latency.  A ring of 4 stages of 16 k, filled by 16-byte cp.async
+//         3 steps ahead of the compute, with one barrier per step.  At 16 k
+//         a stage is 18 KB (26 KB with the staged dĤ), so two 256-thread
+//         CTAs share an SM (16 warps to hide shared-memory latency), within
+//         128 registers a thread; chip_smoke.py prints the compiler's
+//         register and spill counts.
+//       - Idle SMs.  The planner (kernels/quantease_cd.py: plan_corr)
+//         counts waves of the CTAs an SM holds at the tile and splits k
+//         where a block's tiles leave the last wave mostly idle; the partial
+//         sums go through qe_corr_reduce_kernel in split order, so a repeat
+//         is bit-identical.
+//     Blocks of fewer than 128 rows take the 64-row instance of the loop.
+//   * The rolling Δ of the fused engine (rows < col0 from this iteration,
+//     rows >= col0 from the previous one) is read from two global buffers:
+//     each k row of a stage picks its source in the copy, so a k-step that
+//     straddles col0 (B not a multiple of 16) needs no masked path.  The
+//     outlier-aware correction needs δŴ − dĤ_prev below col0: it stages the
+//     dĤ_prev tile beside Δ there and subtracts it in shared memory, once
+//     per element, in the thread that copied it (bf16 mode rounds Δ in the
+//     same pass).  The alternative, a sweep that also writes δŴ − dĤ_prev
+//     to a buffer of its own (one more B x q store per block), keeps the
+//     copy plain; chip_smoke.py times both sides of that trade, and on the
+//     H100 the plain-Δ correction plus a stand-in store came out 1-2 %
+//     faster in device time.  The staged tile is kept: the other way needs
+//     the sweep kernel to write a second output (or a launch per block to
+//     form it) and a p_pad x q buffer, for that 1-2 %.
 //   * The sweep is a dependent chain over the B columns: parallel only over
 //     rows.  Per row it costs B²/2 FMAs per block and is latency-bound, so
 //     the design shortens the chain and keeps global memory off it: four
@@ -46,12 +85,9 @@
 //     triangular product, nb(nb+1)/2 block pairs of 2·B²·q FLOP: about half
 //     the correction's, and as fp32-bound.  The TPU kernel adds each block's
 //     share as it goes, with R resident in VMEM; here δŴ is complete after
-//     the last block, so one launch over the whole card computes R with the
-//     same SGEMM tile, skipping the k-tiles left of the block diagonal.
-//   * The rolling Δ of the fused engine (rows < col0 from this iteration,
-//     rows >= col0 from the previous one) is read from two global buffers,
-//     so it needs no copy and no shared memory; at p_pad x q fp32 it is far
-//     beyond shared memory, and it stays in the 50 MB L2 per block.
+//     the last block, so one launch over the whole card computes R on the
+//     same main loop, skipping the k-steps left of the block diagonal and
+//     dispatching the tiles with the longest k ranges first.
 //
 // Rounding matches the reference: β / s is an IEEE division (no reciprocal),
 // rintf rounds half to even like jnp.round, the clip comes after adding z,
@@ -181,9 +217,6 @@ qe_block_sweep_kernel(const float* __restrict__ beta0, const float* __restrict__
                 quantize, dsm, srow);
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 template <typename ST>
 __device__ __forceinline__ float round_operand(float v) { return v; }
 template <>
@@ -191,59 +224,279 @@ __device__ __forceinline__ float round_operand<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-constexpr int kTile = 64;   // output tile: 64 rows of the p axis x 64 of the q axis
-constexpr int kDepth = 16;  // k-tile
-constexpr int kPad = 4;     // shared-memory row padding (keeps 16-byte alignment)
+template <typename ST>
+__device__ __forceinline__ ST st_zero() { return ST(0.f); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 st_zero<__nv_bfloat16>() { return __float2bfloat16_rn(0.f); }
 
-// The SGEMM main loop shared by the correction and suffix kernels:
-// acc[i][j] += Σ_k A(ty*4 + i, k) · B(k, tx*4 + j) over k in [k_begin, k_end)
-// for one 64 x 64 output tile (256 threads, a 4 x 4 register micro-tile).
-// load_a(c, k) gives row c (0..63) of the tile's A at global k; load_b(k, r)
-// gives B's row k at tile column r (0..63); both return 0 outside the
-// operand.  The next k-tile is loaded into registers while the current one
-// computes (one shared buffer, two barriers per step).
-template <typename LoadA, typename LoadB>
-__device__ __forceinline__ void tile_sgemm(LoadA load_a, LoadB load_b, int k_begin, int k_end,
-                                           float (&acc)[4][4]) {
-  __shared__ __align__(16) float As[kDepth][kTile + kPad];  // [k][c]
-  __shared__ __align__(16) float Bs[kDepth][kTile + kPad];  // [k][r]
+// ---------------------------------------------------------------------------
+// The correction and suffix SGEMM: one main loop, a 128- and a 64-row tile.
+// ---------------------------------------------------------------------------
+
+constexpr int kCols = 128;  // output columns (of q) per CTA
+constexpr int kStep = 16;   // k-step: the depth of one shared-memory stage
+constexpr int kStages = 4;  // stages of the cp.async ring
+constexpr int kMinCtas = 2;  // per SM: caps registers at 128 a thread for the 128-row tile
+
+// Per type of the Σ̃ᵀ operand: elements per 16-byte copy, and the padded
+// row length (elements) of the A stage, stored [row][k].  The padding puts
+// the four rows a warp reads at once (lanes 0-7, 8-15, ... one row each) in
+// four different bank groups: 20 floats (80 B) or 24 bf16 (48 B) per row.
+template <typename ST>
+struct AOp;
+template <>
+struct AOp<float> {
+  static constexpr int kPer = 4;
+  static constexpr int kLd = kStep + 4;
+};
+template <>
+struct AOp<__nv_bfloat16> {
+  static constexpr int kPer = 8;
+  static constexpr int kLd = kStep + 8;
+};
+
+// Shared-memory layout of one stage: A [BM][kLd], B [kStep][kCols] fp32 and,
+// for the outlier-aware correction, dĤ_prev [kStep][kCols] beside it.
+template <int BM, typename ST, bool kDh>
+struct Ring {
+  static constexpr int kThreads = 2 * BM;
+  static constexpr int kABytes = BM * AOp<ST>::kLd * (int)sizeof(ST);
+  static constexpr int kBBytes = kStep * kCols * 4;
+  static constexpr int kStageBytes = kABytes + kBBytes * (kDh ? 2 : 1);
+  static constexpr int kBytes = kStages * kStageBytes;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two consecutive k of one A row, as fp32 (bf16: a shift and a mask).
+__device__ __forceinline__ void a_pair(const float* p, float& lo, float& hi) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  lo = v.x;
+  hi = v.y;
+}
+__device__ __forceinline__ void a_pair(const __nv_bfloat16* p, float& lo, float& hi) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ void ld4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+// This thread's place in a BM x 128 tile of 2·BM threads: warps of 32 rows
+// x 64 columns (BM/32 down, 2 across), lanes 4 x 8.  Its 8 x 8 outputs are
+// rows ra + 4i (i < 8) and columns cb + j, cb + 32 + j (j < 4).
+struct Lane {
+  int ra, cb;
+  __device__ __forceinline__ Lane() {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    ra = (warp >> 1) * 32 + (lane >> 3);
+    cb = (warp & 1) * 64 + (lane & 7) * 4;
+  }
+  __device__ __forceinline__ int col(int j) const { return cb + (j & 3) + (j >> 2) * 32; }
+};
+
+// The SGEMM main loop of the correction and suffix kernels, for one BM x 128
+// output tile:
+//   acc[i][j] = Σ_{k_begin <= k < k_end} A(row0 + ra + 4i, k) · B(k, r0 + col(j))
+// in ascending k, fp32 FMA on the CUDA cores, where
+//   A(c, k) = a[c·lda + k] for c < n_rows and k >= kmin(c), else 0, with
+//             kmin(c) = (c / mask_bsz)·mask_bsz if mask_bsz > 0 (the suffix
+//             mask) and 0 otherwise;
+//   B(k, r) = (k < col0 ? bnew : bprev)[k·q + r] for r < q, else 0; with kDh,
+//             dh[k·q + r] is subtracted below col0; with bf16 A, B is rounded
+//             to bf16.
+// Each k-step's A and B tiles go global -> shared by 16-byte cp.async into a
+// ring of kStages stages, kStages − 1 steps ahead of the compute, with one
+// barrier per step.  a_vec / b_vec say that the operands' rows allow 16-byte
+// copies (aligned base, row length a multiple of 16 bytes); a chunk that is
+// not whole (a ragged edge, a masked or out-of-range element) is loaded by
+// masked scalar loads into the same stage instead, so nothing past an
+// operand is read.  The dĤ subtraction and the bf16 rounding of B are done
+// once per element in shared memory, by the thread that copied it, after
+// its copies land and before the step's barrier.
+template <int BM, typename ST, bool kDh>
+__device__ __forceinline__ void sgemm_mainloop(
+    const ST* __restrict__ a, int lda, int n_rows, int row0, int mask_bsz,
+    const float* __restrict__ bprev, const float* __restrict__ bnew, const float* __restrict__ dh,
+    int col0, int r0, int q, int k_begin, int k_end, bool a_vec, bool b_vec, char* smem,
+    float (&acc)[8][8]) {
+  using R = Ring<BM, ST, kDh>;
+  constexpr int kThreads = R::kThreads;
+  constexpr int kPer = AOp<ST>::kPer, kLd = AOp<ST>::kLd;
+  constexpr int kARow = kStep / kPer;               // 16-byte chunks per A row
+  constexpr int kAIter = BM * kARow / kThreads;     // A chunks per thread
+  constexpr int kBRow = kCols / 4;                  // 16-byte chunks per B row
+  constexpr int kBIter = kStep * kBRow / kThreads;  // B chunks per thread
+  constexpr bool kRound = sizeof(ST) == 2;
+  static_assert(kAIter >= 1 && kBIter >= 1 && BM % 32 == 0, "tile");
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  auto a_st = [&](int s) { return reinterpret_cast<ST*>(smem + s * R::kStageBytes); };
+  auto b_st = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * R::kStageBytes + R::kABytes);
+  };
+  auto d_st = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * R::kStageBytes + R::kABytes + R::kBBytes);
+  };
+
+  auto load = [&](int s, int k0) {
+    ST* as = a_st(s);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int l = 0; l < kAIter; ++l) {
+      const int e = tid + l * kThreads;
+      const int row = e / kARow, kc = (e % kARow) * kPer;
+      const int c = row0 + row, k = k0 + kc;
+      const int kmin = mask_bsz > 0 ? c / mask_bsz * mask_bsz : 0;
+      ST* dst = as + row * kLd + kc;
+      const ST* src = a + (long long)c * lda + k;
+      if (a_vec && c < n_rows && k >= kmin && k + kPer <= k_end) {
+        cp_async16(dst, src);
+      } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float ra[4], rb[4];
-  auto load_tile = [&](int k0) {
+        for (int t = 0; t < kPer; ++t)
+          dst[t] = (c < n_rows && k + t >= kmin && k + t < k_end) ? src[t] : st_zero<ST>();
+      }
+    }
+    float* bs = b_st(s);
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int e = tid + l * 256;
-      ra[l] = load_a(e >> 4, k0 + (e & 15));
-      rb[l] = load_b(k0 + (e >> 6), e & 63);
+    for (int l = 0; l < kBIter; ++l) {
+      const int e = tid + l * kThreads;
+      const int kr = e / kBRow, rc = (e % kBRow) * 4;
+      const int k = k0 + kr, r = r0 + rc;
+      const bool lower = k < col0;
+      const long long o = (long long)k * q + r;
+      const float* src = (lower ? bnew : bprev) + o;
+      float* dst = bs + kr * kCols + rc;
+      float* ddst = kDh ? d_st(s) + kr * kCols + rc : nullptr;
+      if (b_vec && k < k_end && r + 4 <= q) {
+        cp_async16(dst, src);
+        if (kDh && lower) cp_async16(ddst, dh + o);
+      } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const bool ok = k < k_end && r + t < q;
+          dst[t] = ok ? src[t] : 0.f;
+          if (kDh && lower) ddst[t] = ok ? dh[o + t] : 0.f;
+        }
+      }
     }
   };
-  if (k_begin < k_end) load_tile(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += kDepth) {
+
+  auto fixup = [&](int s, int k0) {
+    float* bs = b_st(s);
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int e = tid + l * 256;
-      As[e & 15][e >> 4] = ra[l];
-      Bs[e >> 6][e & 63] = rb[l];
+    for (int l = 0; l < kBIter; ++l) {
+      const int e = tid + l * kThreads;
+      const int kr = e / kBRow, rc = (e % kBRow) * 4;
+      const bool sub = kDh && k0 + kr < col0;
+      if (!sub && !kRound) continue;
+      float4* p = reinterpret_cast<float4*>(bs + kr * kCols + rc);
+      float4 v = *p;
+      if (sub) {
+        const float4 d = *reinterpret_cast<const float4*>(d_st(s) + kr * kCols + rc);
+        v.x -= d.x;
+        v.y -= d.y;
+        v.z -= d.z;
+        v.w -= d.w;
+      }
+      v.x = round_operand<ST>(v.x);
+      v.y = round_operand<ST>(v.y);
+      v.z = round_operand<ST>(v.z);
+      v.w = round_operand<ST>(v.w);
+      *p = v;
     }
-    __syncthreads();
-    if (k0 + kDepth < k_end) load_tile(k0 + kDepth);
+  };
+
+  const Lane ln;
+  auto compute = [&](int s) {
+    const ST* as = a_st(s) + ln.ra * kLd;
+    const float* bs = b_st(s) + ln.cb;
 #pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int kk = 0; kk < kStep; kk += 2) {
+      float a0[8], a1[8], b0[8], b1[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) a_pair(as + 4 * i * kLd + kk, a0[i], a1[i]);
+      ld4(bs + kk * kCols, b0);
+      ld4(bs + kk * kCols + 32, b0 + 4);
+      ld4(bs + (kk + 1) * kCols, b1);
+      ld4(bs + (kk + 1) * kCols + 32, b1 + 4);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a0[i], b0[j], acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a1[i], b1[j], acc[i][j]);
     }
-    __syncthreads();
+  };
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int n_steps = k_end > k_begin ? (k_end - k_begin + kStep - 1) / kStep : 0;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) load(s, k_begin + s * kStep);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of step t have landed
+    if (kDh || kRound) fixup(t % kStages, k_begin + t * kStep);
+    __syncthreads();  // step t is visible; every thread is done with step t − 1
+    const int nt = t + kStages - 1;
+    if (nt < n_steps) load(nt % kStages, k_begin + nt * kStep);  // into step t − 1's stage
+    cp_async_commit();
+    compute(t % kStages);
+  }
+  cp_async_wait<0>();
+}
+
+// dst[0..3] = v[0..3] (+ add[0..3]) (− sub[0..3]), for the n > 0 columns left
+// before q; 16-byte accesses when vec (all rows 16-byte aligned) and n >= 4.
+__device__ __forceinline__ void store4(float* dst, const float* add, const float* sub,
+                                       const float* v, int n, bool vec) {
+  if (vec && n >= 4) {
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (add) o = *reinterpret_cast<const float4*>(add);
+    if (sub) {
+      const float4 d = *reinterpret_cast<const float4*>(sub);
+      o.x -= d.x;
+      o.y -= d.y;
+      o.z -= d.z;
+      o.w -= d.w;
+    }
+    o.x += v[0];
+    o.y += v[1];
+    o.z += v[2];
+    o.w += v[3];
+    *reinterpret_cast<float4*>(dst) = o;
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t >= n) break;
+    float o = add ? add[t] : 0.f;
+    if (sub) o -= sub[t];
+    dst[t] = o + v[t];
   }
 }
 
@@ -253,58 +506,45 @@ __device__ __forceinline__ void tile_sgemm(LoadA load_a, LoadB load_b, int k_beg
 //   Δ[k] = k < col0 ? dnew[k] (− dh[k]) : dprev[k].
 // kOutlier adds the −dh terms of the outlier-aware iteration: dnew then holds
 // this iteration's pure δŴ, and the value published to later blocks,
-// δŴ − dĤ_prev, is formed in the load (no buffer of its own).
-// Split-K: blockIdx.z = g·splits + s covers k in [s·k_chunk, (s+1)·k_chunk).
-// With one split the tile writes base_out itself; with more it writes its
-// partial sum to part[g, s, c, r] and qe_corr_reduce_kernel finishes.
-template <typename ST, bool kOutlier>
-__global__ void __launch_bounds__(256)
+// δŴ − dĤ_prev, is formed in shared memory from a staged dĤ tile.
+// Grid: (q tiles, row tiles of the block, G·splits); blockIdx.z = g·splits + s
+// covers k in [s·k_chunk, (s+1)·k_chunk).  With one split the tile writes
+// base_out itself; with more it writes its partial sum to part[g, s, c, r]
+// and qe_corr_reduce_kernel finishes.
+template <int BM, typename ST, bool kOutlier>
+__global__ void __launch_bounds__(2 * BM, kMinCtas)
 qe_block_corr_kernel(const ST* __restrict__ sig, const float* __restrict__ dprev,
                      const float* __restrict__ dnew, const float* __restrict__ dh,
                      const float* __restrict__ base, float* __restrict__ base_out,
-                     float* __restrict__ part, int p_pad, int q, int col0, int bsz,
-                     int splits, int k_chunk) {
+                     float* __restrict__ part, int p_pad, int q, int col0, int bsz, int splits,
+                     int k_chunk, int a_vec, int b_vec) {
+  extern __shared__ float4 ring[];  // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(ring);
   const int g = blockIdx.z / splits;
   const int split = blockIdx.z % splits;
-  const int c0 = blockIdx.y * kTile;
-  const int r0 = blockIdx.x * kTile;
+  const int row0 = blockIdx.y * BM;
+  const int r0 = blockIdx.x * kCols;
   const long long gp = (long long)g * p_pad;
-  const ST* sg = sig + (gp + col0) * p_pad;
-  const float* dp = dprev + gp * q;
-  const float* dn = dnew + gp * q;
-  const float* dhg = kOutlier ? dh + gp * q : nullptr;
   const int k_begin = split * k_chunk;
-  float acc[4][4];
-  tile_sgemm(
-      [&](int c, int k) {
-        c += c0;
-        return (c < bsz && k < p_pad) ? to_f32(sg[(long long)c * p_pad + k]) : 0.f;
-      },
-      [&](int k, int r) {
-        r += r0;
-        float d = 0.f;
-        if (k < p_pad && r < q) {
-          const long long o = (long long)k * q + r;
-          if (k >= col0) d = dp[o];
-          else d = kOutlier ? dn[o] - dhg[o] : dn[o];
-        }
-        return round_operand<ST>(d);
-      },
-      k_begin, min(p_pad, k_begin + k_chunk), acc);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[8][8];
+  sgemm_mainloop<BM, ST, kOutlier>(sig + (gp + col0) * p_pad, p_pad, bsz, row0, 0, dprev + gp * q,
+                                   dnew + gp * q, kOutlier ? dh + gp * q : nullptr, col0, r0, q,
+                                   k_begin, min(p_pad, k_begin + k_chunk), a_vec, b_vec, smem, acc);
+  const Lane ln;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int c = row0 + ln.ra + 4 * i;
     if (c >= bsz) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + tx * 4 + j;
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + ln.col(4 * h);
       if (r >= q) continue;
       if (splits > 1) {
-        part[((long long)blockIdx.z * bsz + c) * q + r] = acc[i][j];
+        store4(part + ((long long)blockIdx.z * bsz + c) * q + r, nullptr, nullptr, &acc[i][4 * h],
+               q - r, b_vec);
       } else {
         const long long o = (gp + col0 + c) * q + r;
-        base_out[o] = (kOutlier ? base[o] - dh[o] : base[o]) + acc[i][j];
+        store4(base_out + o, base + o, kOutlier ? dh + o : nullptr, &acc[i][4 * h], q - r, b_vec);
       }
     }
   }
@@ -328,69 +568,124 @@ qe_corr_reduce_kernel(const float* __restrict__ part, const float* __restrict__ 
 
 // The exact residual of the outlier-aware iteration, after its last block:
 //   r[g, c, r] = base_out[g, c, r] + Σ_{k ≥ blk(c)·bsz} Σ̃ᵀ[g, c, k] · δŴ[g, k, r]
-// a block-upper-triangular product (Σ̃ ⊙ block-suffix mask).  A tile of 64
-// rows starts its k loop at the first block any of its rows reads, so the
-// tiles left of the block diagonal are never loaded; within that range rows
-// whose own block starts later mask their A entries (bsz < 64 only).
-template <typename ST>
-__global__ void __launch_bounds__(256)
+// a block-upper-triangular product (Σ̃ ⊙ block-suffix mask) on the same main
+// loop.  A tile starts its k loop at the first block any of its rows reads
+// (rounded down to the k-step), so the tiles left of the block diagonal are
+// never loaded; rows whose own block starts later are masked in the A load.
+// The 1-D grid is ordered row tile slowest, so the tiles with the longest k
+// ranges (row tile 0) are dispatched first and the short ones fill the tail.
+template <int BM, typename ST>
+__global__ void __launch_bounds__(2 * BM, kMinCtas)
 qe_suffix_resid_kernel(const ST* __restrict__ sig, const float* __restrict__ dpure,
-                       const float* __restrict__ base_out, float* __restrict__ r_out,
-                       int p_pad, int q, int bsz) {
-  const int g = blockIdx.z;
-  const int c0 = blockIdx.y * kTile;
-  const int r0 = blockIdx.x * kTile;
+                       const float* __restrict__ base_out, float* __restrict__ r_out, int G,
+                       int p_pad, int q, int bsz, int a_vec, int b_vec) {
+  extern __shared__ float4 ring[];  // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(ring);
+  const int n_ct = (q + kCols - 1) / kCols;
+  const int ct = blockIdx.x % n_ct;
+  const int rest = blockIdx.x / n_ct;
+  const int g = rest % G;
+  const int row0 = rest / G * BM;
+  const int r0 = ct * kCols;
   const long long gp = (long long)g * p_pad;
-  const ST* sg = sig + gp * p_pad;
   const float* dg = dpure + gp * q;
-  float acc[4][4];
-  tile_sgemm(
-      [&](int c, int k) {
-        c += c0;
-        return (c < p_pad && k < p_pad && k >= (c / bsz) * bsz)
-                   ? to_f32(sg[(long long)c * p_pad + k]) : 0.f;
-      },
-      [&](int k, int r) {
-        r += r0;
-        return (k < p_pad && r < q) ? round_operand<ST>(dg[(long long)k * q + r]) : 0.f;
-      },
-      (c0 / bsz) * bsz, p_pad, acc);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[8][8];
+  sgemm_mainloop<BM, ST, false>(sig + gp * p_pad, p_pad, p_pad, row0, bsz, dg, dg, nullptr, 0,
+                                r0, q, row0 / bsz * bsz / kStep * kStep, p_pad, a_vec, b_vec,
+                                smem, acc);
+  const Lane ln;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = c0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int c = row0 + ln.ra + 4 * i;
     if (c >= p_pad) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + tx * 4 + j;
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + ln.col(4 * h);
       if (r >= q) continue;
       const long long o = (gp + c) * q + r;
-      r_out[o] = base_out[o] + acc[i][j];
+      store4(r_out + o, base_out + o, nullptr, &acc[i][4 * h], q - r, b_vec);
     }
   }
 }
 
+bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
+
+template <int BM, typename ST, bool kOutlier>
+cudaError_t corr_tile(dim3 grid, cudaStream_t st, const void* sig, const float* dprev,
+                      const float* dnew, const float* dh, const float* base, float* base_out,
+                      float* part, int p_pad, int q, int col0, int bsz, int splits, int k_chunk,
+                      int a_vec, int b_vec) {
+  auto kern = qe_block_corr_kernel<BM, ST, kOutlier>;
+  constexpr int smem = Ring<BM, ST, kOutlier>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, 2 * BM, smem, st>>>((const ST*)sig, dprev, dnew, dh, base, base_out, part, p_pad,
+                                   q, col0, bsz, splits, k_chunk, a_vec, b_vec);
+  return cudaGetLastError();
+}
+
+template <int BM, typename ST, bool kOutlier>
+int corr_occupancy() {
+  auto kern = qe_block_corr_kernel<BM, ST, kOutlier>;
+  constexpr int smem = Ring<BM, ST, kOutlier>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, 2 * BM, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+template <int BM, typename ST>
+cudaError_t suffix_tile(cudaStream_t st, const void* sig, const float* dpure,
+                        const float* base_out, float* r, int G, int p_pad, int q, int bsz,
+                        int a_vec, int b_vec) {
+  auto kern = qe_suffix_resid_kernel<BM, ST>;
+  constexpr int smem = Ring<BM, ST, false>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long n = (long long)((q + kCols - 1) / kCols) * G * ((p_pad + BM - 1) / BM);
+  if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)n, 2 * BM, smem, st>>>((const ST*)sig, dpure, base_out, r, G, p_pad, q, bsz,
+                                         a_vec, b_vec);
+  return cudaGetLastError();
+}
+
+// The k range of each split: ceil(ceil(p_pad / kStep) / splits) k-steps,
+// the last one short; 0 if a split would be empty.
+int split_chunk(int p_pad, int splits) {
+  const int steps = (p_pad + kStep - 1) / kStep;
+  const int chunk = (steps + splits - 1) / splits * kStep;
+  return (long long)(splits - 1) * chunk < p_pad ? chunk : 0;
+}
+
+bool a_rows_vec(const void* sig, int sig_bf16, int p_pad) {
+  return aligned16(sig) && p_pad % (sig_bf16 ? AOp<__nv_bfloat16>::kPer : AOp<float>::kPer) == 0;
+}
+
 template <bool kOutlier>
 int launch_corr(const void* sig, int sig_bf16, const float* dprev, const float* dnew,
-                const float* dh, const float* base, float* base_out, float* part, int splits,
-                int G, int p_pad, int q, int col0, int bsz, void* stream, int device) {
+                const float* dh, const float* base, float* base_out, float* part, int tile_rows,
+                int splits, int G, int p_pad, int q, int col0, int bsz, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (G <= 0 || q <= 0 || bsz <= 0) return 0;
-  if (splits < 1 || (splits > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
-  const int k_chunk = ((p_pad + splits - 1) / splits + kDepth - 1) / kDepth * kDepth;
-  dim3 grid((q + kTile - 1) / kTile, (bsz + kTile - 1) / kTile, G * splits);
+  if ((tile_rows != 64 && tile_rows != 128) || splits < 1 || (splits > 1 && part == nullptr) ||
+      (long long)G * splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int k_chunk = split_chunk(p_pad, splits);
+  if (k_chunk == 0) return (int)cudaErrorInvalidValue;
+  const int a_vec = a_rows_vec(sig, sig_bf16, p_pad);
+  const int b_vec = q % 4 == 0 && aligned16(dprev) && aligned16(dnew) && aligned16(dh) &&
+                    aligned16(base) && aligned16(base_out) && aligned16(part);
+  dim3 grid((q + kCols - 1) / kCols, (bsz + tile_rows - 1) / tile_rows, G * splits);
   cudaStream_t st = (cudaStream_t)stream;
-  if (sig_bf16) {
-    qe_block_corr_kernel<__nv_bfloat16, kOutlier><<<grid, 256, 0, st>>>(
-        (const __nv_bfloat16*)sig, dprev, dnew, dh, base, base_out, part, p_pad, q, col0, bsz,
-        splits, k_chunk);
-  } else {
-    qe_block_corr_kernel<float, kOutlier><<<grid, 256, 0, st>>>(
-        (const float*)sig, dprev, dnew, dh, base, base_out, part, p_pad, q, col0, bsz, splits,
-        k_chunk);
-  }
-  err = cudaGetLastError();
+#define QE_CORR(BM, ST)                                                                      \
+  corr_tile<BM, ST, kOutlier>(grid, st, sig, dprev, dnew, dh, base, base_out, part, p_pad, q, \
+                              col0, bsz, splits, k_chunk, a_vec, b_vec)
+  if (tile_rows == 128)
+    err = sig_bf16 ? QE_CORR(128, __nv_bfloat16) : QE_CORR(128, float);
+  else
+    err = sig_bf16 ? QE_CORR(64, __nv_bfloat16) : QE_CORR(64, float);
+#undef QE_CORR
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long n = (long long)G * bsz * q;
   qe_corr_reduce_kernel<kOutlier><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -420,41 +715,61 @@ int qe_block_sweep(const float* beta0, const float* sig, const float* w_old,
   return (int)cudaGetLastError();
 }
 
-// Full-width rolling-Δ correction for the block starting at col0.
-// sig_bf16 selects bf16 Σ̃ᵀ operands (Δ is then rounded to bf16 too).
-// part: splits·G·bsz·q floats of scratch when splits > 1 (else unused).
+// Full-width rolling-Δ correction for the block starting at col0, on a tile
+// of tile_rows (64 or 128) rows with k split `splits` ways.  sig_bf16
+// selects bf16 Σ̃ᵀ operands (Δ is then rounded to bf16 too).  part:
+// splits·G·bsz·q floats of scratch when splits > 1 (else unused).
 int qe_block_corr(const void* sig, int sig_bf16, const float* dprev, const float* dnew,
-                  const float* base, float* base_out, float* part, int splits, int G,
-                  int p_pad, int q, int col0, int bsz, void* stream, int device) {
-  return launch_corr<false>(sig, sig_bf16, dprev, dnew, nullptr, base, base_out, part, splits,
-                            G, p_pad, q, col0, bsz, stream, device);
+                  const float* base, float* base_out, float* part, int tile_rows, int splits,
+                  int G, int p_pad, int q, int col0, int bsz, void* stream, int device) {
+  return launch_corr<false>(sig, sig_bf16, dprev, dnew, nullptr, base, base_out, part,
+                            tile_rows, splits, G, p_pad, q, col0, bsz, stream, device);
 }
 
 // The outlier-aware iteration's correction: β0 = base − dh + Σ̃ᵀ[blk, :]·Δ,
 // Δ = dpure − dh below col0 and dprev from col0 on.
 int qe_outlier_corr(const void* sig, int sig_bf16, const float* dprev, const float* dpure,
                     const float* dh, const float* base, float* base_out, float* part,
-                    int splits, int G, int p_pad, int q, int col0, int bsz, void* stream,
-                    int device) {
-  return launch_corr<true>(sig, sig_bf16, dprev, dpure, dh, base, base_out, part, splits, G,
-                           p_pad, q, col0, bsz, stream, device);
+                    int tile_rows, int splits, int G, int p_pad, int q, int col0, int bsz,
+                    void* stream, int device) {
+  return launch_corr<true>(sig, sig_bf16, dprev, dpure, dh, base, base_out, part, tile_rows,
+                           splits, G, p_pad, q, col0, bsz, stream, device);
 }
 
-// The exact residual r = base_out + (Σ̃ ⊙ M)ᵀ·δŴ over all p_pad rows.
+// The exact residual r = base_out + (Σ̃ ⊙ M)ᵀ·δŴ over all p_pad rows, on
+// tiles of tile_rows rows.
 int qe_suffix_resid(const void* sig, int sig_bf16, const float* dpure, const float* base_out,
-                    float* r, int G, int p_pad, int q, int bsz, void* stream, int device) {
+                    float* r, int tile_rows, int G, int p_pad, int q, int bsz, void* stream,
+                    int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (G <= 0 || q <= 0 || bsz <= 0 || p_pad <= 0) return 0;
-  dim3 grid((q + kTile - 1) / kTile, (p_pad + kTile - 1) / kTile, G);
-  if (sig_bf16) {
-    qe_suffix_resid_kernel<__nv_bfloat16><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)sig, dpure, base_out, r, p_pad, q, bsz);
-  } else {
-    qe_suffix_resid_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)sig, dpure, base_out, r, p_pad, q, bsz);
-  }
-  return (int)cudaGetLastError();
+  if (tile_rows != 64 && tile_rows != 128) return (int)cudaErrorInvalidValue;
+  const int a_vec = a_rows_vec(sig, sig_bf16, p_pad);
+  const int b_vec = q % 4 == 0 && aligned16(dpure) && aligned16(base_out) && aligned16(r);
+  cudaStream_t st = (cudaStream_t)stream;
+#define QE_SUFFIX(BM, ST) suffix_tile<BM, ST>(st, sig, dpure, base_out, r, G, p_pad, q, bsz, a_vec, b_vec)
+  if (tile_rows == 128)
+    err = sig_bf16 ? QE_SUFFIX(128, __nv_bfloat16) : QE_SUFFIX(128, float);
+  else
+    err = sig_bf16 ? QE_SUFFIX(64, __nv_bfloat16) : QE_SUFFIX(64, float);
+#undef QE_SUFFIX
+  return (int)err;
+}
+
+// CTAs of the correction kernel resident per SM at a tile (its registers
+// and shared memory against the SM's); negative: minus the CUDA error.
+int qe_corr_ctas_per_sm(int tile_rows, int sig_bf16, int outlier, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  if (tile_rows != 64 && tile_rows != 128) return -(int)cudaErrorInvalidValue;
+#define QE_OCC(BM)                                                                           \
+  (sig_bf16 ? (outlier ? corr_occupancy<BM, __nv_bfloat16, true>()                           \
+                       : corr_occupancy<BM, __nv_bfloat16, false>())                         \
+            : (outlier ? corr_occupancy<BM, float, true>() : corr_occupancy<BM, float, false>()))
+  const int n = tile_rows == 128 ? QE_OCC(128) : QE_OCC(64);
+#undef QE_OCC
+  return n;
 }
 
 }  // extern "C"

@@ -37,6 +37,7 @@ import functools
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 __all__ = ["VARIANTS", "SMALL_M_MAX", "plan_dequant_matmul", "split_for", "split_slices",
@@ -110,11 +111,6 @@ def _require(cond: bool, msg: str, *args) -> None:
         raise ValueError(msg.format(*args))
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def dequant_matmul_cuda(
     x, codes, scale, zero, *, packed4: bool = False, out_dtype=torch.bfloat16, group_size=None,
     plan=None,
@@ -150,7 +146,7 @@ def dequant_matmul_cuda(
     _require(-(-p // gsz) == n_groups, "group_size={} gives {} groups, grid has {}",
              gsz, -(-p // gsz), n_groups)
     variant, split = plan or plan_dequant_matmul(
-        m, q, p, gsz if n_groups > 1 else None, x.dtype, _n_sm(dev.index))
+        m, q, p, gsz if n_groups > 1 else None, x.dtype, sm_count(dev.index))
     _require(variant in VARIANTS and split >= 1, "unknown plan {}", (variant, split))
     y = torch.empty(m, q, dtype=out_dtype, device=dev)
     ws = torch.empty(split * m * q, dtype=torch.float32, device=dev) if split > 1 else None

@@ -10,6 +10,12 @@
   (replaces ``quantease_outlier_iteration_t_pallas``): the same two
   launches per block with the correction's ``−dĤ_prev`` terms, then
   ``qe_suffix_resid_kernel`` once for the exact residual R.
+* :func:`plan_corr` chooses each correction's tile (128 rows, or 64 for
+  blocks of fewer than 128) and its split of k by counting waves of the
+  CTAs an SM holds; both iteration wrappers take ``plan=`` to pin one, and
+  :func:`correction_cuda` / :func:`suffix_cuda` launch one block's
+  correction or the suffix product alone (uncounted; ``chip_smoke.py``
+  times them against ``torch.matmul``).
 
 Both take the transposed layout of ``csrc/quantease_cd.cu``: per-row
 operands are ``(G, rows, q)`` or ``(rows, q)`` with q contiguous.  Each
@@ -20,31 +26,86 @@ versions.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
-__all__ = ["block_sweep_cuda", "fused_iteration_cuda", "outlier_iteration_cuda", "MAX_BLOCK"]
+__all__ = ["block_sweep_cuda", "fused_iteration_cuda", "outlier_iteration_cuda", "correction_cuda",
+           "suffix_cuda", "plan_corr", "check_corr_plan", "corr_tile_rows", "corr_slices",
+           "corr_ctas", "ctas_per_sm", "MAX_BLOCK", "TILE_ROWS", "TILE_COLS", "K_STEP",
+           "MIN_K_CHUNK"]
 
 MAX_BLOCK = 256  # the sweep kernel prefetches a Σ̃ row as 8 registers per lane
-_TILE = 64  # the correction SGEMM's output tile (rows of the block x q)
-_MIN_K_CHUNK = 1024  # the shortest k range a split of the correction gets
+TILE_ROWS = (64, 128)  # the correction SGEMM's tiles: rows of the block (or of p) per CTA
+TILE_COLS = 128  # columns of q per CTA
+K_STEP = 16  # the depth of one shared-memory stage; split-K slices are multiples of it
+MIN_K_CHUNK = 512  # the shortest k range a split of the correction gets
+# The planner's rates (H100 SXM data sheet): fp32 FMA on the CUDA cores and
+# HBM bytes, to weigh a split's partial sums against the k-steps it saves.
+_PEAK_FP32, _PEAK_BYTES, _LAUNCH_S = 67e12, 3.35e12, 4e-6
 
 
-def _corr_scratch(dev, G: int, q: int, bsz: int, p_pad: int):
-    """Split-K of the per-block correction: ``(splits, scratch)``.
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    A block's correction has ``ceil(q/64)·ceil(B/64)·G`` output tiles; where
-    that is fewer than two per SM, its k range is split (into chunks of at
-    least ``_MIN_K_CHUNK``) until it is not, and ``scratch`` holds the
-    partial sums.  One split needs no scratch.
+
+def corr_tile_rows(bsz: int) -> int:
+    """The correction's tile for a block of ``bsz`` rows: 128 rows, or the
+    64-row instance of the same loop for blocks of fewer than 128."""
+    return 128 if bsz >= 128 else 64
+
+
+def corr_slices(p_pad: int, splits: int) -> list:
+    """The k ranges ``[lo, hi)`` of the ``splits`` slices, as the kernel cuts
+    them: ``ceil(ceil(p_pad/K_STEP)/splits)`` k-steps each, the last one
+    short.  Raises ``ValueError`` if a slice would be empty."""
+    _require(isinstance(splits, int) and splits >= 1, f"splits must be an int >= 1, got {splits!r}")
+    chunk = _cdiv(_cdiv(p_pad, K_STEP), splits) * K_STEP
+    _require((splits - 1) * chunk < p_pad, f"{splits} splits of p_pad={p_pad} leave a slice empty")
+    return [(s * chunk, min(p_pad, (s + 1) * chunk)) for s in range(splits)]
+
+
+def corr_ctas(G: int, q: int, bsz: int, tile_rows: int, splits: int) -> int:
+    """CTAs of one block's correction launch (not the reduce)."""
+    return G * _cdiv(q, TILE_COLS) * _cdiv(bsz, tile_rows) * splits
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_corr(G: int, q: int, bsz: int, p_pad: int, n_sm: int, ctas_per_sm: int) -> tuple:
+    """``(tile_rows, splits)`` for one block's correction.
+
+    The tile is :func:`corr_tile_rows`'s.  The split counts waves: a wave is
+    ``n_sm·ctas_per_sm`` CTAs (``ctas_per_sm``: CTAs of that tile resident
+    on one SM at once), and a split of ``s`` runs ``ceil(ctas·s / wave)``
+    waves of ``ceil(steps/s)`` k-steps each, so a last wave that is mostly
+    idle costs as much as a full one.  Each split beyond the first adds its
+    partial sums' round trip through memory (and the reduce launch), counted
+    in the same wave k-steps at the card's fp32 and HBM rates.  Slices are
+    whole k-steps, at least ``MIN_K_CHUNK`` long; the cheapest split wins,
+    the smaller on a tie.
     """
-    tiles = -(-q // _TILE) * -(-bsz // _TILE) * G
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-2 * n_sm // tiles), p_pad // _MIN_K_CHUNK))
-    if splits == 1:
-        return 1, None
-    return splits, torch.empty(splits * G * bsz * q, dtype=torch.float32, device=dev)
+    tile = corr_tile_rows(bsz)
+    steps = _cdiv(p_pad, K_STEP)
+    slots = n_sm * max(1, ctas_per_sm)
+    tiles = corr_ctas(G, q, bsz, tile, 1)
+    wave_step_s = max(1, ctas_per_sm) * tile * TILE_COLS * K_STEP * 2 / (_PEAK_FP32 / n_sm)
+    best = (math.inf, 1)
+    for s in range(1, steps + 1):
+        chunk = _cdiv(steps, s)
+        if _cdiv(steps, chunk) != s:
+            continue  # the same slices as a smaller split
+        if s > 1 and chunk * K_STEP < MIN_K_CHUNK:
+            break
+        cost = _cdiv(tiles * s, slots) * chunk
+        if s > 1:
+            cost += (2 * s * G * bsz * q * 4 / _PEAK_BYTES + _LAUNCH_S) / wave_step_s
+        if cost < best[0]:
+            best = (cost, s)
+    return tile, best[1]
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -137,36 +198,102 @@ def _check_iteration(name, state: dict, sig_t, sig_corr, bsz: int):
     return dev, G, p_pad, q
 
 
+def check_corr_plan(plan, p_pad: int) -> tuple:
+    """``plan`` as ``(tile_rows, splits)`` if the correction kernel takes it
+    for a k range of ``p_pad``: a tile of :data:`TILE_ROWS` and a split whose
+    slices are all non-empty.  Raises ``ValueError`` otherwise."""
+    _require(isinstance(plan, (tuple, list)) and len(plan) == 2,
+             f"plan must be (tile_rows, splits), got {plan!r}")
+    tile, splits = plan
+    _require(tile in TILE_ROWS, f"tile_rows {tile!r} not in {TILE_ROWS}")
+    corr_slices(p_pad, splits)
+    return tile, splits
+
+
+@functools.lru_cache(maxsize=None)
+def ctas_per_sm(index: int, tile_rows: int, bf16: bool, outlier: bool) -> int:
+    """CTAs of the correction kernel at ``tile_rows`` resident on one SM of
+    card ``index`` (the CUDA occupancy calculator on its registers and
+    shared memory)."""
+    n = build.load("quantease_cd").qe_corr_ctas_per_sm(tile_rows, int(bf16), int(outlier), index)
+    if n <= 0:
+        raise RuntimeError(f"qe_corr_ctas_per_sm({tile_rows}): CUDA error {-n}")
+    return n
+
+
+def _corr_plan(dev, G, q, bsz, p_pad, bf16, outlier, plan):
+    """The plan (:func:`plan_corr`'s, or the caller's after
+    :func:`check_corr_plan`) and the split-K scratch it needs."""
+    if plan is None:
+        tile = corr_tile_rows(bsz)
+        cps = ctas_per_sm(dev.index, tile, bf16, outlier)
+        plan = plan_corr(G, q, bsz, p_pad, sm_count(dev.index), cps)
+    plan = check_corr_plan(plan, p_pad)
+    part = None
+    if plan[1] > 1:
+        part = torch.empty(plan[1] * G * bsz * q, dtype=torch.float32, device=dev)
+    return plan, part
+
+
+def correction_cuda(sig_corr, delta_prev_t, delta_new_t, base_t, base_out_t, *, col0: int,
+                    bsz: int, plan: tuple, part=None, dh_t=None) -> None:
+    """Launch one block's correction, ``qe_block_corr`` (or
+    ``qe_outlier_corr`` with ``dh_t``), on operands an iteration wrapper has
+    checked, with a checked ``plan`` and the scratch it needs.  Counts
+    nothing: the iteration wrappers count their launches, and
+    ``chip_smoke.py`` times the corrections alone through this."""
+    dev = base_t.device
+    p_pad, q = base_t.shape[-2:]
+    G = base_t.numel() // (p_pad * q)
+    lib = build.load("quantease_cd")
+    head = (sig_corr.data_ptr(), int(sig_corr.dtype == torch.bfloat16), delta_prev_t.data_ptr(),
+            delta_new_t.data_ptr())
+    tail = (base_t.data_ptr(), base_out_t.data_ptr(), None if part is None else part.data_ptr(),
+            *plan, G, p_pad, q, col0, bsz, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if dh_t is None:
+        build.check(lib.qe_block_corr(*head, *tail), "qe_block_corr")
+    else:
+        build.check(lib.qe_outlier_corr(*head, dh_t.data_ptr(), *tail), "qe_outlier_corr")
+
+
+def suffix_cuda(sig_corr, dpure_t, base_new_t, r_t, *, bsz: int, tile_rows: int) -> None:
+    """Launch the exact residual ``qe_suffix_resid`` on checked operands
+    (uncounted, as :func:`correction_cuda`)."""
+    dev = base_new_t.device
+    p_pad, q = base_new_t.shape[-2:]
+    err = build.load("quantease_cd").qe_suffix_resid(
+        sig_corr.data_ptr(), int(sig_corr.dtype == torch.bfloat16), dpure_t.data_ptr(),
+        base_new_t.data_ptr(), r_t.data_ptr(), tile_rows, base_new_t.numel() // (p_pad * q),
+        p_pad, q, bsz, torch.cuda.current_stream(dev).cuda_stream, dev.index,
+    )
+    build.check(err, "qe_suffix_resid")
+
+
 def fused_iteration_cuda(
     base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_prev_t, *,
-    n_levels: int, quantize: bool, bsz: int,
+    n_levels: int, quantize: bool, bsz: int, plan=None,
 ):
     """One whole CD iteration of the fused engine.
 
     Per-row state: ``(G, p_pad, q)`` or ``(p_pad, q)`` contiguous fp32;
     ``sig_t``: Σ̃ᵀ ``(G, p_pad, p_pad)`` fp32 (diagonal blocks for the
     sweep); ``sig_corr``: Σ̃ᵀ in the correction dtype, fp32 or bf16.
+    ``plan``: ``(tile_rows, splits)`` for the corrections instead of
+    :func:`plan_corr`'s (tests and ``chip_smoke.py`` pin one); a plan the
+    kernel cannot take raises ``ValueError``.
     Returns ``(w_new_t, base_new_t, delta_new_t)``.  ``.launches`` counts
     correction launches, one per column block.
     """
     state = {"base_t": base_t, "w_t": w_t, "scale_t": scale_t, "zero_t": zero_t,
              "delta_prev_t": delta_prev_t}
     dev, G, p_pad, q = _check_iteration("fused_iteration_cuda", state, sig_t, sig_corr, bsz)
+    plan, part = _corr_plan(dev, G, q, bsz, p_pad, sig_corr.dtype == torch.bfloat16, False, plan)
     w_new = torch.empty_like(base_t)
     base_new = torch.empty_like(base_t)
     delta_new = torch.empty_like(base_t)
-    splits, part = _corr_scratch(dev, G, q, bsz, p_pad)
-    part_ptr = None if part is None else part.data_ptr()
-    lib = build.load("quantease_cd")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    is_bf16 = int(sig_corr.dtype == torch.bfloat16)
     for col0 in range(0, p_pad, bsz):
-        err = lib.qe_block_corr(
-            sig_corr.data_ptr(), is_bf16, delta_prev_t.data_ptr(), delta_new.data_ptr(),
-            base_t.data_ptr(), base_new.data_ptr(), part_ptr, splits, G, p_pad, q, col0, bsz,
-            stream, dev.index,
-        )
-        build.check(err, "qe_block_corr")
+        correction_cuda(sig_corr, delta_prev_t, delta_new, base_t, base_new, col0=col0, bsz=bsz,
+                        plan=plan, part=part)
         fused_iteration_cuda.launches += 1
         sl = slice(col0, col0 + bsz)
         block_sweep_cuda(
@@ -182,11 +309,12 @@ fused_iteration_cuda.launches = 0
 
 def outlier_iteration_cuda(
     base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_prev_t, dh_prev_t, *,
-    n_levels: int, quantize: bool, bsz: int,
+    n_levels: int, quantize: bool, bsz: int, plan=None,
 ):
     """One outlier-aware CD iteration (Algorithm 3's Ŵ sweep plus its exact
-    residual), operands as :func:`fused_iteration_cuda` plus ``dh_prev_t``,
-    the previous IHT step's dĤᵀ.
+    residual), operands and ``plan`` as :func:`fused_iteration_cuda` plus
+    ``dh_prev_t``, the previous IHT step's dĤᵀ.  The suffix residual runs on
+    the plan's tile.
 
     Returns ``(w_new_t, base_new_t, delta_pure_t, r_t)``.  ``.launches``
     counts this kernel's own launches: one correction per column block and
@@ -195,22 +323,14 @@ def outlier_iteration_cuda(
     state = {"base_t": base_t, "w_t": w_t, "scale_t": scale_t, "zero_t": zero_t,
              "delta_prev_t": delta_prev_t, "dh_prev_t": dh_prev_t}
     dev, G, p_pad, q = _check_iteration("outlier_iteration_cuda", state, sig_t, sig_corr, bsz)
+    plan, part = _corr_plan(dev, G, q, bsz, p_pad, sig_corr.dtype == torch.bfloat16, True, plan)
     w_new = torch.empty_like(base_t)
     base_new = torch.empty_like(base_t)
     dpure = torch.empty_like(base_t)
     r = torch.empty_like(base_t)
-    splits, part = _corr_scratch(dev, G, q, bsz, p_pad)
-    part_ptr = None if part is None else part.data_ptr()
-    lib = build.load("quantease_cd")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    is_bf16 = int(sig_corr.dtype == torch.bfloat16)
     for col0 in range(0, p_pad, bsz):
-        err = lib.qe_outlier_corr(
-            sig_corr.data_ptr(), is_bf16, delta_prev_t.data_ptr(), dpure.data_ptr(),
-            dh_prev_t.data_ptr(), base_t.data_ptr(), base_new.data_ptr(), part_ptr, splits, G,
-            p_pad, q, col0, bsz, stream, dev.index,
-        )
-        build.check(err, "qe_outlier_corr")
+        correction_cuda(sig_corr, delta_prev_t, dpure, base_t, base_new, col0=col0, bsz=bsz,
+                        plan=plan, part=part, dh_t=dh_prev_t)
         outlier_iteration_cuda.launches += 1
         sl = slice(col0, col0 + bsz)
         block_sweep_cuda(
@@ -218,11 +338,7 @@ def outlier_iteration_cuda(
             zero_t[..., sl, :], n_levels=n_levels, quantize=quantize,
             out=(w_new[..., sl, :], dpure[..., sl, :]),
         )
-    err = lib.qe_suffix_resid(
-        sig_corr.data_ptr(), is_bf16, dpure.data_ptr(), base_new.data_ptr(), r.data_ptr(),
-        G, p_pad, q, bsz, stream, dev.index,
-    )
-    build.check(err, "qe_suffix_resid")
+    suffix_cuda(sig_corr, dpure, base_new, r, bsz=bsz, tile_rows=plan[0])
     outlier_iteration_cuda.launches += 1
     return w_new, base_new, dpure, r
 

@@ -39,9 +39,11 @@ def cuda():
 
 
 def _state(seed, G, q, p, dev, bits=4):
-    """A mid-solve fused-engine state, transposed (G, p, q), from numpy."""
+    """A mid-solve fused-engine state, transposed (G, p, q), from numpy
+    (a Gram of 2p tokens, or 1024 above p = 3072, to keep its CPU product
+    short)."""
     r = np.random.default_rng(seed)
-    x = torch.from_numpy(r.standard_normal((G, p, 2 * p)).astype(np.float32))
+    x = torch.from_numpy(r.standard_normal((G, p, 2 * p if p <= 3072 else 1024)).astype(np.float32))
     w = torch.from_numpy(r.standard_normal((G, q, p)).astype(np.float32))
     grid = compute_grid(w, GridSpec(bits=bits))
     w32, _, scale, zero, sig_tilde, pmat = qe._prep(w, x @ x.transpose(-1, -2), GridSpec(bits=bits), 0.01, grid)
@@ -73,9 +75,18 @@ def test_block_sweep(cuda, G, q, bsz, quantize):
         torch.testing.assert_close(k2[0], kn[0], rtol=0, atol=0)
 
 
+# The correction's cases: q not a multiple of the 128-column tile (or of 4);
+# B of 32 and 64 (the 64-row tile), 128 and 256 (the 128-row tile; at q =
+# 3072 unsplit); B = 40, not a multiple of the 16-deep k-step (a k-step
+# straddles each block boundary); k split by the planner at p = 2048, 3072
+# and 8192 (q = 256 there, so that the 1 % of rows the check allows is two
+# rows: at p = 8192 a rounding tie resolved the other way flips a row).
+CORR_CASES = [(1, 100, 384, 128), (2, 64, 512, 256), (3, 33, 96, 32), (2, 70, 160, 40),
+              (1, 3072, 512, 64), (1, 3072, 512, 256)]
+
+
 @pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G,q,p,bsz", [(1, 100, 384, 128), (2, 64, 512, 256), (3, 33, 96, 32),
-                                       (1, 100, 2048, 256)])  # the last splits k in two
+@pytest.mark.parametrize("G,q,p,bsz", CORR_CASES + [(1, 100, 2048, 256), (1, 256, 8192, 256)])
 def test_fused_iteration(cuda, G, q, p, bsz, matmul_dtype):
     s = _state(p + q, G, q, p, cuda)
     sig_corr = s["sig_t"].to(torch.bfloat16) if matmul_dtype == "bfloat16" else s["sig_t"]
@@ -117,12 +128,12 @@ def _outlier_args(s, seed, cdt):
 
 
 @pytest.mark.parametrize("matmul_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,q,p,bsz", [(1, 100, 384, 128), (2, 64, 512, 256), (3, 33, 96, 32),
-                                       (2, 70, 160, 32), (1, 100, 3072, 128)])
+@pytest.mark.parametrize("G,q,p,bsz", CORR_CASES + [(2, 70, 160, 32), (1, 100, 3072, 128),
+                                                    (1, 256, 8192, 128)])
 def test_outlier_iteration(cuda, G, q, p, bsz, matmul_dtype):
-    """Kernel 4 against its plain version: q not a multiple of the 64-row
-    tile, B of 32 (suffix tiles that straddle blocks), 128 and 256, and a
-    correction whose k range is split in three."""
+    """Kernel 4 against its plain version at the correction's cases, plus B
+    = 32 and 40 (suffix tiles whose rows straddle blocks) and corrections
+    whose k range the planner splits."""
     s = _state(p + q + 1, G, q, p, cuda, bits=3)
     args = _outlier_args(s, p + q, matmul_dtype)
     kw = dict(n_levels=s["n_levels"], quantize=True, bsz=bsz)
@@ -149,6 +160,60 @@ def test_outlier_iteration_exact_residual(cuda):
     blk = torch.arange(256, device=cuda) // 64
     sig_suffix = torch.where(blk[None, :] >= blk[:, None], s["sig_t"], 0.0)
     torch.testing.assert_close(r, base_new + sig_suffix @ dpure, rtol=0, atol=1e-4)
+
+
+def _iteration(engine, args, bsz, plan=None):
+    """Kernel 2 (``engine="fused"``, the first 7 operands) or kernel 4 on
+    ``args``, through the wrapper (a pinned ``plan``) and the plain version."""
+    from repro_torch.kernels import quantease_cd as qcd
+
+    kw = dict(n_levels=8, quantize=True, bsz=bsz)  # the 3-bit states below
+    if engine == "fused":
+        args = args[:7]
+        return (qcd.fused_iteration_cuda(*args, **kw, plan=plan),
+                ref.quantease_fused_iteration_ref(*args, **kw))
+    return (qcd.outlier_iteration_cuda(*args, **kw, plan=plan)[:3],
+            ref.quantease_outlier_iteration_ref(*args, **kw)[:3])
+
+
+@pytest.mark.parametrize("engine", ["fused", "outlier"])
+@pytest.mark.parametrize("matmul_dtype", [torch.float32, torch.bfloat16])
+def test_corr_plans_agree_and_repeat_bitwise(cuda, engine, matmul_dtype):
+    """Each tile, unsplit and split several ways through ``plan=``: a repeat
+    is bit-identical (split-K partials are added in split order) and every
+    plan holds to the plain version as the planner's own choice does."""
+    s = _state(11, 2, 100, 512, cuda, bits=3)
+    args = _outlier_args(s, 11, matmul_dtype)
+    for plan in [None, (64, 1), (128, 1), (64, 3), (128, 4), (128, 32)]:
+        k_out, p_out = _iteration(engine, args, 128, plan)
+        again, _ = _iteration(engine, args, 128, plan)
+        for k, a in zip(k_out, again):
+            assert torch.equal(k, a), plan
+        for k, pl in zip(k_out, p_out):
+            assert _rows_ok(k, pl) >= 0.99, plan
+
+
+def _nan_padded(t, pad=37):
+    """A contiguous copy of ``t`` with ``pad`` NaN before it (which takes it
+    off 16-byte alignment) and after it in the same buffer."""
+    buf = torch.full((t.numel() + 2 * pad,), float("nan"), dtype=t.dtype, device=t.device)
+    out = buf[pad:pad + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("engine", ["fused", "outlier"])
+@pytest.mark.parametrize("q", [33, 70])
+def test_corr_reads_nothing_past_its_operands(cuda, engine, q):
+    """Rows of 33 and 70 floats (not 16-byte multiples), each operand set in
+    NaN off 16-byte alignment: the outputs are finite and hold to the plain
+    version, so no load reached past an operand."""
+    s = _state(q, 2, q, 160, cuda, bits=3)
+    args = _outlier_args(s, q, torch.float32)
+    k_out, p_out = _iteration(engine, tuple(_nan_padded(a) for a in args), 32)
+    for k, pl in zip(k_out, p_out):
+        assert bool(torch.isfinite(k).all())
+        assert _rows_ok(k, pl) >= 0.99
 
 
 def _gemm(seed, m, q, p, n_groups, dev, x_dtype):
@@ -302,6 +367,13 @@ def test_wrappers_refuse_what_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ops.quantease_outlier_iteration(*args[:2], args[2].half(), *args[3:], dh, n_levels=16,
                                         quantize=True, bsz=32)
+    from repro_torch.kernels import quantease_cd as qcd
+
+    for plan in [(96, 1), (128, 0), (128, 5), (64, 2.0)]:  # 5 slices of 64 leave one empty
+        with pytest.raises(ValueError):
+            qcd.fused_iteration_cuda(*args, n_levels=16, quantize=True, bsz=32, plan=plan)
+        with pytest.raises(ValueError):
+            qcd.outlier_iteration_cuda(*args, dh, n_levels=16, quantize=True, bsz=32, plan=plan)
     with pytest.raises(ValueError):
         ops.quantease_block_sweep(s["base"][:, :32].double(), s["sig_t"][:, :32, :32],
                                   s["w"][:, :32], s["scale"][:, :32], s["zero"][:, :32],
