@@ -8,7 +8,11 @@ Phases (any failed check exits non-zero; no phase is skipped):
 2. build: compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``;
 3. kernels: holds each kernel against its plain PyTorch version at the main
    path's shapes, and times kernel, plain version and (where one exists) a
-   single PyTorch library call with CUDA events; the fused and the
+   single PyTorch library call with CUDA events; the block sweep (kernel 1)
+   at the six path shapes (three solver groups, B = 256 and 128), with its
+   plan, CTAs per SM, registers and spills, every plan held bit-identical
+   and timed, the bytes bound, the launches of the shape on the PTQ path,
+   and an A/B line against the earlier kernel's time per call; the fused and the
    outlier-aware iteration (Algorithm 3) at the three solver-group shapes,
    each with a 25-iteration solve of kernel path against plain path and its
    device time split by kernel, and their SGEMMs alone (the block
@@ -76,7 +80,17 @@ ROWS_OK = 0.999  # rows (output channels) within CD_ATOL in every output
 ROWS_TIES = 0.998  # the floor when each row past ROWS_OK starts with a tie flip
 
 # The main path's shapes (Phi-3-mini: d_model 3072, d_ff 8192, B = 256).
-SWEEP_SHAPE = (4, 3072, 256)  # (G, q, B): the attention group's column block
+PTQ_ITERATIONS = 25  # CD iterations of each PTQ solve on the main path
+QE_BLOCK = 256  # QuantEaseConfig's block size, as on the path
+# Kernel 1 at the three solver groups (G, q, p) and both block sizes of the
+# path: QuantEase's and outlier_quantease's; the sweep's shape is (G, B, q).
+SWEEP_SHAPES = tuple((G, q, p, B) for B in (256, 128)
+                     for G, q, p in ((4, 3072, 3072), (2, 8192, 3072), (1, 3072, 8192)))
+# The A/B against the sweep kernel before the panelled one, which is no
+# longer in the tree: its time per call with events at G=4, q=3072, B=256
+# from PERF.md's kernel table, row 1 (NVIDIA H100 80GB HBM3, 700 W).
+OLD_SWEEP_SHAPE = (4, 3072, 3072, 256)
+OLD_SWEEP_CALL_MS = 0.352
 FUSED_SHAPES = (  # (G, q, p, correction dtype): the three solver groups, then bf16
     (1, 3072, 8192, "float32"),
     (2, 8192, 3072, "float32"),
@@ -162,7 +176,9 @@ def device_ms(fn, reps: int) -> float:
     behind a sleep kernel that outlasts their enqueue, then timed with events
     on the card.  Unlike :func:`cuda_ms` it leaves out the host work between
     launches (at the decode batch the wrapper's host time is longer than its
-    kernels)."""
+    kernels).  A timing whose enqueue outlasted the sleep is thrown away and
+    taken again behind a sleep sized from that enqueue, at most three times:
+    the host is shared, and one slow enqueue would otherwise end the run."""
     import torch
 
     fn()
@@ -173,18 +189,22 @@ def device_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4e6 * host_ms) + 100_000)  # ~2x the enqueue time at <= 2 GHz
-    a.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    b.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    b.synchronize()
-    ms = a.elapsed_time(b)
+    for attempt in range(3):
+        if attempt:
+            host_ms = enqueue_ms
+        torch.cuda._sleep(int(4e6 * host_ms) + 100_000)  # ~2x the enqueue time at <= 2 GHz
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        b.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        if enqueue_ms <= 2 * host_ms:
+            break
     check(enqueue_ms <= 2 * host_ms,
           f"device_ms: enqueueing took {enqueue_ms:.3f} ms, longer than the sleep in front of it")
-    return ms / reps
+    return a.elapsed_time(b) / reps
 
 
 def device_profile(fn) -> dict:
@@ -349,31 +369,93 @@ def tie_flip_rows(k_out, p_out, state, bsz, n_levels, atol):
     return len(rows), unexplained, records
 
 
+def sweep_launches_on_path(p, bsz):
+    """Kernel 1's launches at one solver group's shape in phase 5: p / B
+    blocks per iteration, every iteration, layer and PTQ run whose engine
+    sweeps blocks of B (QuantEase 256, qe_outlier OUTLIER_BLOCK)."""
+    runs = sum(1 for m, _ in MAIN_RUNS
+               if (m == "quantease" and bsz == QE_BLOCK) or (m == "qe_outlier" and bsz == OUTLIER_BLOCK))
+    return p // bsz * PTQ_ITERATIONS * MAIN_OVERRIDES["n_periods"] * runs
+
+
+def sweep_regs(summary, panel, rows):
+    """``regs/spill`` of ``qe_block_sweep_kernel<panel,rows>`` in a
+    :func:`ptxas_summary` line."""
+    tag = f"qe_block_sweep_kernel<{panel},{rows}> "
+    part = next((x for x in summary.split("; ") if x.startswith(tag)), None)
+    return part[len(tag):] if part else "not in the build log"
+
+
 def check_block_sweep(gen, dev, detail):
+    """Kernel 1 at the six path shapes: against its plain version, every
+    plan bit-identical to the planned one, the device time of every plan,
+    the planned plan's call time, the plain version's, the bytes bound and
+    the launches of the shape on the PTQ path; then the A/B line against the
+    earlier kernel's time per call."""
     import torch
 
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import quantease_cd as qcd
     from repro_torch.kernels import ops, ref
 
-    G, q, bsz = SWEEP_SHAPE
-    s = cd_state(gen, G, q, bsz, dev)
-    args = (s["base"], s["sig_t"], s["w"], s["scale"], s["zero"])
-    kw = dict(n_levels=16, quantize=True)
-    kn, kd = ops.quantease_block_sweep(*args, **kw)
-    pn, pd = ref.quantease_block_sweep_t_ref(*args, **kw)
-    torch.cuda.synchronize()
-    frac_n, err_n = rows_within(kn, pn, CD_ATOL)
-    frac_d, err_d = rows_within(kd, pd, CD_ATOL)
-    check(min(frac_n, frac_d) >= ROWS_OK, f"block sweep: rows within {CD_ATOL}: {frac_n}, {frac_d}")
-    ms = cuda_ms(lambda: ops.quantease_block_sweep(*args, **kw))
-    plain = cuda_ms(lambda: ref.quantease_block_sweep_t_ref(*args, **kw))
-    n_bytes = 4 * (6 * G * bsz * q + G * bsz * bsz)
-    n_flop = G * q * (bsz * (bsz - 1) + 8 * bsz)
-    b_ms, b_by = bound(n_bytes, n_flop)
-    detail["block_sweep"] = dict(shape=[G, q, bsz], rows_ok=min(frac_n, frac_d), ms=ms, plain_ms=plain)
-    print(f"[kernel] block_sweep (G={G}, q={q}, B={bsz}): rows_ok={min(frac_n, frac_d):.6f} "
-          f"max_abs_err={max(err_n, err_d):.3g} ms={ms:.4f} plain_ms={plain:.3f} bound_ms={b_ms:.4f}")
-    return dict(max_abs_err=max(err_n, err_d), ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, shape=f"G={G} q={q} B={bsz}")
+    summary = ptxas_summary("quantease_cd")
+    plans = [(qcd.SWEEP_PANEL, r) for r in qcd.SWEEP_ROWS]
+    detail["block_sweep"] = []
+    record = None
+    for G, q, p, bsz in SWEEP_SHAPES:
+        s = cd_state(gen, G, q, bsz, dev)
+        args = (s["base"], s["sig_t"], s["w"], s["scale"], s["zero"])
+        kw = dict(n_levels=16, quantize=True)
+        index = s["base"].device.index
+        resident = [qcd.sweep_ctas_per_sm(index, r, bsz) for r in qcd.SWEEP_ROWS]
+        plan = qcd.plan_sweep(G, q, bsz, sm_count(index), *resident)
+        kn, kd = ops.quantease_block_sweep(*args, **kw)
+        pn, pd = ref.quantease_block_sweep_t_ref(*args, **kw)
+        torch.cuda.synchronize()
+        frac_n, err_n = rows_within(kn, pn, CD_ATOL)
+        frac_d, err_d = rows_within(kd, pd, CD_ATOL)
+        check(min(frac_n, frac_d) >= ROWS_OK,
+              f"block sweep G={G} q={q} B={bsz}: rows within {CD_ATOL}: {frac_n}, {frac_d}")
+        plan_ms = {}
+        for pl in plans:
+            out = qcd.block_sweep_cuda(*args, **kw, sweep_plan=pl)
+            check(torch.equal(out[0], kn) and torch.equal(out[1], kd),
+                  f"block sweep G={G} q={q} B={bsz}: plan {pl} differs from the planned {plan}")
+            plan_ms[f"{pl[0]}x{pl[1]}"] = device_ms(
+                lambda: qcd.block_sweep_cuda(*args, **kw, sweep_plan=pl), 20)
+        ms = plan_ms[f"{plan[0]}x{plan[1]}"]
+        call = cuda_ms(lambda: ops.quantease_block_sweep(*args, **kw))
+        plain = cuda_ms(lambda: ref.quantease_block_sweep_t_ref(*args, **kw), reps=5, warmup=1)
+        n_bytes = 4 * (6 * G * bsz * q + G * bsz * bsz)
+        n_flop = G * q * (bsz * (bsz - 1) + 8 * bsz)
+        b_ms, b_by = bound(n_bytes, n_flop)
+        launches = sweep_launches_on_path(p, bsz)
+        regs = sweep_regs(summary, plan[0], plan[1])
+        row = dict(G=G, q=q, p=p, B=bsz, plan=list(plan), ctas=qcd.sweep_ctas(G, q, plan[1]),
+                   ctas_per_sm=dict(zip(qcd.SWEEP_ROWS, resident)), regs_spill=regs,
+                   rows_ok=min(frac_n, frac_d), max_abs_err=max(err_n, err_d), ms=ms, call_ms=call, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by, launches_on_path=launches, plan_ms=plan_ms)
+        detail["block_sweep"].append(row)
+        print(f"[kernel] block_sweep G={G} q={q} B={bsz} (p={p}): plan {plan[0]}x{plan[1]} "
+              f"({qcd.SWEEP_THREADS // plan[1]} lanes per row, {row['ctas']} CTAs; CTAs per SM "
+              + ", ".join(f"{r} rows {n}" for r, n in zip(qcd.SWEEP_ROWS, resident))
+              + f"; {regs}) "
+              f"rows_ok={row['rows_ok']:.6f} max_abs_err={row['max_abs_err']:.3g} device "
+              f"ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.3f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"launches on the PTQ path {launches}; every plan bit-identical, device ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in plan_ms.items()), flush=True)
+        if (G, q, p, bsz) == OLD_SWEEP_SHAPE:
+            record = row
+            print(f"[A/B] block sweep G={G} q={q} B={bsz}, time per call with events: the kernel "
+                  f"before the panels {OLD_SWEEP_CALL_MS:.3f} ms (PERF.md, kernel table) vs the panelled "
+                  f"kernel {call:.4f} ms ({ms:.4f} ms device time)", flush=True)
+        del s, args, kn, kd, pn, pd
+    r = record
+    return dict(max_abs_err=max(x["max_abs_err"] for x in detail["block_sweep"]), ms=r["ms"],
+                call_ms=r["call_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=None,
+                shape=f"G={r['G']} q={r['q']} B={r['B']} (plan {r['plan'][0]}x{r['plan'][1]}); "
+                      "the other path shapes in block_sweep of the detail file")
 
 
 def fused_bytes_flop(G, q, p, bsz, bf16):
@@ -494,7 +576,7 @@ def check_fused_iteration(gen, dev, detail):
                   **dict.fromkeys(SGEMM_SUMS, 0.0))
     detail["fused_iteration"] = []
     for G, q, p, dt in FUSED_SHAPES:
-        bsz = min(256, p)  # QuantEaseConfig's block size, as on the path
+        bsz = min(QE_BLOCK, p)
         s = cd_state(gen, G, q, p, dev)
         sig_corr = s["sig_t"].to(torch.bfloat16) if dt == "bfloat16" else s["sig_t"]
         args = (s["base"], s["sig_t"], sig_corr, s["w"], s["scale"], s["zero"], s["delta"])
@@ -1019,7 +1101,7 @@ def main_path(dev, detail):
     results, coo = {}, {}
     for method, bits in MAIN_RUNS:
         label = f"{method}@{bits}"
-        pcfg = solver.PTQConfig(method=method, spec=GridSpec(bits=bits), iterations=25, emit="qt",
+        pcfg = solver.PTQConfig(method=method, spec=GridSpec(bits=bits), iterations=PTQ_ITERATIONS, emit="qt",
                                 outlier_frac=OUTLIER_FRAC)
         t0 = time.monotonic()
         qparams, report = solver.ptq_quantize_model(
@@ -1287,6 +1369,12 @@ def main() -> None:
     card_tests()
     torch.cuda.empty_cache()
     counts_ptq, plan, artifact = main_path(dev, detail)
+    expected = sum(x["launches_on_path"] for x in detail["block_sweep"])
+    check(counts_ptq["quantease_block_sweep"] == expected,
+          f"kernel 1 launched {counts_ptq['quantease_block_sweep']} times on the PTQ path, "
+          f"phase 3's launches per shape sum to {expected}")
+    print(f"[main] kernel 1's launches on the PTQ path {counts_ptq['quantease_block_sweep']} = the "
+          f"sum of phase 3's launches per shape", flush=True)
     counts_serve = serving(dev, detail, plan, artifact)
     # Each path's counts were read just after it ran, from 0.
     counts = {k: counts_ptq[k] + counts_serve[k] for k in counts_ptq}

@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = ["CalibStats", "gram", "damp_sigma"]
 
 
@@ -29,8 +31,10 @@ class CalibStats:
     n: int = 0
 
     @classmethod
-    def zeros(cls, p: int, device="cpu") -> "CalibStats":
-        return cls(sigma=torch.zeros(p, p, dtype=torch.float32, device=device), n=0)
+    def zeros(cls, p: int, device="cuda") -> "CalibStats":
+        """An empty Σ on ``device`` (the card unless the caller asks for the
+        CPU, as every entry point of the port)."""
+        return cls(sigma=torch.zeros(p, p, dtype=torch.float32, device=resolve_device(device)), n=0)
 
     @property
     def p(self) -> int:

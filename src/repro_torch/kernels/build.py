@@ -36,7 +36,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signature of every exported function: (argtypes, restype).
 _SIGNATURES = {
     "quantease_cd": {
-        "qe_block_sweep": ([_P] * 7 + [_I, _I, _I, _L, _L, _I, _I, _I, _P, _I], _I),
+        "qe_block_sweep": ([_P] * 7 + [_I, _I, _I, _L, _L] + [_I] * 5 + [_P, _I], _I),
+        "qe_sweep_ctas_per_sm": ([_I] * 4, _I),
         "qe_block_corr": ([_P, _I] + [_P] * 5 + [_I] * 7 + [_P, _I], _I),
         "qe_outlier_corr": ([_P, _I] + [_P] * 6 + [_I] * 7 + [_P, _I], _I),
         "qe_suffix_resid": ([_P, _I] + [_P] * 3 + [_I] * 5 + [_P, _I], _I),

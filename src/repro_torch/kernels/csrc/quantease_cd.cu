@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/quantease_cd.py:
 //   * qe_block_sweep_kernel  <- quantease_block_sweep_pallas (_sweep_kernel):
-//     the sequential CD sweep over the B columns of one column block.
+//     the sequential CD sweep over the B columns of one column block, in
+//     column panels.
 //   * qe_block_corr_kernel + qe_block_sweep_kernel, launched in turn for each
 //     column block  <- quantease_fused_iteration_pallas (_fused_iter_kernel):
 //     one whole CD iteration of the fused engine.  The Python wrapper
@@ -70,17 +71,42 @@
 //     faster in device time.  The staged tile is kept: the other way needs
 //     the sweep kernel to write a second output (or a launch per block to
 //     form it) and a p_pad x q buffer, for that 1-2 %.
-//   * The sweep is a dependent chain over the B columns: parallel only over
-//     rows.  Per row it costs B²/2 FMAs per block and is latency-bound, so
-//     the design shortens the chain and keeps global memory off it: four
-//     lanes share each row's dot (8 rows per warp, one warp per CTA, so q/8
-//     warps per group), and the next column's operands and Σ̃_blkᵀ row are
-//     loaded while the current column computes.  The rows' Δ for the block
-//     lives in shared memory ([B][8] floats); Σ̃_blkᵀ's rows are staged one
-//     per column into a double buffer, since the fp32 diagonal block
-//     (256 KB at B = 256) exceeds the 227 KB a block may use.  Staging 8 or
-//     32 columns at once with cp.async measured slower on the H100: the
-//     larger shared-memory footprint fits fewer warps per SM.
+//   * The sweep (kernel 1) is a dependent chain over the B columns: column
+//     i's β = β0[i] + Σ_{j<i} Σ̃_blk[j, i]·Δ[j] needs every earlier column's
+//     Δ, so it is parallel only over rows.  Its least traffic is 6·B·q +
+//     B² floats per group (0.023 ms at G=4, q=3072, B=256) and its FMAs
+//     B²/2 per row; what bounds it is the chain: B columns, each one
+//     division, a rounding and a handful of dependent adds long.  Four
+//     things keep a sweep from that, and the design does this about each:
+//       - The long dot on the chain (column i dots i terms).  Columns go in
+//         panels of P = 16 (panels of 32 measured 9-58 % slower on the H100
+//         at every path shape and spilled 124 bytes, so they were dropped).  Inside a panel each row's thread adds a
+//         column's Δ into the β of the panel's later columns as soon as it
+//         is known, in registers (sweep_panel), so one FMA links a column to
+//         the next; after the panel all 256 threads add its terms into the
+//         later columns' sums in shared memory, 4 x 4 register tiles off the
+//         chain (panel_update).  The total FMA count is unchanged, and each
+//         β is still one FMA chain over ascending j, so every plan gives
+//         bit-identical results.
+//       - Global memory on the chain.  The chain reads shared memory only:
+//         panel p + 1's β0, Ŵ_old, s, z and Σ̃ᵀ triangle arrive by 16-byte
+//         cp.async (4-byte where a row is not 16-byte aligned: q not a
+//         multiple of 4, unaligned out= views) into a double buffer while
+//         panel p runs, the later columns' Σ̃ᵀ tile while its chain runs;
+//         Ŵ_new and Δ leave a panel at a time as coalesced stores from
+//         shared memory.
+//       - Σ̃ re-read for every few rows.  A CTA sweeps R rows (32 or 64) with
+//         256 threads and stages each Σ̃_blkᵀ element it needs once (the
+//         lower triangle, a panel tile at a time), for all its rows.
+//       - Too few rows to fill the card (3,072 at G = 1: 96 CTAs of 32 rows
+//         for 132 SMs).  CTAs of 16 rows would give every SM one, but each
+//         stages the same Σ̃ᵀ tiles for half the rows, and on the H100 they
+//         measured 8-14 % slower there, so they were dropped: the planner
+//         (kernels/quantease_cd.py: plan_sweep) takes 32 rows, and 64 where
+//         that saves a round of resident CTAs.
+//     Staging 8 or 32 Σ̃ᵀ rows per 8-row warp measured slower on the H100
+//     (an earlier version): the footprint per warp cut the warps an SM held.
+//     Here one staged tile serves all a CTA's rows.
 //   * The exact residual of the outlier-aware iteration is a block-upper-
 //     triangular product, nb(nb+1)/2 block pairs of 2·B²·q FLOP: about half
 //     the correction's, and as fp32-bound.  The TPU kernel adds each block's
@@ -100,121 +126,285 @@
 
 namespace {
 
-constexpr int kLanesPerRow = 4;                    // lanes sharing one row's dot
-constexpr int kSweepRows = 32 / kLanesPerRow;      // rows per sweep CTA (one warp)
-constexpr int kMaxBlock = 256;                     // the wrapper's MAX_BLOCK
-constexpr int kPrefetch = kMaxBlock / 32;          // Σ̃ᵀ row entries per lane
+constexpr int kMaxBlock = 256;      // the wrapper's MAX_BLOCK
+constexpr int kSweepThreads = 256;  // threads of a sweep CTA (the wrapper's SWEEP_THREADS)
+constexpr int kSigPad = 4;          // floats of padding per staged Σ̃ᵀ row
+constexpr int kSweepMinCtas = 3;    // per SM: caps a sweep thread at 80 registers
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The reference's snap, rounding step by step (no contraction into FMAs).
 __device__ __forceinline__ float qe_snap(float beta, float s, float z, float top) {
   s = fmaxf(s, 1e-12f);
   float c = rintf(__fdiv_rn(beta, s)) + z;
   c = fminf(fmaxf(c, 0.0f), top);
-  return (c - z) * s;
+  return __fmul_rn(c - z, s);
 }
 
-// The intra-block sweep of one warp's 8 rows, 4 lanes per row.  All per-row
-// operands share one layout: element (column i, row r) of group g sits at
-// g*gs + i*q + r.  For column i the 4 lanes of a row split the dot
-// Σ̃_blk[:, i] · Δ over j < i (j ≡ lane mod 4) and combine it with two
-// butterfly shuffles, so all four hold the same β.  While they do, the warp
-// already loads column i + 1's row operands and Σ̃_blkᵀ row i + 1 into
-// registers, and the row is parked in the other half of a double buffer
-// after the dot: no global load is issued on the column-to-column chain.
-__device__ void qe_sweep_rows(const float* __restrict__ beta0,
-                              const float* __restrict__ sig,  // row i = Σ̃_blk[:, i]
-                              int sig_ld,
-                              const float* __restrict__ w_old,
-                              const float* __restrict__ scale,
-                              const float* __restrict__ zero,
-                              float* __restrict__ w_new,
-                              float* __restrict__ delta,
-                              long long row_off, int q, int bsz, bool live,
-                              int n_levels, int quantize,
-                              float* dsm,    // [bsz][kSweepRows] shared: this warp's Δ
-                              float* srow) {  // [2][bsz] shared: Σ̃ᵀ rows, double-buffered
-  const int lane = threadIdx.x;
-  const int row = lane / kLanesPerRow, sub = lane % kLanesPerRow;
+// ---------------------------------------------------------------------------
+// Kernel 1: the block sweep, in column panels.
+// ---------------------------------------------------------------------------
+
+// Shared memory of a sweep CTA, in floats (every piece a multiple of 4, so
+// each starts 16-byte aligned):
+//   acc   [bsz][R]       per column k and row, Σ̃_blk[j, k]·Δ[j] summed over the
+//                        columns j of the earlier panels; a swept column's
+//                        slot then holds its Ŵ_new
+//   ring  [2][4][P][R]   β0, Ŵ_old, s, z of a panel, double-buffered
+//   dbuf  [P][R]         the panel's Δ
+//   tri   [2][P][P + 4]  Σ̃ᵀ rows of the panel's columns at the panel's
+//                        columns (its lower triangle is read), double-buffered
+//   later [bsz − P][P + 4]  Σ̃ᵀ rows of the later columns at the panel's columns
+template <int P, int R>
+constexpr int sweep_smem_floats(int bsz) {
+  return bsz * R + 8 * P * R + P * R + 2 * P * (P + kSigPad) +
+         (bsz > P ? bsz - P : 0) * (P + kSigPad);
+}
+
+// Copies a tile of n_rows x W floats (W a multiple of 4) of a row-major
+// global matrix into shared memory by cp.async, issued by the n_thr threads
+// ct = 0 .. n_thr − 1: element (i, j) goes from src[i·src_ld + j] to
+// dst[i·dst_ld + j] when i < n_i and j < n_j, and is 0 otherwise, so nothing
+// outside the operand is read.  A whole 16-byte chunk goes by one 16-byte
+// copy when vec (src and src_ld 16-byte aligned), any other by 4-byte copies.
+template <int W>
+__device__ __forceinline__ void stage_tile(float* dst, int dst_ld, const float* src,
+                                           long long src_ld, int n_rows, int n_i, int n_j,
+                                           bool vec, int ct, int n_thr) {
+  constexpr int kChunks = W / 4;
+  for (int e = ct; e < n_rows * kChunks; e += n_thr) {
+    const int i = e / kChunks, j = (e % kChunks) * 4;
+    float* d = dst + i * dst_ld + j;
+    if (i >= n_i || j >= n_j) {
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
+    const float* s = src + i * src_ld + j;
+    if (vec && j + 4 <= n_j) {
+      cp_async16(d, s);
+      continue;
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (j + t < n_j)
+        cp_async4(d + t, s + t);
+      else
+        d[t] = 0.f;
+    }
+  }
+}
+
+// The sweep of one panel's columns c0 .. c0 + P − 1 for this thread's row
+// (thread tid < R owns row r0 + tid).  β of column c0 + k enters as acc (the
+// earlier panels' sum) and takes the panel's own terms eagerly: as soon as
+// Δ of column c0 + j is known, it is added into the β of every later column
+// of the panel, held in registers.  So the chain from one column to the
+// next is one FMA, the snap and a subtraction; each β is still the
+// reference's sum β0 + Σ_{j<i} Σ̃_blk[j, i]·Δ[j], accumulated in ascending j.
+// The loop only loads from shared memory (Ŵ_new and Δ are kept in registers
+// and stored after it), so every operand load can be issued ahead of the
+// chain; it compiles to 80 registers with no spill at P = 16.
+template <int P, int R>
+__device__ __forceinline__ void sweep_panel(float* acc, const float* st, const float* tr,
+                                            float* dbuf, int c0, int bsz, int n_levels,
+                                            int quantize) {
+  constexpr int kLd = P + kSigPad;
+  const int tid = threadIdx.x;
   const float top = (float)(n_levels - 1);
-  float b0 = 0.f, s = 1.f, z = 0.f, wo = 0.f;
-  if (live) {
-    b0 = beta0[row_off];
-    wo = w_old[row_off];
-    if (quantize) {
-      s = scale[row_off];
-      z = zero[row_off];
-    }
+  float bet[P], nv[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) bet[k] = c0 + k < bsz ? acc[(c0 + k) * R + tid] : 0.f;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const float beta = __fadd_rn(st[j * R + tid], bet[j]);
+    nv[j] = quantize ? qe_snap(beta, st[(2 * P + j) * R + tid], st[(3 * P + j) * R + tid], top)
+                     : beta;
+    bet[j] = __fsub_rn(st[(P + j) * R + tid], nv[j]);  // Δ of column c0 + j
+#pragma unroll
+    for (int k = j + 1; k < P; ++k) bet[k] = fmaf(tr[k * kLd + j], bet[j], bet[k]);
   }
-  for (int i = 0; i < bsz; ++i) {
-    // Loads for column i + 1, in flight during column i's dot.
-    const long long nxt = row_off + (long long)(i + 1) * q;
-    const bool more = i + 1 < bsz;
-    float nb0 = 0.f, ns = 1.f, nz = 0.f, nwo = 0.f;
-    if (live && more) {
-      nb0 = beta0[nxt];
-      nwo = w_old[nxt];
-      if (quantize) {
-        ns = scale[nxt];
-        nz = zero[nxt];
-      }
-    }
-    float pre[kPrefetch];
 #pragma unroll
-    for (int t = 0; t < kPrefetch; ++t) {
-      const int j = lane + 32 * t;
-      pre[t] = (more && j <= i) ? sig[(long long)(i + 1) * sig_ld + j] : 0.f;
-    }
-    // β = β0 + Σ̃_blk[:, i] · Δ over the columns already swept (j < i).
-    const float* cur = srow + (i & 1) * bsz;
-    float a0 = 0.f, a1 = 0.f;
-    int j = sub;
-    for (; j + kLanesPerRow < i; j += 2 * kLanesPerRow) {
-      a0 = fmaf(cur[j], dsm[j * kSweepRows + row], a0);
-      a1 = fmaf(cur[j + kLanesPerRow], dsm[(j + kLanesPerRow) * kSweepRows + row], a1);
-    }
-    if (j < i) a0 = fmaf(cur[j], dsm[j * kSweepRows + row], a0);
-    float acc = a0 + a1;
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    const float beta = b0 + acc;
-    const float nv = quantize ? qe_snap(beta, s, z, top) : beta;
-    const float d = live ? wo - nv : 0.f;
-    if (sub == 0) {
-      dsm[i * kSweepRows + row] = d;
-      if (live) {
-        const long long off = row_off + (long long)i * q;
-        w_new[off] = nv;
-        delta[off] = d;
-      }
-    }
-    float* nrow = srow + ((i + 1) & 1) * bsz;
-#pragma unroll
-    for (int t = 0; t < kPrefetch; ++t) {
-      const int jj = lane + 32 * t;
-      if (jj <= i && jj < bsz) nrow[jj] = pre[t];
-    }
-    b0 = nb0;
-    wo = nwo;
-    s = ns;
-    z = nz;
-    __syncwarp();
+  for (int j = 0; j < P; ++j) {
+    dbuf[j * R + tid] = bet[j];
+    if (c0 + j < bsz) acc[(c0 + j) * R + tid] = nv[j];
   }
 }
 
-__global__ void __launch_bounds__(32)
+// The panel update: acc[k] += Σ_{j in panel} Σ̃_blk[j, k]·Δ[j] for every later
+// column k and row, by all the CTA's threads, off the column chain.  A
+// thread holds a 4 x 4 tile (4 columns k, kKS apart, by 4 consecutive rows)
+// and adds the panel's terms in ascending j, so each acc element is one FMA
+// chain in j whatever the panel width.  The 4 columns of one thread sit in
+// kKS consecutive staged rows across the warp (padded to P + 4 floats: no
+// bank conflict); the 4 rows are one 16-byte read of Δ, shared by the warp.
+template <int P, int R>
+__device__ __forceinline__ void panel_update(float* acc, const float* dbuf, const float* later,
+                                             int kbeg, int bsz) {
+  constexpr int kLd = P + kSigPad;
+  constexpr int kRG = R / 4;                  // groups of 4 rows
+  constexpr int kKS = kSweepThreads / kRG;    // column slots
+  const int rg = threadIdx.x % kRG, ks = threadIdx.x / kRG;
+  for (int kb = kbeg + ks; kb < bsz; kb += 4 * kKS) {
+    float a[4][4];
+    bool ok[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = kb + m * kKS;
+      ok[m] = k < bsz;
+      const float4 v = ok[m] ? *reinterpret_cast<const float4*>(acc + k * R + 4 * rg)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      a[m][0] = v.x;
+      a[m][1] = v.y;
+      a[m][2] = v.z;
+      a[m][3] = v.w;
+    }
+#pragma unroll
+    for (int jc = 0; jc < P; jc += 4) {
+      float dl[4][4], sv[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 v = *reinterpret_cast<const float4*>(dbuf + (jc + jj) * R + 4 * rg);
+        dl[jj][0] = v.x;
+        dl[jj][1] = v.y;
+        dl[jj][2] = v.z;
+        dl[jj][3] = v.w;
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float4 v = ok[m] ? *reinterpret_cast<const float4*>(
+                                     later + (kb + m * kKS - kbeg) * kLd + jc)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        sv[m][0] = v.x;
+        sv[m][1] = v.y;
+        sv[m][2] = v.z;
+        sv[m][3] = v.w;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) a[m][t] = fmaf(sv[m][jj], dl[jj][t], a[m][t]);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (ok[m])
+        *reinterpret_cast<float4*>(acc + (kb + m * kKS) * R + 4 * rg) =
+            make_float4(a[m][0], a[m][1], a[m][2], a[m][3]);
+  }
+}
+
+// One CTA sweeps R rows (r0 .. r0 + R − 1) of group g through all bsz
+// columns, panel by panel.  The warps that hold the R chain threads issue
+// no copies: a warp that issues its share of a panel's copies (~24 KB at
+// B = 256) stalls for as long as the SM's L2 bandwidth takes to move them,
+// so the chain would wait behind them (on the H100 that layout measured
+// 16-30 % slower at the six path shapes; PERF.md).  Per panel p (columns
+// c0 = p·P ..):
+//   S0  panel p's operands and Σ̃ᵀ triangle have landed; acc holds every
+//       earlier panel's terms.  The other warps start the copies of panel
+//       p's later Σ̃ᵀ tile and of panel p + 1's operands and triangle, while
+//   the R chain threads sweep the panel's columns (sweep_panel);
+//   S1  the later tile has landed; every thread stores the panel's Ŵ_new and
+//       Δ (coalesced, from shared memory) and adds the panel's terms to the
+//       later columns (panel_update).
+// Per-row operands: element (column i, row r) of group g at g·gs + i·q + r;
+// Σ̃ᵀ: row i = Σ̃_blk[:, i] at g·sig_gs + i·sig_ld.  vec: the row operands
+// and outputs allow 16-byte accesses (q, gs and every base a multiple of 4
+// floats); svec: Σ̃ᵀ does (sig_ld, sig_gs, base).
+template <int P, int R>
+__global__ void __launch_bounds__(kSweepThreads, kSweepMinCtas)
 qe_block_sweep_kernel(const float* __restrict__ beta0, const float* __restrict__ sig,
                       const float* __restrict__ w_old, const float* __restrict__ scale,
                       const float* __restrict__ zero, float* __restrict__ w_new,
-                      float* __restrict__ delta, int q, int bsz, long long gs,
-                      long long sig_gs, int sig_ld, int n_levels, int quantize) {
-  extern __shared__ float smem[];
-  float* dsm = smem;
-  float* srow = smem + bsz * kSweepRows;
-  const int g = blockIdx.y;
-  const int r = blockIdx.x * kSweepRows + threadIdx.x / kLanesPerRow;
-  const bool live = r < q;
-  qe_sweep_rows(beta0, sig + (long long)g * sig_gs, sig_ld, w_old, scale, zero, w_new,
-                delta, (long long)g * gs + (live ? r : 0), q, bsz, live, n_levels,
-                quantize, dsm, srow);
+                      float* __restrict__ delta, int q, int bsz, long long gs, long long sig_gs,
+                      int sig_ld, int n_levels, int quantize, int vec, int svec) {
+  static_assert(P % 4 == 0 && R % 4 == 0 && kSweepThreads % (R / 4) == 0 && R <= kSweepThreads,
+                "sweep tile");
+  constexpr int kLd = P + kSigPad;
+  extern __shared__ float4 sweep_smem[];  // 16-byte aligned
+  float* acc = reinterpret_cast<float*>(sweep_smem);
+  float* ring = acc + bsz * R;
+  float* dbuf = ring + 8 * P * R;
+  float* tri = dbuf + P * R;
+  float* later = tri + 2 * P * kLd;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * R;
+  const long long go = (long long)blockIdx.y * gs + r0;
+  const float* sg = sig + (long long)blockIdx.y * sig_gs;
+  const int n_panels = (bsz + P - 1) / P;
+  constexpr int kChainWarps = (R + 31) / 32;
+  constexpr int kCopiers = kSweepThreads - 32 * kChainWarps;
+  const int ct = tid - 32 * kChainWarps;  // this thread's place among the copiers
+
+  auto stage_panel = [&](int p, int c, int n) {  // panel p's row operands and Σ̃ᵀ triangle
+    const int c0 = p * P;
+    float* st = ring + (p & 1) * 4 * P * R;
+    const long long o = go + (long long)c0 * q;
+    stage_tile<R>(st, R, beta0 + o, q, P, bsz - c0, q - r0, vec, c, n);
+    stage_tile<R>(st + P * R, R, w_old + o, q, P, bsz - c0, q - r0, vec, c, n);
+    if (quantize) {
+      stage_tile<R>(st + 2 * P * R, R, scale + o, q, P, bsz - c0, q - r0, vec, c, n);
+      stage_tile<R>(st + 3 * P * R, R, zero + o, q, P, bsz - c0, q - r0, vec, c, n);
+    }
+    stage_tile<P>(tri + (p & 1) * P * kLd, kLd, sg + (long long)c0 * sig_ld + c0, sig_ld, P,
+                  bsz - c0, bsz - c0, svec, c, n);
+  };
+
+  for (int e = tid; e < bsz * R; e += kSweepThreads) acc[e] = 0.f;
+  stage_panel(0, tid, kSweepThreads);  // nothing to overlap yet: every thread copies
+  cp_async_commit();
+  for (int p = 0; p < n_panels; ++p) {
+    const int c0 = p * P;
+    const int n_later = bsz - c0 - P;
+    cp_async_wait<0>();
+    __syncthreads();  // S0
+    if (ct >= 0) {
+      if (n_later > 0)
+        stage_tile<P>(later, kLd, sg + (long long)(c0 + P) * sig_ld + c0, sig_ld, n_later,
+                      n_later, bsz - c0, svec, ct, kCopiers);
+      cp_async_commit();
+      if (p + 1 < n_panels) stage_panel(p + 1, ct, kCopiers);
+      cp_async_commit();
+    } else if (tid < R) {
+      sweep_panel<P, R>(acc, ring + (p & 1) * 4 * P * R, tri + (p & 1) * P * kLd, dbuf, c0, bsz,
+                        n_levels, quantize);
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // S1
+    for (int e = tid; e < 2 * P * (R / 4); e += kSweepThreads) {
+      const bool is_d = e >= P * (R / 4);
+      const int f = is_d ? e - P * (R / 4) : e;
+      const int j = f / (R / 4), rc = (f % (R / 4)) * 4;
+      if (c0 + j >= bsz || r0 + rc >= q) continue;
+      const float* src = is_d ? dbuf + j * R + rc : acc + (c0 + j) * R + rc;
+      float* dst = (is_d ? delta : w_new) + go + (long long)(c0 + j) * q + rc;
+      if (vec && r0 + rc + 4 <= q) {
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+      } else {
+        for (int t = 0; t < 4 && r0 + rc + t < q; ++t) dst[t] = src[t];
+      }
+    }
+    if (n_later > 0) panel_update<P, R>(acc, dbuf, later, c0 + P, bsz);
+  }
 }
 
 template <typename ST>
@@ -265,20 +455,6 @@ struct Ring {
   static constexpr int kStageBytes = kABytes + kBBytes * (kDh ? 2 : 1);
   static constexpr int kBytes = kStages * kStageBytes;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Two consecutive k of one A row, as fp32 (bf16: a shift and a mask).
 __device__ __forceinline__ void a_pair(const float* p, float& lo, float& hi) {
@@ -610,6 +786,38 @@ qe_suffix_resid_kernel(const ST* __restrict__ sig, const float* __restrict__ dpu
 
 bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15) == 0; }
 
+// The sweep's plans: (panel columns, rows per CTA); the wrapper's
+// SWEEP_PANEL x SWEEP_ROWS.
+#define QE_SWEEP_PLANS(X) X(16, 32) X(16, 64)
+
+template <int P, int R>
+cudaError_t sweep_tile(cudaStream_t st, const float* beta0, const float* sig, const float* w_old,
+                       const float* scale, const float* zero, float* w_new, float* delta, int G,
+                       int q, int bsz, long long gs, long long sig_gs, int sig_ld, int n_levels,
+                       int quantize, int vec, int svec) {
+  auto kern = qe_block_sweep_kernel<P, R>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         4 * sweep_smem_floats<P, R>(kMaxBlock));
+  if (err != cudaSuccess) return err;
+  dim3 grid((q + R - 1) / R, G);
+  kern<<<grid, kSweepThreads, 4 * sweep_smem_floats<P, R>(bsz), st>>>(
+      beta0, sig, w_old, scale, zero, w_new, delta, q, bsz, gs, sig_gs, sig_ld, n_levels,
+      quantize, vec, svec);
+  return cudaGetLastError();
+}
+
+template <int P, int R>
+int sweep_occupancy(int bsz) {
+  auto kern = qe_block_sweep_kernel<P, R>;
+  const int smem = 4 * sweep_smem_floats<P, R>(bsz);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         4 * sweep_smem_floats<P, R>(kMaxBlock));
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kSweepThreads, smem);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 template <int BM, typename ST, bool kOutlier>
 cudaError_t corr_tile(dim3 grid, cudaStream_t st, const void* sig, const float* dprev,
                       const float* dnew, const float* dh, const float* base, float* base_out,
@@ -697,22 +905,41 @@ int launch_corr(const void* sig, int sig_bf16, const float* dprev, const float* 
 
 extern "C" {
 
-// Intra-block sweep over G groups.  Returns the CUDA error of the launch.
+// Kernel 1 over G groups, on panels of `panel` columns and CTAs of `rows`
+// rows (16; 32 or 64).  Returns the CUDA error of the launch.
 int qe_block_sweep(const float* beta0, const float* sig, const float* w_old,
                    const float* scale, const float* zero, float* w_new, float* delta,
                    int G, int q, int bsz, long long gs, long long sig_gs, int sig_ld,
-                   int n_levels, int quantize, void* stream, int device) {
+                   int n_levels, int quantize, int panel, int rows, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (G <= 0 || q <= 0 || bsz <= 0) return 0;
-  if (bsz > kMaxBlock) return (int)cudaErrorInvalidValue;
-  // 10 KB at B = 256 (Δ of 8 rows, two Σ̃ᵀ rows): many warps fit on an SM.
-  const size_t smem = (size_t)bsz * (kSweepRows + 2) * sizeof(float);
-  dim3 grid((q + kSweepRows - 1) / kSweepRows, G);
-  qe_block_sweep_kernel<<<grid, 32, smem, (cudaStream_t)stream>>>(
-      beta0, sig, w_old, scale, zero, w_new, delta, q, bsz, gs, sig_gs, sig_ld, n_levels,
-      quantize);
-  return (int)cudaGetLastError();
+  if (bsz > kMaxBlock || G > 65535) return (int)cudaErrorInvalidValue;
+  const int vec = q % 4 == 0 && gs % 4 == 0 && aligned16(beta0) && aligned16(w_old) &&
+                  aligned16(scale) && aligned16(zero) && aligned16(w_new) && aligned16(delta);
+  const int svec = sig_ld % 4 == 0 && sig_gs % 4 == 0 && aligned16(sig);
+  cudaStream_t st = (cudaStream_t)stream;
+#define QE_SWEEP(P, R)                                                                         \
+  if (panel == P && rows == R)                                                                 \
+    return (int)sweep_tile<P, R>(st, beta0, sig, w_old, scale, zero, w_new, delta, G, q, bsz, gs, \
+                                 sig_gs, sig_ld, n_levels, quantize, vec, svec);
+  QE_SWEEP_PLANS(QE_SWEEP)
+#undef QE_SWEEP
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of the sweep kernel at a plan resident per SM for a block of bsz
+// columns (its registers and shared memory against the SM's); negative:
+// minus the CUDA error.
+int qe_sweep_ctas_per_sm(int panel, int rows, int bsz, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  if (bsz <= 0 || bsz > kMaxBlock) return -(int)cudaErrorInvalidValue;
+#define QE_SWEEP(P, R) \
+  if (panel == P && rows == R) return sweep_occupancy<P, R>(bsz);
+  QE_SWEEP_PLANS(QE_SWEEP)
+#undef QE_SWEEP
+  return -(int)cudaErrorInvalidValue;
 }
 
 // Full-width rolling-Δ correction for the block starting at col0, on a tile

@@ -1,7 +1,8 @@
 """CUDA wrappers: QuantEase block sweep and fused CD iteration.
 
 * :func:`block_sweep_cuda` launches ``qe_block_sweep_kernel``, the sweep of
-  one column block (replaces ``quantease_block_sweep_pallas``).
+  one column block (replaces ``quantease_block_sweep_pallas``), in column
+  panels on a plan of :func:`plan_sweep`: panel width and rows per CTA.
 * :func:`fused_iteration_cuda` runs one whole CD iteration (replaces
   ``quantease_fused_iteration_pallas``): for each column block in order it
   launches ``qe_block_corr_kernel`` (the full-width rolling-Δ correction,
@@ -15,7 +16,8 @@
   CTAs an SM holds; both iteration wrappers take ``plan=`` to pin one, and
   :func:`correction_cuda` / :func:`suffix_cuda` launch one block's
   correction or the suffix product alone (uncounted; ``chip_smoke.py``
-  times them against ``torch.matmul``).
+  times them against ``torch.matmul``).  All three wrappers take
+  ``sweep_plan=`` to pin the sweep's plan.
 
 Both take the transposed layout of ``csrc/quantease_cd.cu``: per-row
 operands are ``(G, rows, q)`` or ``(rows, q)`` with q contiguous.  Each
@@ -36,10 +38,14 @@ from repro_torch.kernels import build
 
 __all__ = ["block_sweep_cuda", "fused_iteration_cuda", "outlier_iteration_cuda", "correction_cuda",
            "suffix_cuda", "plan_corr", "check_corr_plan", "corr_tile_rows", "corr_slices",
-           "corr_ctas", "ctas_per_sm", "MAX_BLOCK", "TILE_ROWS", "TILE_COLS", "K_STEP",
-           "MIN_K_CHUNK"]
+           "corr_ctas", "ctas_per_sm", "plan_sweep", "check_sweep_plan", "sweep_panels",
+           "sweep_ctas", "sweep_ctas_per_sm", "MAX_BLOCK", "TILE_ROWS", "TILE_COLS", "K_STEP",
+           "MIN_K_CHUNK", "SWEEP_PANEL", "SWEEP_ROWS", "SWEEP_THREADS"]
 
-MAX_BLOCK = 256  # the sweep kernel prefetches a Σ̃ row as 8 registers per lane
+MAX_BLOCK = 256  # the sweep's shared memory holds a block's sums for its rows
+SWEEP_PANEL = 16  # the sweep's panel width (columns per panel)
+SWEEP_ROWS = (32, 64)  # rows of q per sweep CTA, as plan_sweep's arguments order them
+SWEEP_THREADS = 256  # threads per sweep CTA: SWEEP_THREADS // rows lanes share a row
 TILE_ROWS = (64, 128)  # the correction SGEMM's tiles: rows of the block (or of p) per CTA
 TILE_COLS = 128  # columns of q per CTA
 K_STEP = 16  # the depth of one shared-memory stage; split-K slices are multiples of it
@@ -108,6 +114,65 @@ def plan_corr(G: int, q: int, bsz: int, p_pad: int, n_sm: int, ctas_per_sm: int)
     return tile, best[1]
 
 
+def sweep_panels(bsz: int, panel: int) -> list:
+    """The sweep's panels of a block of ``bsz`` columns: ``[lo, hi)`` of
+    ``panel`` columns each, the last one short."""
+    return [(lo, min(lo + panel, bsz)) for lo in range(0, bsz, panel)]
+
+
+def sweep_ctas(G: int, q: int, rows: int) -> int:
+    """CTAs of one sweep launch: one per ``rows`` rows of q per group."""
+    return G * _cdiv(q, rows)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_sweep(G: int, q: int, bsz: int, n_sm: int, ctas_32: int, ctas_64: int) -> tuple:
+    """``(panel, rows)`` for sweeping a ``(G, bsz, q)`` block.
+
+    Panels of 16 columns and 32 rows per CTA; 64 rows where 32-row CTAs
+    need more rounds of the CTAs the ``n_sm`` SMs hold at once than 64-row
+    CTAs do (G = 2, q = 8192, B = 128).  ``ctas_32`` and ``ctas_64``: CTAs
+    of the 32- and 64-row instances resident on one SM at this ``bsz``
+    (:func:`sweep_ctas_per_sm` on the card).  ``SWEEP_THREADS // rows``
+    threads share a row in the panel update.
+    """
+    _require(min(G, q, bsz, n_sm, ctas_32, ctas_64) >= 1,
+             f"plan_sweep({G}, {q}, {bsz}, {n_sm}, {ctas_32}, {ctas_64})")
+    rounds = lambda rows, cps: _cdiv(sweep_ctas(G, q, rows), n_sm * cps)
+    return SWEEP_PANEL, 64 if rounds(64, ctas_64) < rounds(32, ctas_32) else 32
+
+
+def check_sweep_plan(plan) -> tuple:
+    """``plan`` as ``(panel, rows)`` if the sweep kernel takes it: panels of
+    :data:`SWEEP_PANEL` columns and rows of :data:`SWEEP_ROWS`.  Raises
+    ``ValueError`` otherwise."""
+    _require(isinstance(plan, (tuple, list)) and len(plan) == 2
+             and all(isinstance(v, int) and not isinstance(v, bool) for v in plan),
+             f"sweep_plan must be (panel, rows) ints, got {plan!r}")
+    panel, rows = plan
+    _require(panel == SWEEP_PANEL, f"panel {panel} is not {SWEEP_PANEL}")
+    _require(rows in SWEEP_ROWS, f"rows {rows} not in {SWEEP_ROWS}")
+    return panel, rows
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_ctas_per_sm(index: int, rows: int, bsz: int) -> int:
+    """CTAs of the sweep kernel with ``rows`` rows per CTA resident on one SM
+    of card ``index`` for blocks of ``bsz`` columns (the CUDA occupancy
+    calculator)."""
+    n = build.load("quantease_cd").qe_sweep_ctas_per_sm(SWEEP_PANEL, rows, bsz, index)
+    if n <= 0:
+        raise RuntimeError(f"qe_sweep_ctas_per_sm({rows}, {bsz}): CUDA error {-n}")
+    return n
+
+
+def _sweep_plan(dev, G: int, q: int, bsz: int, sweep_plan) -> tuple:
+    if sweep_plan is None:
+        cps = (sweep_ctas_per_sm(dev.index, rows, bsz) for rows in SWEEP_ROWS)
+        return plan_sweep(G, q, bsz, sm_count(dev.index), *cps)
+    return check_sweep_plan(sweep_plan)
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -119,7 +184,8 @@ def _check_cuda(tensors: dict, device: torch.device) -> None:
 
 
 def block_sweep_cuda(
-    beta0_t, sig_t, w_old_t, scale_t, zero_t, *, n_levels: int, quantize: bool, out=None
+    beta0_t, sig_t, w_old_t, scale_t, zero_t, *, n_levels: int, quantize: bool, out=None,
+    sweep_plan=None,
 ):
     """Sweep the B columns of one block for G groups at once.
 
@@ -129,7 +195,9 @@ def block_sweep_cuda(
     contiguous.  ``out``: optional ``(w_new_t, delta_t)`` with the same
     strides as ``beta0_t`` (views into the fused iteration's outputs);
     otherwise the inputs must be contiguous and outputs are allocated.
-    Returns ``(w_new_t, delta_t)``.
+    ``sweep_plan``: ``(panel, rows)`` instead of :func:`plan_sweep`'s;
+    one the kernel cannot take raises ``ValueError``.  Every plan gives
+    bit-identical results.  Returns ``(w_new_t, delta_t)``.
     """
     dev = beta0_t.device
     rows = {"beta0_t": beta0_t, "w_old_t": w_old_t, "scale_t": scale_t, "zero_t": zero_t}
@@ -158,13 +226,14 @@ def block_sweep_cuda(
             _require(t.device == dev and t.dtype == torch.float32, f"out {name}: float32 on {dev}")
             _require(t.shape == beta0_t.shape and t.stride() == beta0_t.stride(),
                      f"out {name} must match beta0_t's shape and strides")
+    panel, rows = _sweep_plan(dev, G, q, bsz, sweep_plan)
     gs = beta0_t.stride(0) if batched else 0
     sig_gs = sig_t.stride(0) if batched else 0
     lib = build.load("quantease_cd")
     err = lib.qe_block_sweep(
         beta0_t.data_ptr(), sig_t.data_ptr(), w_old_t.data_ptr(), scale_t.data_ptr(),
         zero_t.data_ptr(), w_new.data_ptr(), delta.data_ptr(),
-        G, q, bsz, gs, sig_gs, sig_t.stride(-2), int(n_levels), int(bool(quantize)),
+        G, q, bsz, gs, sig_gs, sig_t.stride(-2), int(n_levels), int(bool(quantize)), panel, rows,
         torch.cuda.current_stream(dev).cuda_stream, dev.index,
     )
     build.check(err, "qe_block_sweep")
@@ -271,7 +340,7 @@ def suffix_cuda(sig_corr, dpure_t, base_new_t, r_t, *, bsz: int, tile_rows: int)
 
 def fused_iteration_cuda(
     base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_prev_t, *,
-    n_levels: int, quantize: bool, bsz: int, plan=None,
+    n_levels: int, quantize: bool, bsz: int, plan=None, sweep_plan=None,
 ):
     """One whole CD iteration of the fused engine.
 
@@ -279,7 +348,8 @@ def fused_iteration_cuda(
     ``sig_t``: Σ̃ᵀ ``(G, p_pad, p_pad)`` fp32 (diagonal blocks for the
     sweep); ``sig_corr``: Σ̃ᵀ in the correction dtype, fp32 or bf16.
     ``plan``: ``(tile_rows, splits)`` for the corrections instead of
-    :func:`plan_corr`'s (tests and ``chip_smoke.py`` pin one); a plan the
+    :func:`plan_corr`'s (tests and ``chip_smoke.py`` pin one), and
+    ``sweep_plan`` the sweeps' as :func:`block_sweep_cuda`'s; a plan the
     kernel cannot take raises ``ValueError``.
     Returns ``(w_new_t, base_new_t, delta_new_t)``.  ``.launches`` counts
     correction launches, one per column block.
@@ -288,6 +358,7 @@ def fused_iteration_cuda(
              "delta_prev_t": delta_prev_t}
     dev, G, p_pad, q = _check_iteration("fused_iteration_cuda", state, sig_t, sig_corr, bsz)
     plan, part = _corr_plan(dev, G, q, bsz, p_pad, sig_corr.dtype == torch.bfloat16, False, plan)
+    sweep_plan = _sweep_plan(dev, G, q, bsz, sweep_plan)
     w_new = torch.empty_like(base_t)
     base_new = torch.empty_like(base_t)
     delta_new = torch.empty_like(base_t)
@@ -299,7 +370,7 @@ def fused_iteration_cuda(
         block_sweep_cuda(
             base_new[..., sl, :], sig_t[..., sl, sl], w_t[..., sl, :], scale_t[..., sl, :],
             zero_t[..., sl, :], n_levels=n_levels, quantize=quantize,
-            out=(w_new[..., sl, :], delta_new[..., sl, :]),
+            out=(w_new[..., sl, :], delta_new[..., sl, :]), sweep_plan=sweep_plan,
         )
     return w_new, base_new, delta_new
 
@@ -309,10 +380,10 @@ fused_iteration_cuda.launches = 0
 
 def outlier_iteration_cuda(
     base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_prev_t, dh_prev_t, *,
-    n_levels: int, quantize: bool, bsz: int, plan=None,
+    n_levels: int, quantize: bool, bsz: int, plan=None, sweep_plan=None,
 ):
     """One outlier-aware CD iteration (Algorithm 3's Ŵ sweep plus its exact
-    residual), operands and ``plan`` as :func:`fused_iteration_cuda` plus
+    residual), operands and plans as :func:`fused_iteration_cuda` plus
     ``dh_prev_t``, the previous IHT step's dĤᵀ.  The suffix residual runs on
     the plan's tile.
 
@@ -324,6 +395,7 @@ def outlier_iteration_cuda(
              "delta_prev_t": delta_prev_t, "dh_prev_t": dh_prev_t}
     dev, G, p_pad, q = _check_iteration("outlier_iteration_cuda", state, sig_t, sig_corr, bsz)
     plan, part = _corr_plan(dev, G, q, bsz, p_pad, sig_corr.dtype == torch.bfloat16, True, plan)
+    sweep_plan = _sweep_plan(dev, G, q, bsz, sweep_plan)
     w_new = torch.empty_like(base_t)
     base_new = torch.empty_like(base_t)
     dpure = torch.empty_like(base_t)
@@ -336,7 +408,7 @@ def outlier_iteration_cuda(
         block_sweep_cuda(
             base_new[..., sl, :], sig_t[..., sl, sl], w_t[..., sl, :], scale_t[..., sl, :],
             zero_t[..., sl, :], n_levels=n_levels, quantize=quantize,
-            out=(w_new[..., sl, :], dpure[..., sl, :]),
+            out=(w_new[..., sl, :], dpure[..., sl, :]), sweep_plan=sweep_plan,
         )
     suffix_cuda(sig_corr, dpure, base_new, r, bsz=bsz, tile_rows=plan[0])
     outlier_iteration_cuda.launches += 1

@@ -58,8 +58,11 @@ def _rows_ok(a, b, atol=ATOL):
     return float(((a - b).abs() <= atol).all(dim=-2).float().mean())
 
 
+# Kernel 1's cases: B = 40 (a short last panel of 8 columns) and 48,
+# q = 37 (rows not 16-byte multiples: 4-byte copies), B = 256 at q = 3072.
 @pytest.mark.parametrize("quantize", [True, False])
-@pytest.mark.parametrize("G,q,bsz", [(1, 70, 48), (3, 200, 128), (2, 96, 256)])
+@pytest.mark.parametrize("G,q,bsz", [(1, 70, 48), (3, 200, 128), (2, 96, 256), (2, 64, 40),
+                                     (2, 37, 40), (1, 3072, 256)])
 def test_block_sweep(cuda, G, q, bsz, quantize):
     s = _state(G * q + bsz, G, q, bsz, cuda)
     args = (s["base"], s["sig_t"], s["w"], s["scale"], s["zero"])
@@ -73,6 +76,71 @@ def test_block_sweep(cuda, G, q, bsz, quantize):
     if G == 1:  # the unbatched (B, q) form
         k2 = ops.quantease_block_sweep(*(a[0] for a in args), **kw)
         torch.testing.assert_close(k2[0], kn[0], rtol=0, atol=0)
+
+
+def _sweep_args(s):
+    return (s["base"], s["sig_t"], s["w"], s["scale"], s["zero"])
+
+
+def _all_sweep_plans():
+    from repro_torch.kernels import quantease_cd as qcd
+
+    return [(qcd.SWEEP_PANEL, r) for r in qcd.SWEEP_ROWS]
+
+
+@pytest.mark.parametrize("G,q,bsz", [(2, 100, 256), (1, 70, 40), (3, 37, 128)])
+def test_sweep_plans_agree_and_repeat_bitwise(cuda, G, q, bsz):
+    """Every plan sums each β in the same order (one FMA chain over
+    ascending j), so every plan and every repeat is bit-identical."""
+    from repro_torch.kernels import quantease_cd as qcd
+
+    s = _state(q + bsz, G, q, bsz, cuda)
+    kw = dict(n_levels=s["n_levels"], quantize=True)
+    first = qcd.block_sweep_cuda(*_sweep_args(s), **kw)
+    for plan in _all_sweep_plans():
+        for _ in range(2):
+            out = qcd.block_sweep_cuda(*_sweep_args(s), **kw, sweep_plan=plan)
+            assert torch.equal(out[0], first[0]) and torch.equal(out[1], first[1]), plan
+
+
+@pytest.mark.parametrize("q", [33, 70, 96])
+def test_sweep_reads_nothing_past_its_operands(cuda, q):
+    """Each operand set in NaN off 16-byte alignment (q = 96 too, so the
+    16-byte path would be taken but for the alignment): the outputs are
+    finite and hold to the plain version, so no copy reached past an
+    operand, under every plan."""
+    from repro_torch.kernels import quantease_cd as qcd
+
+    s = _state(q + 3, 2, q, 40, cuda)
+    args = tuple(_nan_padded(a) for a in _sweep_args(s))
+    kw = dict(n_levels=s["n_levels"], quantize=True)
+    pn, pd = ref.quantease_block_sweep_t_ref(*_sweep_args(s), **kw)
+    for plan in _all_sweep_plans():
+        kn, kd = qcd.block_sweep_cuda(*args, **kw, sweep_plan=plan)
+        assert bool(torch.isfinite(kn).all() and torch.isfinite(kd).all()), plan
+        torch.testing.assert_close(kn, pn, rtol=0, atol=ATOL)
+        torch.testing.assert_close(kd, pd, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("q", [70, 96])
+def test_sweep_into_iteration_buffers(cuda, q):
+    """``out=`` views of one block (B = 48) in the middle of (G, p_pad, q)
+    buffers, as the iteration wrappers pass them: the block's rows match
+    the plain version and nothing outside the block is written."""
+    from repro_torch.kernels import quantease_cd as qcd
+
+    s = _state(q, 2, q, 144, cuda)
+    sl = slice(48, 96)
+    args = (s["base"][:, sl], s["sig_t"][:, sl, sl], s["w"][:, sl], s["scale"][:, sl], s["zero"][:, sl])
+    kw = dict(n_levels=s["n_levels"], quantize=True)
+    w_new = torch.full_like(s["base"], float("nan"))
+    delta = torch.full_like(s["base"], float("nan"))
+    qcd.block_sweep_cuda(*args, **kw, out=(w_new[:, sl], delta[:, sl]))
+    pn, pd = ref.quantease_block_sweep_t_ref(*args, **kw)
+    torch.testing.assert_close(w_new[:, sl], pn, rtol=0, atol=ATOL)
+    torch.testing.assert_close(delta[:, sl], pd, rtol=0, atol=ATOL)
+    for t in (w_new, delta):
+        assert bool(t[:, :48].isnan().all() and t[:, 96:].isnan().all())
 
 
 # The correction's cases: q not a multiple of the 128-column tile (or of 4);
@@ -378,6 +446,16 @@ def test_wrappers_refuse_what_kernels_do_not_take(cuda):
         ops.quantease_block_sweep(s["base"][:, :32].double(), s["sig_t"][:, :32, :32],
                                   s["w"][:, :32], s["scale"][:, :32], s["zero"][:, :32],
                                   n_levels=16, quantize=True)
+    blk = (s["base"][:, :32].contiguous(), s["sig_t"][:, :32, :32].contiguous(),
+           s["w"][:, :32].contiguous(), s["scale"][:, :32].contiguous(), s["zero"][:, :32].contiguous())
+    for sweep_plan in [(8, 32), (32, 32), (16, 16), (16, 32, 8), "16x32"]:
+        with pytest.raises(ValueError):
+            qcd.block_sweep_cuda(*blk, n_levels=16, quantize=True, sweep_plan=sweep_plan)
+        with pytest.raises(ValueError):
+            qcd.fused_iteration_cuda(*args, n_levels=16, quantize=True, bsz=32, sweep_plan=sweep_plan)
+        with pytest.raises(ValueError):
+            qcd.outlier_iteration_cuda(*args, dh, n_levels=16, quantize=True, bsz=32,
+                                       sweep_plan=sweep_plan)
 
 
 def test_slice_on_card_matches_cpu(cuda):

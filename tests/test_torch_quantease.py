@@ -114,7 +114,7 @@ def test_relative_error_and_calib_match_jax():
                                rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(damp_sigma(torch.from_numpy(sigma)).numpy(),
                                np.asarray(jcalib.damp_sigma(jnp.asarray(sigma))), rtol=1e-6)
-    st = CalibStats.zeros(32).update_tokens(torch.from_numpy(x.T.reshape(2, 32, 32)))
+    st = CalibStats.zeros(32, device="cpu").update_tokens(torch.from_numpy(x.T.reshape(2, 32, 32)))
     js = jcalib.CalibStats.zeros(32).update_tokens(jnp.asarray(x.T.reshape(2, 32, 32)))
     np.testing.assert_allclose(st.sigma.numpy(), np.asarray(js.sigma), rtol=1e-5, atol=1e-3)
     assert st.n == js.n == 64

@@ -167,6 +167,11 @@ def test_entry_points_refuse_cuda_without_a_card():
         tqparams.quantize_params_for_serving(plan, params, [])
     with pytest.raises(RuntimeError, match="CUDA"):
         tscorer.perplexity_on_stream(plan, params, calib_fn, n_batches=1)
+    from repro_torch.core.calib import CalibStats
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CalibStats.zeros(8)
+    assert CalibStats.zeros(8, device="cpu").sigma.device.type == "cpu"
 
 
 def test_entry_points_refuse_params_on_another_device():
