@@ -28,8 +28,11 @@ Phases (any failed check exits non-zero; no phase is skipped):
    per-layer time at m = 8 and 2048 held below fp32 cuBLAS's; paged
    attention (kernel 5) at the serving shape
    (8 sequences of up to 1536 tokens, 32 kv heads of 96) in bf16, int8 and
-   int4 pages, at a long shape (32 x 4096 tokens, bf16 and int4) and at a
-   GQA shape with a window and a softcap;
+   int4 pages, at a long shape (32 x 4096 tokens, bf16 and int4), at a GQA
+   shape with a window and a softcap and at one sequence of 4096 tokens,
+   each under its planned split and a second plan, with its device time
+   (split and combine kernels summed) against the bound, SDPA and, per byte,
+   the earlier kernel's;
 4. small-input reference: ``tests/test_torch_cuda.py`` on the card, where a
    reduced Phi-3 quantized and scored on the card (kernels) and on the CPU
    (plain versions) must agree, and each kernel matches its plain version
@@ -47,7 +50,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
    (repeat: same tokens), on bf16 with 40 % of the pages (preemption), and on
    the contiguous engine; paged and contiguous first-decode logits must agree,
    kernel 5 must launch once per decode step and period, and the decode
-   steps' GEMMs must run tc_small (no simt launch).
+   steps' GEMMs must run tc_small (no simt launch); then 8 users at
+   3584-4032 tokens of context (16 new tokens each) under the profiler:
+   decode ms per step, busy share, kernel 5's device time against the
+   dequant-GEMM's, and kernel 5's launches held to decode steps x periods.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -118,20 +124,46 @@ MAIN_BATCH, MAIN_SEQ, MAIN_CALIB_BATCHES, MAIN_EVAL_BATCHES = 4, 512, 4, 2
 SERVED_RUN = "quantease@4"  # the artifact phase 6 serves
 GEMM_DECODE_M = 8  # the serving GEMM at decode: one token per lane, max_batch 8
 GEMM_PREFILL_M = 128  # the serving GEMM on a prefill chunk (prefill_chunk = 128)
-# Kernel 5's shapes: (label, B, KVp, G, hd, max length, window, softcap, page kinds).
+# Kernel 5's shapes: (label, B, KVp, G, hd, table length, lengths drawn from
+# [lo, hi], window, softcap, page kinds).
 PAGE = 16
 PAGED_SHAPES = (
-    ("serving", 8, 32, 1, 96, 1536, None, None, ("bf16", "int8", "int4")),
-    ("long", 32, 32, 1, 96, 4096, None, None, ("bf16", "int4")),
-    ("gqa", 8, 8, 4, 128, 1536, 256, 50.0, ("bf16", "int8", "int4")),
+    ("serving", 8, 32, 1, 96, 1536, (1, 1536), None, None, ("bf16", "int8", "int4")),
+    ("long", 32, 32, 1, 96, 4096, (4096, 4096), None, None, ("bf16", "int4")),
+    ("gqa", 8, 8, 4, 128, 1536, (1, 1536), 256, 50.0, ("bf16", "int8", "int4")),
+    ("single", 1, 32, 1, 96, 4096, (4096, 4096), None, None, ("bf16", "int4")),  # one user at 4k
+    # Phase 6's long-context run: 8 lanes of a 4096-token table at the
+    # lengths its decode steps reach (prompts of 3584-4032 + 16 new tokens).
+    ("longctx", 8, 32, 1, 96, 4096, (3584, 4048), None, None, ("bf16",)),
 )
 PAGED_ATOL = 2e-2  # the kernel keeps p in fp32, the plain version rounds it to bf16
+# The A/B against kernel 5 before the split design, which is no longer in
+# the tree: (device ms per call from the profiler, bytes of that call's
+# bound) per (shape, kind), from PERF.md's kernel table, row 5 (NVIDIA H100
+# 80GB HBM3, 700.00 W).  The serving and GQA shapes draw random lengths, so
+# the comparison is per byte.
+OLD_PAGED = {
+    ("serving", "bf16"): (0.05081285, 56930304), ("serving", "int8"): (0.0536129, 37627904),
+    ("serving", "int4"): (0.0401515, 18232576), ("long", "bf16"): (1.1284486, 1611005952),
+    ("long", "int4"): (0.5837283, 436600832), ("gqa", "bf16"): (0.02566495, 6393856),
+    ("gqa", "int8"): (0.0255309, 4403648), ("gqa", "int4"): (0.045388, 2359296),
+}
+PAGED_KERNELS = ("paged_attention_kernel", "paged_attention_combine_kernel")
+L2_FLUSH_BYTES = 128 << 20  # over the H100's 50 MB of L2
+# torch.profiler now and then hands back a trace with no device event at all
+# (once in a full run on the H100): device_profile runs its function again
+# under a new profiler, at most this many times in all.
+PROFILE_TRIES = 3
 # Phase 6: the serving traffic and engines.
 SERVE_REQUESTS, SERVE_PROMPT_LO, SERVE_PROMPT_HI, SERVE_NEW_TOKENS = 24, 16, 1024, 32
 SERVE_PREFIX, SERVE_N_SHARED = 256, 4
 SERVE_PAGED = dict(max_batch=8, max_seq=1536, page_size=PAGE, prefill_chunk=128)
 SERVE_CONTIG = dict(max_batch=8, max_seq=1536)
 SERVE_SMALL_POOL = 0.3  # of the ample page count: forces preemption (0.4 does not)
+# Phase 6's long-context run: 8 users of a 4k-context deployment, each near
+# the full context, where kernel 5 reads the most per decode step.
+LONG_REQUESTS, LONG_PROMPT_LO, LONG_PROMPT_HI, LONG_NEW_TOKENS = 8, 3584, 4032, 16
+SERVE_LONG = dict(max_batch=8, max_seq=4096, page_size=PAGE, prefill_chunk=128)
 # First-decode logits, paged bf16 against contiguous bf16, as a share of the
 # contiguous run's max |logit| (bf16 activations; kernel 5 keeps p in fp32
 # where decode_attention rounds it to bf16); also the margin below which
@@ -171,69 +203,91 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn``: ``reps`` calls queued back to back
-    behind a sleep kernel that outlasts their enqueue, then timed with events
-    on the card.  Unlike :func:`cuda_ms` it leaves out the host work between
-    launches (at the decode batch the wrapper's host time is longer than its
-    kernels).  A timing whose enqueue outlasted the sleep is thrown away and
-    taken again behind a sleep sized from that enqueue, at most three times:
-    the host is shared, and one slow enqueue would otherwise end the run."""
+def behind_sleep(enqueue) -> None:
+    """Run ``enqueue`` (launches that record their own events) queued behind
+    a sleep kernel that outlasts its enqueue, so the events time the card's
+    work alone, not the host work between launches.  A run whose enqueue
+    outlasted the sleep is thrown away and made again behind a sleep sized
+    from that enqueue, at most three times: the host is shared, and one
+    slow enqueue would otherwise end the run.  Keep each enqueue to a few
+    hundred launches: more fill CUDA's launch queue, and the enqueue
+    then waits on the sleep."""
     import torch
 
-    fn()
+    enqueue()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
+    enqueue()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for attempt in range(3):
         if attempt:
             host_ms = enqueue_ms
         torch.cuda._sleep(int(4e6 * host_ms) + 100_000)  # ~2x the enqueue time at <= 2 GHz
-        a.record()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        b.record()
+        enqueue()
         enqueue_ms = (time.perf_counter() - t0) * 1e3
-        b.synchronize()
+        torch.cuda.synchronize()
         if enqueue_ms <= 2 * host_ms:
             break
     check(enqueue_ms <= 2 * host_ms,
-          f"device_ms: enqueueing took {enqueue_ms:.3f} ms, longer than the sleep in front of it")
+          f"behind_sleep: enqueueing took {enqueue_ms:.3f} ms, longer than the sleep in front of it")
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls between two events,
+    queued behind a sleep (:func:`behind_sleep`).  Unlike :func:`cuda_ms`
+    it leaves out the host work between launches (at the decode batch the
+    wrapper's host time is longer than its kernels)."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def enqueue():
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+
+    behind_sleep(enqueue)
     return a.elapsed_time(b) / reps
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, tries: int = PROFILE_TRIES) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and split the device time by
     kernel: ``{"wall_ms", "device_ms", "busy", "by_kernel": {name: ms}}``,
     our kernels by their source name and everything else (PyTorch's own
     kernels: top-k, elementwise, copies) under "torch".  The host wall time
     includes the profiler's own launch overhead, so ``busy`` (device time
-    over wall time) is a lower bound.  Empty when the trace holds no device
-    time."""
+    over wall time) is a lower bound.  Every ``fn`` given here launches work
+    on the card, so a trace with no device event at all is the profiler
+    losing its trace: it is thrown away and ``fn`` runs again under a new
+    profiler, ``tries`` times in all (``fn`` must bear being run again).
+    Empty when no trace held device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        print(f"[profile] try {attempt + 1} of {tries}: the trace holds no device event "
+              f"({len(prof.events())} host events); "
+              f"{'running again' if attempt + 1 < tries else 'giving up'}", flush=True)
     by_kernel = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in events:
         name = next((k for k in ("qe_block_corr_kernel", "qe_corr_reduce_kernel",
                                  "qe_block_sweep_kernel", "qe_suffix_resid_kernel",
                                  "dequant_matmul_tc_large_kernel",
                                  "dequant_matmul_tc_small_kernel", "dequant_matmul_reduce_kernel",
-                                 "dequant_matmul_kernel", "paged_attention_kernel") if k in e.name),
+                                 "dequant_matmul_kernel", *PAGED_KERNELS) if k in e.name),
                     "torch")
         by_kernel[name] = by_kernel.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     if not by_kernel:
@@ -253,7 +307,7 @@ def ptxas_summary(name: str) -> str:
     out = []
     for chunk in build.ptxas_log(name).split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        kernel = re.search(r"(qe_[a-z_]+_kernel)", mangled)
+        kernel = re.search(r"((?:qe|paged)_[a-z_]+_kernel)", mangled)
         targs = re.search(r"_kernelI(\w+?)EEv", mangled)
         args = []
         for num, flag, bf16 in re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)",
@@ -925,21 +979,23 @@ def ops_plain(x, kc, scale, zero):
     return ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.bfloat16)
 
 
-def paged_problem(gen, dev, B, KVp, G, hd, max_len, kind):
-    """Phase 3's kernel-5 inputs: bf16 pages quantized as the engine writes
-    them (``_kv_quantize`` / ``_kv_quantize4``), each sequence on its own
-    pages, table entries past its length on the null page 0."""
+def paged_problem(gen, dev, B, KVp, G, hd, table_len, lens, kind):
+    """Phase 3's kernel-5 inputs: lengths drawn from ``lens = (lo, hi)``,
+    bf16 pages quantized as the engine writes them (``_kv_quantize`` /
+    ``_kv_quantize4``), each sequence on its own pages of a table of
+    ``table_len`` positions, entries past its length on the null page 0."""
     import torch
 
     from repro_torch.models import model as M
 
-    n_pgs = -(-max_len // PAGE)
+    n_pgs = -(-table_len // PAGE)
     P = 1 + B * n_pgs
     q = torch.randn(B, KVp, G, hd, generator=gen, device=dev).to(torch.bfloat16)
-    if max_len == 1536:  # the serving shape: lengths drawn from 1..1536
-        lengths = torch.randint(1, max_len + 1, (B,), generator=gen, device=dev)
+    lo, hi = lens
+    if lo == hi:
+        lengths = torch.full((B,), hi, device=dev)
     else:
-        lengths = torch.full((B,), max_len, device=dev)
+        lengths = torch.randint(lo, hi + 1, (B,), generator=gen, device=dev)
     kv = [torch.randn(P, PAGE, KVp, hd, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2)]
     scales = [None, None]
     if kind != "bf16":
@@ -966,9 +1022,9 @@ def paged_bytes_flop(d, kind, window):
 
 
 def sdpa_yardstick(d):
-    """The bf16 K/V of ``d`` gathered contiguous, and one
-    ``scaled_dot_product_attention`` call over it with a length mask (the
-    port never calls it)."""
+    """The bf16 K/V of ``d`` gathered contiguous, and the device time of one
+    ``scaled_dot_product_attention`` call over it with a length mask, timed
+    as kernel 5 is (the port never calls it)."""
     import torch
     import torch.nn.functional as F
 
@@ -980,60 +1036,110 @@ def sdpa_yardstick(d):
     if G > 1:
         k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
     mask = (torch.arange(S, device=k.device)[None] < d["lengths"][:, None])[:, None, None]
-    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    return device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), reps=20)
 
 
 def check_paged_attention(gen, dev, detail):
+    """Kernel 5 at the five shapes and every page kind, under its planned
+    plan and a second one (one partition where the plan splits, else a
+    4-way split; a plan is pages per partition), each held against the plain version at PAGED_ATOL; the
+    planned plan's device time (both kernels, ``device_ms``) against the
+    bound, SDPA and the earlier kernel per byte, and each kernel's share
+    of the profiler's trace."""
     import torch
 
+    from repro_torch.device import sm_count
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
 
     detail["paged_attention"] = []
     err_max, row_of_path = 0.0, None
-    for label, B, KVp, G, hd, max_len, window, cap, kinds in PAGED_SHAPES:
+    for label, B, KVp, G, hd, table_len, lens, window, cap, kinds in PAGED_SHAPES:
         for kind in kinds:
-            d = paged_problem(gen, dev, B, KVp, G, hd, max_len, kind)
-            call = lambda fn: fn(d["q"], d["k_pages"], d["v_pages"], d["page_table"], d["lengths"],
-                                 window=window, attn_softcap=cap, k_scale_pages=d["k_scale_pages"],
-                                 v_scale_pages=d["v_scale_pages"])
-            out = call(ops.paged_attention)
+            d = paged_problem(gen, dev, B, KVp, G, hd, table_len, lens, kind)
+            n_pgs, idx = d["page_table"].shape[1], d["q"].device.index
+            cps = pa.paged_ctas_per_sm(idx, True, kind, G, hd)
+            planned = pa.plan_paged(B, KVp, G, hd, n_pgs, PAGE, kind, sm_count(idx), cps, window)
+            splits = lambda plan: pa.paged_splits(n_pgs, plan)
+            other = n_pgs if splits(planned) > 1 else -(-n_pgs // 4)
+            call = lambda fn, **kw: fn(d["q"], d["k_pages"], d["v_pages"], d["page_table"], d["lengths"],
+                                       window=window, attn_softcap=cap, k_scale_pages=d["k_scale_pages"],
+                                       v_scale_pages=d["v_scale_pages"], **kw)
             want = call(ref.paged_attention_ref)
-            torch.cuda.synchronize()
-            err = float((out.float() - want.float()).abs().max())
-            check(bool(torch.isfinite(out.float()).all()) and err <= PAGED_ATOL,
-                  f"paged_attention {label} {kind}: max abs err {err} > {PAGED_ATOL}")
+            errs, dev_ms, share = {}, {}, {}
+            for plan in (planned, other):
+                out = call(pa.paged_attention_cuda, plan=plan)
+                torch.cuda.synchronize()
+                errs[plan] = float((out.float() - want.float()).abs().max())
+                check(bool(torch.isfinite(out.float()).all()) and errs[plan] <= PAGED_ATOL,
+                      f"paged_attention {label} {kind} plan {plan}: max abs err {errs[plan]} > {PAGED_ATOL}")
+                # Device time: calls queued behind a sleep and timed with
+                # events (the wrapper's host work left out, the gaps between
+                # launches in).  The profiler gives each kernel's share only:
+                # late in a long run its kernel sums came out below the bound.
+                dev_ms[plan] = device_ms(lambda: call(pa.paged_attention_cuda, plan=plan), reps=50)
+                prof = device_profile(lambda: [call(pa.paged_attention_cuda, plan=plan) for _ in range(20)])
+                by = prof.get("by_kernel", {})
+                check(all(by.get(k, 0.0) > 0 for k in PAGED_KERNELS[:1 + (splits(plan) > 1)]),
+                      f"paged_attention {label} {kind} plan {plan}: the profile holds {sorted(by)}")
+                traced = sum(by.get(k, 0.0) for k in PAGED_KERNELS)
+                share[plan] = {k: by.get(k, 0.0) / traced for k in PAGED_KERNELS}
+                share[plan]["traced_ms"] = traced / 20
+            out = call(ops.paged_attention)  # the dispatch the engines call: the planned plan
+            check(torch.equal(out, call(pa.paged_attention_cuda, plan=planned)),
+                  f"paged_attention {label} {kind}: ops dispatch differs from the planned plan")
+            err = max(errs.values())
             err_max = max(err_max, err)
             ms = cuda_ms(lambda: call(ops.paged_attention), reps=20)
-            # The kernel's own device time: at the serving shape it is shorter
-            # than the wrapper's host work, which the events above include.
-            prof = device_profile(lambda: [call(ops.paged_attention) for _ in range(20)])
-            dev_ms = prof.get("by_kernel", {}).get("paged_attention_kernel")
-            dev_ms = None if dev_ms is None else dev_ms / 20
             plain = cuda_ms(lambda: call(ref.paged_attention_ref), reps=5, warmup=1)
             lib = sdpa_yardstick(d) if kind == "bf16" else None
             n_bytes, n_flop = paged_bytes_flop(d, kind, window)
             b_ms, b_by = bound(n_bytes, n_flop)
-            row = dict(shape=label, B=B, KVp=KVp, G=G, hd=hd, max_len=max_len, window=window,
+            k_ms = dev_ms[planned]
+            old = OLD_PAGED.get((label, kind))
+            row = dict(shape=label, B=B, KVp=KVp, G=G, hd=hd, table_len=table_len, lengths=lens,
+                       window=window,
                        softcap=cap, kind=kind, tokens=int(d["lengths"].sum()), max_abs_err=err, ms=ms,
-                       device_ms=dev_ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+                       device_ms=k_ms, plan=planned, n_split=splits(planned), ctas_per_sm=cps,
+                       kernel_share=share[planned],
+                       other_plan=other, other_device_ms=dev_ms[other], plain_ms=plain, library_ms=lib,
+                       bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms, bytes=n_bytes,
+                       old_device_ms=None if old is None else old[0],
+                       old_ms_per_gb=None if old is None else old[0] / old[1] * 1e9,
+                       ms_per_gb=k_ms / n_bytes * 1e9)
             detail["paged_attention"].append(row)
             print(f"[kernel] paged_attention {label} B={B} KVp={KVp} G={G} hd={hd} {kind} "
-                  f"(window {window}, softcap {cap}, {row['tokens']} tokens): max_abs_err={err:.3g} "
-                  f"ms={ms:.4f} device_ms={dev_ms if dev_ms is None else round(dev_ms, 4)} plain_ms={plain:.3f} "
-                  f"library_ms={lib if lib is None else round(lib, 4)} "
-                  f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                  f"(window {window}, softcap {cap}, {row['tokens']} tokens): plan {planned} pages x "
+                  f"{splits(planned)} "
+                  f"({cps} CTAs/SM) device_ms={k_ms:.4f} (profiler: split {share[planned][PAGED_KERNELS[0]]:.2f}, "
+                  f"combine {share[planned][PAGED_KERNELS[1]]:.2f} of {share[planned]['traced_ms']:.4f}) "
+                  f"call_ms={ms:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}, {b_ms / k_ms:.0%} of it) "
+                  f"library_ms={lib if lib is None else round(lib, 4)}"
+                  f"{'' if lib is None else f' (kernel/SDPA {k_ms / lib:.2f})'} plain_ms={plain:.3f}; "
+                  f"plan {other} pages x {splits(other)}: device_ms={dev_ms[other]:.4f}; "
+                  f"max_abs_err={err:.3g}", flush=True)
+            if old is not None:
+                print(f"[A/B] paged_attention {label} {kind}: {row['old_ms_per_gb']:.4f} -> "
+                      f"{row['ms_per_gb']:.4f} device ms per GB of the bound's bytes "
+                      f"({row['old_ms_per_gb'] / row['ms_per_gb']:.2f}x; the earlier kernel: "
+                      f"{old[0]:.4f} ms for {old[1]} bytes)", flush=True)
+                check(row["ms_per_gb"] <= row["old_ms_per_gb"],
+                      f"paged_attention {label} {kind}: {row['ms_per_gb']} device ms per GB, slower than "
+                      f"the earlier kernel's {row['old_ms_per_gb']}")
             if (label, kind) == ("serving", "bf16"):
                 row_of_path = row
             del d, out, want
             torch.cuda.empty_cache()
-    # The kernel's time is its device time (the profiler's); ``call_ms`` is the
-    # wrapper call timed with events, host work included.
+    # The kernel's time is its device time (both kernels, events behind a
+    # sleep); ``call_ms`` is the wrapper call timed with events, host work
+    # included.
     r = row_of_path
-    return dict(max_abs_err=err_max, ms=r["device_ms"] if r["device_ms"] is not None else r["ms"],
-                call_ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                bound_by=r["bound_by"], library_ms=r["library_ms"],
+    return dict(max_abs_err=err_max, ms=r["device_ms"], call_ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
                 shape="one decode step's attention at the serving shape: 8 sequences of 1-1536 "
-                      "tokens, 32 kv heads of 96, bf16 pages of 16")
+                      f"tokens, 32 kv heads of 96, bf16 pages of 16, plan {r['plan']} pages x "
+                      f"{r['n_split']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1179,7 +1285,7 @@ def serve_traffic(vocab: int) -> list:
     return prompts
 
 
-def serve_run(label, make_engine, prompts):
+def serve_run(label, make_engine, prompts, new_tokens=SERVE_NEW_TOKENS):
     """Submit every prompt at once, run to the end, and collect the run's
     numbers (engine-clock times: ``time.monotonic``)."""
     import numpy as np
@@ -1190,7 +1296,7 @@ def serve_run(label, make_engine, prompts):
     eng = make_engine()
     t0 = time.monotonic()
     for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS))
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
     fin = eng.run()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
@@ -1322,10 +1428,121 @@ def serving(dev, detail, plan, artifact):
         runs=[r[0] for r in res.values()], seconds=t_serve, launches=counts, gemm_variants=variants,
         first_decode_max_diff_contiguous=d_ct, logit_scale=scale, identical_share=float(same),
         kv_quant_max_diff=d_q, prompt_lengths=[len(p) for p in prompts], profile=prof,
+        long_context=long_context(dev, cfg, plans["bf16"], artifact,
+                                  next(r for r in detail["paged_attention"]
+                                       if (r["shape"], r["kind"]) == ("longctx", "bf16"))),
     )
     for eng in (r[2] for r in res.values()):
         eng.logit_trace.clear()
     return counts
+
+
+def replay_device_ms(calls, batch: int = 32) -> list:
+    """Device ms of each recorded kernel-5 call, replayed on its own inputs:
+    ``batch`` calls at a time behind a sleep (:func:`behind_sleep`), each
+    between two events, L2 flushed before each (as the run's GEMMs flush it
+    between calls), so each time is the split and combine kernels' alone."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=calls[0][0].device)
+    times = []
+    for i in range(0, len(calls), batch):
+        part = calls[i:i + batch]
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in part]
+
+        def enqueue():
+            for (a, b), (q, k_pages, v_pages, table, lengths, kw) in zip(events, part):
+                flush.zero_()
+                a.record()
+                paged_attention_cuda(q, k_pages, v_pages, table, lengths, **kw)
+                b.record()
+
+        behind_sleep(enqueue)
+        times += [a.elapsed_time(b) for a, b in events]
+    return times
+
+
+def long_context(dev, cfg, plan, artifact, k5_row):
+    """Eight users of a 4k-context deployment (prompts of 3584-4032 tokens,
+    numpy seed 0; 16 new tokens each) on the paged bf16 engine, under the
+    profiler: decode ms per step, the card's busy share, and device time by
+    kernel, kernel 5's against the dequant-GEMM's.  The profiler's kernel
+    sums are lower bounds (phase 3 found them below event times), so each
+    kernel-5 call of the run is recorded (its table and lengths copied)
+    and replayed after it, timed by events (:func:`replay_device_ms`);
+    phase 3's time at the run's shape with all 8 lanes decoding
+    (``k5_row``) stands beside.  Its launches are counted from 0 for this
+    run alone and held to decode steps x periods."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import PagedServingEngine
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(LONG_PROMPT_LO, LONG_PROMPT_HI + 1, LONG_REQUESTS)]
+    calls, dispatch = [], ops.paged_attention
+
+    def recording(q, k_pages, v_pages, table, lengths, **kw):
+        calls.append((q, k_pages, v_pages, table.clone(), lengths.clone(), kw))
+        return dispatch(q, k_pages, v_pages, table, lengths, **kw)
+
+    out = {}
+
+    def run():  # from a clean count: device_profile runs it again if the trace was lost
+        calls.clear()
+        ops.reset_launch_counts()
+        out["run"] = serve_run("paged bf16, 8 users at 3.6-4k tokens, profiled",
+                               lambda: PagedServingEngine(plan, artifact, device=dev, **SERVE_LONG),
+                               prompts, new_tokens=LONG_NEW_TOKENS)
+
+    ops.paged_attention = recording
+    try:
+        prof = device_profile(run)
+    finally:
+        ops.paged_attention = dispatch
+    counts = ops.launch_counts()
+    stats, outputs, _ = out["run"]
+    check(stats["requests"] == LONG_REQUESTS and stats["statuses"] == ["completed"]
+          and all(len(o) == LONG_NEW_TOKENS for o in outputs.values()),
+          f"long-context run: requests {stats['requests']}, statuses {stats['statuses']}")
+    layers = cfg.n_periods * len(cfg.pattern)
+    check(counts["paged_attention"] == stats["decode_steps"] * layers,
+          f"long-context run: paged_attention launched {counts['paged_attention']} times for "
+          f"{stats['decode_steps']} decode steps x {layers} layers")
+    check(bool(prof), "long-context run: the profile holds no device time")
+    by = prof["by_kernel"]
+    k5 = sum(by.get(k, 0.0) for k in PAGED_KERNELS)
+    gemm = sum(v for k, v in by.items() if k.startswith("dequant_matmul"))
+    check(len(calls) == counts["paged_attention"],
+          f"long-context run: {len(calls)} kernel-5 calls recorded, {counts['paged_attention']} launched")
+    replay = replay_device_ms(calls)
+    k5_events = sum(replay)
+    lanes = [int((c[4] > 1).sum()) for c in calls]  # idle lanes attend over 1 position
+    per_call_bytes = stats["kv_read_bytes"] / len(calls)
+    k5_bound = bound(per_call_bytes, 0)[0]
+    del calls
+    print(f"[profile] long context: decode {stats['ms_per_step']:.2f} ms/step over "
+          f"{stats['decode_steps']} steps, TTFT p50 {stats['ttft_p50_ms']:.0f} ms; wall "
+          f"{prof['wall_ms']:.1f} ms; profiler kernel sums (lower bounds): device "
+          f"{prof['device_ms']:.1f} ms (busy {prof['busy']:.3f}), kernel 5 {k5:.2f} ms "
+          f"({k5 / prof['device_ms']:.1%} of device time, {k5 / max(counts['paged_attention'], 1):.4f} "
+          f"ms per call), dequant-GEMM {gemm:.2f} ms ({gemm / prof['device_ms']:.1%}); "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by.items())), flush=True)
+    print(f"[profile] long context, kernel 5 by events (its {len(replay)} calls replayed): "
+          f"{k5_events:.2f} ms, {k5_events / len(replay):.4f} ms per call (median "
+          f"{statistics.median(replay):.4f}), {k5_events / prof['wall_ms']:.1%} of the run's wall time, "
+          f"{k5_events / stats['decode_steps']:.4f} ms per decode step of {stats['ms_per_step']:.2f}; "
+          f"lanes decoding per call: mean {np.mean(lanes):.2f}, max {max(lanes)}; KV bytes per call "
+          f"{per_call_bytes:.0f} (the engine's count), bound {k5_bound:.4f} ms "
+          f"({k5_bound * len(replay) / k5_events:.0%} of it); with all 8 lanes decoding (phase 3 "
+          f"longctx): {k5_row['device_ms']:.4f} ms per call, {k5_row['bytes']} bytes", flush=True)
+    return dict(stats=stats, profile=prof, launches=counts, kernel5_ms=k5, gemm_ms=gemm,
+                kernel5_event_ms=k5_events, kernel5_replay_ms=replay, lanes_per_call=lanes,
+                prompt_lengths=[len(p) for p in prompts])
 
 
 def main() -> None:
@@ -1354,6 +1571,8 @@ def main() -> None:
     print(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.monotonic() - t0:.2f}s", flush=True)
     print(f"[build] quantease_cd, -Xptxas -v: {ptxas_summary('quantease_cd')}", flush=True)
+    print(f"[build] paged_attention (q, kind, threads, tile), -Xptxas -v: "
+          f"{ptxas_summary('paged_attention')}", flush=True)
 
     detail = {"card": card}
     gen = torch.Generator(device=dev)

@@ -47,7 +47,8 @@ _SIGNATURES = {
         "dequant_matmul": ([_P, _I, _P, _I, _P, _P, _P, _I] + [_I] * 7 + [_P, _P, _I], _I),
     },
     "paged_attention": {
-        "paged_attention": ([_P, _I, _P, _P, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_F, _P, _I], _I),
+        "paged_attention": ([_P, _I, _P, _P, _I] + [_P] * 6 + [_I] * 7 + [_F, _F, _I, _P, _I], _I),
+        "paged_ctas_per_sm": ([_I] * 5, _I),
     },
 }
 

@@ -603,13 +603,25 @@ def _pa(fn, d, **kw):
               k_scale_pages=d["k_scale_pages"], v_scale_pages=d["v_scale_pages"], **kw)
 
 
+def _paged_plans(n_pgs):
+    """The planner's plan (None), then pages per partition for one
+    partition, two, and the most the table allows (one page each)."""
+    return [None, n_pgs, -(-n_pgs // 2), 1]
+
+
 @pytest.mark.parametrize("window,cap", [(None, None), (37, None), (None, 50.0), (20, 5.0)])
-@pytest.mark.parametrize("G,hd", [(1, 96), (4, 128), (2, 16), (8, 256)])
+@pytest.mark.parametrize("G,hd", [(1, 96), (4, 128), (2, 16), (8, 256), (3, 40), (1, 6)])
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 def test_paged_attention(cuda, kind, G, hd, window, cap):
     """Kernel 5 against its plain version, bf16 q (atol 2e-2: the kernel keeps
     p in fp32, the plain version rounds it to bf16, as the TPU kernel and its
-    oracle differ) and fp32 q (atol 1e-5: only the summation order differs)."""
+    oracle differ) and fp32 q (atol 1e-5: only the summation order differs),
+    under the planner's plan and under one, two and six partitions of the
+    six-page table; each call counts one launch whatever its plan.  Head
+    dims 40 and 6 give rows that are not a multiple of 16 or of 4 bytes
+    (4-byte and byte copies)."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
     for q_dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
         d = _paged(G * hd + len(kind), cuda, kind=kind, G=G, hd=hd, q_dtype=q_dtype)
         before = ops.launch_counts()["paged_attention"]
@@ -618,15 +630,26 @@ def test_paged_attention(cuda, kind, G, hd, window, cap):
         want = _pa(ref.paged_attention_ref, d, window=window, attn_softcap=cap)
         assert out.dtype == q_dtype and out.shape == d["q"].shape
         torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+        for plan in _paged_plans(d["page_table"].shape[1])[1:]:
+            before = ops.launch_counts()["paged_attention"]
+            out = _pa(paged_attention_cuda, d, window=window, attn_softcap=cap, plan=plan)
+            assert ops.launch_counts()["paged_attention"] == before + 1
+            torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol, msg=str(plan))
 
 
+@pytest.mark.parametrize("window", [None, 21])
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
-def test_paged_attention_reads_no_masked_bytes(cuda, kind):
-    """NaN in the null page, in the masked tail of each last page and (for
-    quantized pages) in their scales: the kernel never loads them, so its
-    output is finite and equals the plain version on clean pages."""
+def test_paged_attention_reads_no_masked_bytes(cuda, kind, window):
+    """NaN in the null page, in the masked tail of each last page, (with a
+    window) in every row before the window and (for quantized pages) in
+    their scales: the kernel never loads them, so its output is finite and
+    equals the plain version on clean pages, under every plan.  Partitions
+    are whole pages, so the nearest a partition boundary comes to the last
+    page's valid rows is the one-page plan, whose last partition holds only
+    them and the poisoned tail; a window of 21 starts its first partition
+    inside a page."""
     d = _paged(3, cuda, kind=kind, lengths=[1, 16, 37, 70, 96], npg=6)
-    want = _pa(ref.paged_attention_ref, d)
+    want = _pa(ref.paged_attention_ref, d, window=window)
     poisoned = dict(d)
     psz = d["k_pages"].shape[1]
     nan_plane = "k_pages" if kind == "bf16" else "k_scale_pages"
@@ -636,16 +659,56 @@ def test_paged_attention_reads_no_masked_bytes(cuda, kind):
         for b, n in enumerate(d["lengths"].tolist()):
             if n % psz:
                 t[int(d["page_table"][b, (n - 1) // psz]), n % psz:] = float("nan")
+            for pos in range(max(0, n - window) if window else 0):
+                t[int(d["page_table"][b, pos // psz]), pos % psz] = float("nan")
         poisoned[name] = t
-    out = _pa(ops.paged_attention, poisoned)
-    assert torch.isfinite(out.float()).all()
-    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2)
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    for plan in _paged_plans(6):
+        out = _pa(paged_attention_cuda, poisoned, window=window, plan=plan)
+        assert torch.isfinite(out.float()).all(), plan
+        torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2, msg=str(plan))
 
 
 def test_paged_attention_is_deterministic(cuda):
+    """The same output from run to run under every plan: no atomics in any
+    sum, and the combine adds a sequence's partitions in ascending order."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
     d = _paged(4, cuda, kind="bf16", B=8, KVp=32, npg=96, P=800)
     a, b = _pa(ops.paged_attention, d), _pa(ops.paged_attention, d)
     assert torch.equal(a, b)
+    for plan in _paged_plans(96)[1:]:
+        a, b = _pa(paged_attention_cuda, d, plan=plan), _pa(paged_attention_cuda, d, plan=plan)
+        assert torch.equal(a, b), plan
+
+
+def test_paged_attention_launches_one_kernel_per_partition_plan(cuda):
+    """A one-partition plan launches the split kernel alone; a split plan
+    launches it and the combine, one call each (the profiler's count).  The
+    call always launches a kernel, so a trace with no device event at all is
+    the profiler losing its trace (seen once on the H100): it is taken again,
+    three times at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    d = _paged(8, cuda, kind="int8")
+    for plan, want in ((6, ["paged_attention_kernel"]),
+                       (2, ["paged_attention_kernel", "paged_attention_combine_kernel"])):
+        _pa(paged_attention_cuda, d, plan=plan)  # built and warm
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _pa(paged_attention_cuda, d, plan=plan)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+        ours = sorted(k for n in names for k in ("paged_attention_kernel", "paged_attention_combine_kernel")
+                      if k in n)
+        assert ours == sorted(want), (plan, names)
 
 
 def test_paged_attention_refuses_what_it_does_not_take(cuda):
@@ -669,6 +732,11 @@ def test_paged_attention_refuses_what_it_does_not_take(cuda):
     big_g = _paged(6, cuda, kind="bf16", G=9, hd=16)
     with pytest.raises(ValueError):
         _pa(ops.paged_attention, big_g)
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    for plan in [0, 257, -1, 6.0, True, "6", (6,), (6, 1), [3]]:
+        with pytest.raises(ValueError):
+            paged_attention_cuda(*args, **scales, plan=plan)
 
 
 def test_paged_engine_on_card_matches_cpu(cuda):
