@@ -76,7 +76,8 @@ class ModelConfig:
         return self.n_periods * len(self.pattern)
 
 
-# Architectures the port runs so far.
+# Architectures the port runs so far (``bench_opt_s``, the benchmarks'
+# trained model, is registered too: ``get_config("bench_opt_s")``).
 ARCH_IDS = ("phi3_mini_3_8b",)
 
 _REGISTRY: dict[str, ModelConfig] = {}

@@ -12,9 +12,10 @@
   an optional per-block progress callback.  For the outlier-aware methods
   they are errors of the effective weights Ŵ + Ĥ.
 
-Methods ``rtn``, ``quantease``, ``qe_outlier`` and ``qe_outlier_struct``
-(Algorithm 3, unstructured and column outliers) are ported; the others
-raise.
+Methods ``rtn``, ``gptq``, ``quantease`` (optionally warm-started from
+GPTQ, ``init_from_gptq``), ``qe_outlier`` and ``qe_outlier_struct``
+(Algorithm 3, unstructured and column outliers) are ported; ``awq``,
+``awq_qe`` and ``spqr`` raise.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.core import quantease
 from repro_torch.core.calib import CalibStats
+from repro_torch.core.gptq import gptq_quantize
 from repro_torch.core.outlier import outlier_quantease
 from repro_torch.core.quantease import relative_error
 from repro_torch.device import require_on_device
@@ -45,24 +47,26 @@ from repro_torch.quant import (
 __all__ = ["PTQConfig", "ptq_quantize_model", "QUANTIZABLE"]
 
 QUANTIZABLE = {"wq", "wk", "wv", "wo", "wg", "wu", "wd"}
-_METHODS = ("rtn", "quantease", "qe_outlier", "qe_outlier_struct")
+_METHODS = ("rtn", "gptq", "quantease", "qe_outlier", "qe_outlier_struct")
 
 
 @dataclasses.dataclass
 class PTQConfig:
-    method: str = "quantease"  # rtn | quantease | qe_outlier | qe_outlier_struct
+    method: str = "quantease"  # rtn | gptq | quantease | qe_outlier | qe_outlier_struct
     spec: GridSpec = dataclasses.field(default_factory=lambda: GridSpec(bits=4))
     iterations: int = 25
     outlier_frac: float = 0.01  # outlier budget of the qe_outlier methods, per matrix
     percdamp: float = 0.01
+    block_size: int = 128  # GPTQ's column block (lazy-batch width)
     emit: str = "fake"  # "fake" (dequantized, param dtype) | "qt" (QuantizedTensor)
+    init_from_gptq: bool = False  # QuantEase warm start from GPTQ's Ŵ (paper §3.1)
     use_kernel: str = "auto"  # see QuantEaseConfig
     matmul_dtype: str = "float32"
 
     def qe_config(self) -> quantease.QuantEaseConfig:
         """The CD-solver config this run resolves to.  As in the reference,
-        the column block is QuantEaseConfig's default, B = 256 (the
-        reference's ``PTQConfig.block_size`` serves GPTQ only)."""
+        the column block is QuantEaseConfig's default, B = 256
+        (``block_size`` serves GPTQ only)."""
         return quantease.QuantEaseConfig(
             iterations=self.iterations,
             percdamp=self.percdamp,
@@ -88,8 +92,14 @@ def _solve_group(w3, sig3, cfg: PTQConfig):
     grid3 = compute_grid(w3, cfg.spec)
     if cfg.method == "rtn":
         return quantize_dequantize(w3, grid3), None, grid3
+    w_gptq = None
+    if cfg.method == "gptq" or cfg.init_from_gptq:
+        w_gptq = gptq_quantize(w3, sig3, cfg.spec, percdamp=cfg.percdamp,
+                               block_size=cfg.block_size, grid=grid3)
+    if cfg.method == "gptq":
+        return w_gptq, None, grid3
     w_hat, _ = quantease.quantease_quantize(
-        w3, sig3, cfg.spec, grid=grid3, **cfg.qe_config().solve_kwargs()
+        w3, sig3, cfg.spec, w_init=w_gptq, grid=grid3, **cfg.qe_config().solve_kwargs()
     )
     return w_hat, None, grid3
 

@@ -4,7 +4,10 @@ Scores token streams against any parameter tree the model accepts: dense,
 fake-quant (``emit="fake"``), or the serving artifact itself, stacked
 QuantizedTensor leaves from ``serve.qparams.quantize_params_for_serving``,
 whose linears run through the dequantizing GEMM.  The head is evaluated in
-sequence chunks, so logits never exist at (B, S, V).
+sequence chunks, so logits never exist at (B, S, V).  Beside the scores,
+:func:`next_token_logits` gives the prefill path's logits for one prompt:
+the anchor of the scorer-vs-serving parity check
+(:func:`repro_torch.eval.harness.engine_parity`).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from repro_torch.device import require_on_device
 from repro_torch.models import model as M
 from repro_torch.models.common import softcap
 
-__all__ = ["token_scores", "make_scorer", "perplexity_on_stream"]
+__all__ = ["token_scores", "make_scorer", "next_token_logits", "perplexity_on_stream"]
 
 
 @torch.no_grad()
@@ -51,6 +54,20 @@ def make_scorer(plan, *, chunk: int = 128, device="cuda"):
         return token_scores(plan, params, tokens, chunk=chunk, device=device)
 
     return score
+
+
+@torch.no_grad()
+def next_token_logits(plan, params, prompt, *, device="cuda") -> np.ndarray:
+    """Prefill-path logits predicting the token after ``prompt``, fp32 numpy.
+
+    Runs :func:`repro_torch.models.model.prefill` on the unpadded prompt
+    (batch 1, a cache sized to the prompt): the prefill path the serving
+    engines execute.  The params must live on ``device``."""
+    dev = require_on_device(params["embed"], device)
+    prompt = np.asarray(prompt, np.int32)
+    cache = M.init_cache(plan, 1, len(prompt), device=dev)
+    logits, _ = M.prefill(plan, params, {"tokens": prompt[None]}, cache)
+    return logits[0].to(torch.float32).cpu().numpy()
 
 
 def perplexity_on_stream(plan, params, batch_fn, *, n_batches: int = 4, step0: int = 0,

@@ -1,8 +1,9 @@
 """Seeded, deterministic fault injection (the port's copy of ``repro.faults``).
 
 A :class:`FaultPlan` schedules transient or permanent errors and soft
-denials at named sites; the serving engines consult ``engine.step`` and the
-page pool ``pool.alloc``, so their failure paths are reproducible tests.
+denials at named sites; the serving engines consult ``engine.step``, the
+page pool ``pool.alloc`` and the checkpoints ``ckpt.write``/``ckpt.read``,
+so their failure paths are reproducible tests.
 """
 
 from repro_torch.faults.plan import (
@@ -13,6 +14,7 @@ from repro_torch.faults.plan import (
     PermanentFault,
     TransientFault,
     active_plan,
+    corrupt_bytes,
     fault_plan,
     fault_point,
 )
@@ -25,6 +27,7 @@ __all__ = [
     "PermanentFault",
     "TransientFault",
     "active_plan",
+    "corrupt_bytes",
     "fault_plan",
     "fault_point",
 ]

@@ -4,10 +4,12 @@ The same plan driven through the same workload fires the same faults at the
 same invocations every time.  Sites (:data:`SITES`) are the reference's, so a
 plan written for one package validates in the other; the port arms
 ``engine.step`` (top of both engines' ``step``, before any state changes, so
-a transient fault is a pure no-op retry) and ``pool.alloc``
+a transient fault is a pure no-op retry), ``pool.alloc``
 (:meth:`repro_torch.serve.kv_cache.PagePool.alloc`, where ``deny`` fails the
-allocation as if the pool were dry).  Its kernel wrappers consult no site:
-a CUDA tensor launches its kernel or raises.
+allocation as if the pool were dry), and ``ckpt.write`` / ``ckpt.read``
+(each shard of :mod:`repro_torch.dist.checkpoint`; ``corrupt`` flips one
+seeded byte of the written shard, :func:`corrupt_bytes`).  Its kernel
+wrappers consult no site: a CUDA tensor launches its kernel or raises.
 
 Kinds: ``transient`` raises :class:`TransientFault` (the engines count and
 retry the step), ``permanent`` raises :class:`PermanentFault`, and ``deny``
@@ -33,6 +35,7 @@ __all__ = [
     "fault_plan",
     "fault_point",
     "active_plan",
+    "corrupt_bytes",
 ]
 
 SITES = (
@@ -114,6 +117,8 @@ class FaultPlan:
         ]
         # One RNG stream per spec, keyed (seed, spec index), as the reference's.
         self._rngs = [np.random.default_rng((self.seed, i)) for i in range(len(self.specs))]
+        # Seeded stream for payload corruption (the byte to flip), as the reference's.
+        self._corrupt_rng = np.random.default_rng((self.seed, 0xC0FFEE))
 
     def check(self, site: str) -> str:
         if site not in self.counts:
@@ -138,6 +143,11 @@ class FaultPlan:
                 raise PermanentFault(site, n)
             return sp.kind
         return "ok"
+
+
+    def corrupt_index(self, n: int) -> int:
+        """Seeded byte index into an ``n``-byte payload (for ``corrupt``)."""
+        return int(self._corrupt_rng.integers(0, max(n, 1)))
 
 
 _ACTIVE: list[FaultPlan] = []
@@ -167,3 +177,15 @@ def fault_point(site: str) -> str:
     if plan is None:
         return "ok"
     return plan.check(site)
+
+
+def corrupt_bytes(plan: FaultPlan, data: bytes) -> bytes:
+    """Flip one seeded byte of ``data`` (XOR 0xFF, so the flip never
+    round-trips to the original value): the shard corruption behind
+    ``ckpt.write``'s ``corrupt`` action."""
+    if not data:
+        return data
+    idx = plan.corrupt_index(len(data))
+    out = bytearray(data)
+    out[idx] ^= 0xFF
+    return bytes(out)

@@ -15,7 +15,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.quant import QuantizedTensor, check_zero_points
 
-__all__ = ["tensor_from_numpy", "qtensor_from_jax", "params_from_jax"]
+__all__ = ["tensor_from_numpy", "qtensor_from_jax", "params_from_jax", "opt_state_from_jax"]
 
 _QT_FIELDS = ("codes", "scale", "zero", "outlier_values", "outlier_idx",
               "outlier_col_idx", "outlier_col_vals")
@@ -25,10 +25,10 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """One array (numpy, or anything ``np.asarray`` accepts) → tensor on
     ``device``, bit for bit."""
     device = resolve_device(device)
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.asarray(a).copy(order="C")  # a C-contiguous copy; a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _is_qtensor(x) -> bool:
@@ -65,3 +65,13 @@ def params_from_jax(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
     return tensor_from_numpy(tree, device)
+
+
+def opt_state_from_jax(state, device="cuda") -> dict:
+    """A reference AdamW state (``{"mu": ..., "count": ...}``, fp32 or int8
+    moments, read as numpy) → the port's, on ``device``, bit for bit, so a
+    step can be compared from a non-zero state."""
+    if set(state) != {"mu", "count"}:
+        raise ValueError(f"not an AdamW state: keys {sorted(state)}")
+    return {"mu": params_from_jax(state["mu"], device),
+            "count": tensor_from_numpy(state["count"], device)}

@@ -12,7 +12,9 @@ max |R| on the outlier iteration's exact residual in rows whose sweep
 agrees, rtol 1e-6 / atol 1e-4 on fp32 GEMM output (every variant; the
 tensor-core variants flush their truncating MMA sums into an IEEE fp32
 total every 128 k), 1e-2 of max |y| on bf16 GEMM output, atol 2e-2 (bf16 q) and
-1e-5 (fp32 q) on paged attention.
+1e-5 (fp32 q) on paged attention; GPTQ 1e-4 of max |W| outside rows that
+start at a rounding tie, one train step and ``eval_model`` 1e-3 relative
+(card against CPU).
 """
 
 import dataclasses
@@ -775,3 +777,119 @@ def test_paged_engine_on_card_matches_cpu(cuda):
         for i in lp:
             scale = float(np.abs(lp[i]).max())
             np.testing.assert_allclose(lk[i], lp[i], rtol=0, atol=1e-3 * scale)
+
+
+# ---------------------------------------------------------------------------
+# The quality path: GPTQ, a train step and eval_model, card against CPU
+# ---------------------------------------------------------------------------
+
+
+def _gptq_recording(w, sigma, spec):
+    """GPTQ, recording each column's pre-rounding value w/s (on the CPU)."""
+    from repro_torch.core import gptq
+
+    seen, orig = [], gptq._quant_dequant_cols
+
+    def record(wc, scale, zero, n_levels):
+        seen.append((wc / scale).cpu())
+        return orig(wc, scale, zero, n_levels)
+
+    gptq._quant_dequant_cols = record
+    try:
+        out = gptq.gptq_quantize(w, sigma, spec)
+    finally:
+        gptq._quant_dequant_cols = orig
+    return out, torch.stack(seen, -1)
+
+
+@pytest.mark.parametrize("G,q,p,bits", [(1, 96, 128, 3), (3, 64, 200, 4), (2, 256, 384, 4)])
+def test_gptq_on_card_matches_cpu(cuda, G, q, p, bits):
+    """GPTQ on the card (cuSOLVER inverse, cuBLAS lazy batch) against the CPU:
+    codes equal except in rows whose first differing column starts at a
+    rounding tie (the CPU's pre-rounding w/s within max(1e-5, p·κ·ε) of a
+    midpoint, the fp32 bound of inverting the damped Σ of condition κ);
+    values within 1e-4 of max |W| in the other rows."""
+    import math
+
+    from repro_torch.core.calib import damp_sigma
+    from repro_torch.quant import quantize_codes
+
+    r = np.random.default_rng(G * q + p)
+    x = r.standard_normal((G, p, 2 * p)).astype(np.float32)
+    w = torch.from_numpy(r.standard_normal((G, q, p)).astype(np.float32))
+    sigma = torch.from_numpy(x @ x.transpose(0, 2, 1))
+    spec = GridSpec(bits=bits)
+    wk, _ = _gptq_recording(w.to(cuda), sigma.to(cuda), spec)
+    wp, pre = _gptq_recording(w, sigma, spec)
+    grid = compute_grid(w, spec)
+    ck, cp = quantize_codes(wk.cpu(), grid), quantize_codes(wp, grid)
+    kappa = torch.linalg.cond(damp_sigma(sigma, 0.01).double())
+    eps = torch.finfo(torch.float32).eps
+    ok = torch.ones(G, q, dtype=torch.bool)
+    for g, row in (ck != cp).any(-1).nonzero().tolist():
+        j = int((ck[g, row] != cp[g, row]).nonzero()[0])
+        v = float(pre[g, row, j])
+        tol = max(1e-5, p * float(kappa[g]) * eps)
+        assert abs(v - (math.floor(v) + 0.5)) <= tol * max(1.0, abs(v)), (g, row, j, v, tol)
+        ok[g, row] = False
+    assert float(ok.float().mean()) >= 0.95
+    torch.testing.assert_close(wk.cpu()[ok], wp[ok], rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step (2 microbatches, fp32 AdamW) of a reduced fp32
+    bench_opt_s: loss and gradient norm within 1e-3 relative, the stepped
+    params within 1e-3 relative (atol 2 % of lr: Adam moves an entry whose
+    |g| is near fp32 noise by a fraction of lr that the noise decides)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("bench_opt_s"), n_periods=2, dtype=torch.float32)
+    plan = M.make_plan(cfg)
+    params_cpu = M.init_params(plan, 3, device="cpu")
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab, (4, 64)).astype(np.int32)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    step = make_train_step(plan, opt, 2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = M.tree_map(lambda a: a.to(dev), params_cpu)
+        new, _, metrics = step(params, adamw_init(params, opt), {"tokens": tokens})
+        out[dev.type] = (new, metrics)
+    (nk, mk), (np_, mp) = out["cuda"], out["cpu"]
+    assert float(mk["loss"]) == pytest.approx(float(mp["loss"]), rel=1e-3)
+    assert float(mk["grad_norm"]) == pytest.approx(float(mp["grad_norm"]), rel=1e-3)
+    for a, b in zip(tree_leaves(nk), tree_leaves(np_)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=0.02 * opt.lr)
+
+
+def test_eval_model_on_card_matches_cpu(cuda):
+    """eval_model (smoke budget) of a reduced fp32 bench_opt_s's RTN 4-bit
+    serving artifact, on the card (the dequant-GEMM) and on the CPU: every
+    metric within 1e-3 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import solver
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.eval.harness import EvalBudget, eval_model
+    from repro_torch.models import model as M
+    from repro_torch.serve.qparams import quantize_params_for_serving
+
+    cfg = dataclasses.replace(get_config("bench_opt_s"), n_periods=2, dtype=torch.float32)
+    plan = M.make_plan(cfg)
+    params_cpu = M.init_params(plan, 6, device="cpu")
+    calib_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, 2, 48, split="calib")
+    eval_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, 2, 48, split="eval")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = M.tree_map(lambda a: a.to(dev), params_cpu)
+        q, _ = solver.ptq_quantize_model(plan, params, [calib_fn(0)],
+                                         solver.PTQConfig(method="rtn", emit="qt"), device=dev)
+        served = quantize_params_for_serving(plan, params, q["dec"], device=dev)
+        before = ops.launch_counts()["dequant_matmul"]
+        out[dev.type] = eval_model(plan, served, eval_fn, budget=EvalBudget.smoke(), device=dev)
+        out[dev.type + "_launches"] = ops.launch_counts()["dequant_matmul"] - before
+    assert out["cuda_launches"] > 0 and out["cpu_launches"] == 0
+    for k, v in out["cpu"].items():
+        assert out["cuda"][k] == pytest.approx(v, rel=1e-3), k

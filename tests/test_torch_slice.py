@@ -124,8 +124,9 @@ def test_progress_records_carry_reference_keys(slice_runs):
 
 def test_port_imports_no_jax_and_no_reference():
     """Importing every module of the port (Algorithm 3's ``core.outlier``,
-    the serving engines and the fault plans among them), and chip_smoke,
-    loads neither jax nor the reference package."""
+    the serving engines, the fault plans, the eval tasks and harness, GPTQ,
+    the trainer and the checkpoints among them), and chip_smoke, loads
+    neither jax nor the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -135,7 +136,11 @@ def test_port_imports_no_jax_and_no_reference():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "need = ['repro_torch.core.outlier', 'repro_torch.kernels.quantease_cd', 'repro_torch.core.solver',\n"
         "        'repro_torch.serve.engine', 'repro_torch.serve.kv_cache', 'repro_torch.faults',\n"
-        "        'repro_torch.kernels.paged_attention']\n"
+        "        'repro_torch.kernels.paged_attention', 'repro_torch.eval.tasks',\n"
+        "        'repro_torch.eval.harness', 'repro_torch.core.gptq', 'repro_torch.train.optimizer',\n"
+        "        'repro_torch.train.train_step', 'repro_torch.train.trainer',\n"
+        "        'repro_torch.dist.checkpoint', 'repro_torch.dist.elastic',\n"
+        "        'repro_torch.configs.bench_opt_s']\n"
         "bad += [m + ' not loaded' for m in need if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
     )
@@ -144,7 +149,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 27 and bad == "[]", out.stdout
+    assert int(n) >= 38 and bad == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_a_card():
@@ -168,7 +173,17 @@ def test_entry_points_refuse_cuda_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         tscorer.perplexity_on_stream(plan, params, calib_fn, n_batches=1)
     from repro_torch.core.calib import CalibStats
+    from repro_torch.eval import harness as tharness
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
 
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tscorer.next_token_logits(plan, params, np.arange(4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tharness.eval_model(plan, params, calib_fn, budget=tharness.EvalBudget.smoke())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tharness.run_grid(plan, params, [calib_fn(0)], calib_fn, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(plan.cfg, AdamWConfig(), TrainerConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         CalibStats.zeros(8)
     assert CalibStats.zeros(8, device="cpu").sigma.device.type == "cpu"
