@@ -32,19 +32,30 @@ Phases (any failed check exits non-zero; no phase is skipped):
    shape with a window and a softcap and at one sequence of 4096 tokens,
    each under its planned split and a second plan, with its device time
    (split and combine kernels summed) against the bound, SDPA and, per byte,
-   the earlier kernel's;
+   the earlier kernel's; last, QuantEase's legacy schedule (kernel 1 alone
+   per block, fp32 ``torch.matmul`` corrections) at the three solver groups,
+   B = 128: one iteration on the kernel path against the plain path and
+   against one fused iteration (rows outside verified tie flips), then
+   25-iteration solves against the fused engine's, with kernel 1's launches
+   held to n_blocks x 25, ms per layer iteration and device time by kernel,
+   and Algorithm 3's legacy schedule at G=1 (3072, 8192), 3 bits, 1 %,
+   within 1 % of the fused engine's error;
 4. small-input reference: ``tests/test_torch_cuda.py`` on the card, where a
    reduced Phi-3 quantized and scored on the card (kernels) and on the CPU
    (plain versions) must agree, and each kernel matches its plain version
    at small and ragged shapes;
 5. main path: Phi-3-mini at full width (2 of 32 decoder layers, seeded
    random weights): RTN, GPTQ and QuantEase PTQ at 4 bits, then RTN, GPTQ,
-   QuantEase and outlier-aware QuantEase (1 % outliers) at 3 bits, each
+   QuantEase, outlier-aware QuantEase (1 % outliers), AWQ, AWQ+QuantEase
+   and SpQR (1 %) at 3 bits, each
    through the serving restack and ``eval_model`` (perplexity, top-1/top-5,
    choice accuracy and margin, ``EvalBudget``'s defaults), with each
    method's seconds per decoder layer; mean relative error must order
-   quantease < gptq < rtn at 4 and at 3 bits and qe_outlier < quantease <
-   rtn at 3 bits, the outlier artifact must carry its COO planes, every PTQ
+   quantease < gptq < rtn at 4 and at 3 bits, qe_outlier < quantease <
+   rtn, quantease < awq <= rtn and qe_outlier < spqr at 3 bits (AWQ+QuantEase
+   against QuantEase is recorded), the zero points of the AWQ, AWQ+QuantEase
+   and SpQR artifacts (grids re-derived from Ŵ) integers in [0, 7], the
+   outlier artifact must carry its COO planes, every PTQ
    kernel's launch counter must rise, and the dequant-GEMM must run
    tensor-core variants only (no simt launch);
 5b. training at full width: a ``Trainer`` on the phase-5 model (bf16 params
@@ -78,7 +89,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
    kernel is then held against its plain version at phase 7's own shapes,
    on the inputs phase 7 gave it (one kept call per signature: the CD
    iterations and every block sweep in them, each dequant-GEMM shape and
-   variant, each paged-attention call shape), at phase 3's tolerances.
+   variant, each paged-attention call shape), at phase 3's tolerances;
+8. the command-line path at full width: ``repro_torch.launch.train``,
+   ``quantize``, ``eval`` and ``serve`` called in process on Phi-3-mini cut
+   to 2 of 32 decoder layers (registered as ``phi3_mini_3_8b_2l``), in a
+   temporary directory checked for free space first: 4 training steps at 4
+   x 512 (every loss finite, 4 checkpoints); QuantEase at 4 bits, then SpQR
+   at 3 bits with ``--resume`` (14 layers, finite errors, one
+   ``progress.jsonl`` record a block, the QuantEase report within 1e-3 per
+   layer of ``ptq_quantize_model`` on the same params and batches); the
+   eval grid (RTN, AWQ, SpQR, QuantEase, qe_outlier at 3 bits) and parity,
+   whose document must pass ``validate_doc``'s schema, every kernel
+   launched and held against its plain version on the eval's own calls;
+   serving the quantize output on the paged engine (bf16, a repeat with
+   the same tokens, int4 KV) and the contiguous one, every request complete
+   and kernel 5 launched once per decode step and period.  Each step's wall
+   seconds are printed; the CLIs' output goes to
+   ``chiprun_out/chip_smoke_cli.txt``.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -144,10 +171,17 @@ R_RTOL = 1e-4  # the exact residual R, relative to max |R|, in rows whose sweep 
 OLD_TILE_SHAPE = (1, 3072, 8192, "float32")
 OLD_TILE_SOLVE_CORR_MS = 703.0  # qe_block_corr_kernel in one 25-iteration solve
 OLD_TILE_CORR_MS = OLD_TILE_SOLVE_CORR_MS / 25
+# Phase 3's legacy rows: QuantEase's pre-fused schedule (kernel 1 alone, a
+# torch.matmul correction between launches) at the three solver groups.
+LEGACY_SHAPES = ((4, 3072, 3072), (2, 8192, 3072), (1, 3072, 8192))  # (G, q, p)
+LEGACY_BLOCK = 128
+LEGACY_FUSED_ATOL = 2e-4  # legacy against fused iterates (tests/test_fused_engine.py)
+LEGACY_REL = 1e-3  # 25-iteration solves: relative error, legacy against fused
+LEGACY_OUTLIER_REL = 1.01  # the outlier engines' errors (tests/test_outlier_fused.py)
 MAIN_OVERRIDES = dict(n_periods=2)  # depth cut: 2 of 32 decoder layers
 # (method, bits) of the main path's PTQ runs, in order.
 MAIN_RUNS = (("rtn", 4), ("gptq", 4), ("quantease", 4), ("rtn", 3), ("gptq", 3), ("quantease", 3),
-             ("qe_outlier", 3))
+             ("qe_outlier", 3), ("awq", 3), ("awq_qe", 3), ("spqr", 3))
 MAIN_BATCH, MAIN_SEQ, MAIN_CALIB_BATCHES = 4, 512, 4  # eval: EvalBudget's defaults on these batches
 # Phase 5b: full-width training (the phase-5 model, fp32 AdamW moments).
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
@@ -176,6 +210,28 @@ PATH_CALL_KEPT = 8
 PATH_WRAPPERS = ("fused_iteration_cuda", "outlier_iteration_cuda", "dequant_matmul_cuda",
                  "paged_attention_cuda")
 SERVED_RUN = "quantease@4"  # the artifact phase 6 serves
+# Phase 8: the command-line path at full width, in process, on Phi-3-mini
+# cut to 2 of 32 decoder layers (registered under this name; the CLIs take
+# a registered config and have no depth flag).
+CLI_ARCH = "phi3_mini_3_8b_2l"
+CLI_TRAIN = ("--steps", "4", "--batch", "4", "--seq", "512")
+CLI_SEQ, CLI_ITERATIONS, CLI_CALIB = 512, 25, 4  # the quantize CLI's: 4 calibration batches of 4
+CLI_EVAL = ("--methods", "rtn", "awq", "spqr", "quantease", "--bits", "3", "--outlier-bits", "3",
+            "--iterations", "25", "--calib-batches", "4", "--eval-batches", "4", "--seq", "512")
+CLI_SERVE = ("--requests", "6", "--max-new", "12")
+CLI_REPORT_REL = 1e-3  # the quantize CLI's report against ptq_quantize_model, per layer
+# Four training checkpoints of 3.94 GiB (bf16 params, fp32 moments), the
+# quantize output (0.85 GiB) and headroom.
+CLI_DISK_GIB = 20
+# validate_doc's problems phase 8 records and does not fail on: its grid has
+# no GPTQ and no 4-bit rows, so the ordering checks cannot hold; random
+# weights order no perplexity; and the parity's absolute tol (0.05, set for
+# the reference's small trained model) sits at ~1 % of max |logit| of the
+# full-width random model (0.047 in a first run), so the scorer against each
+# engine is held to SERVE_LOGIT_TOL of max |logit| instead.
+CLI_RECORDED = ("grid: missing method row", "ordering violated", "outlier 3-bit",
+                "parity: paged != contiguous bitwise", "parity: contiguous diff exceeds tol",
+                "parity: paged diff exceeds tol")
 GEMM_DECODE_M = 8  # the serving GEMM at decode: one token per lane, max_batch 8
 GEMM_PREFILL_M = 128  # the serving GEMM on a prefill chunk (prefill_chunk = 128)
 # Kernel 5's shapes: (label, B, KVp, G, hd, table length, lengths drawn from
@@ -477,12 +533,14 @@ def tie_flip_rows(k_out, p_out, state, bsz, n_levels, atol):
     return len(rows), unexplained, records
 
 
-def sweep_launches_on_path(p, bsz):
+def sweep_launches_on_path(G, p, bsz):
     """Kernel 1's launches at one solver group's shape in phase 5: p / B
     blocks per iteration, every iteration, layer and PTQ run whose engine
-    sweeps blocks of B (QuantEase 256, qe_outlier OUTLIER_BLOCK)."""
-    runs = sum(1 for m, _ in MAIN_RUNS
-               if (m == "quantease" and bsz == QE_BLOCK) or (m == "qe_outlier" and bsz == OUTLIER_BLOCK))
+    sweeps blocks of B (QuantEase 256, qe_outlier OUTLIER_BLOCK); awq_qe
+    solves the group's G layers one at a time (QuantEase, B = 256)."""
+    runs = sum(1 if m in ("quantease", "qe_outlier") else G for m, _ in MAIN_RUNS
+               if (m in ("quantease", "awq_qe") and bsz == QE_BLOCK)
+               or (m == "qe_outlier" and bsz == OUTLIER_BLOCK))
     return p // bsz * PTQ_ITERATIONS * MAIN_OVERRIDES["n_periods"] * runs
 
 
@@ -537,7 +595,7 @@ def check_block_sweep(gen, dev, detail):
         n_bytes = 4 * (6 * G * bsz * q + G * bsz * bsz)
         n_flop = G * q * (bsz * (bsz - 1) + 8 * bsz)
         b_ms, b_by = bound(n_bytes, n_flop)
-        launches = sweep_launches_on_path(p, bsz)
+        launches = sweep_launches_on_path(G, p, bsz)
         regs = sweep_regs(summary, plan[0], plan[1])
         row = dict(G=G, q=q, p=p, B=bsz, plan=list(plan), ctas=qcd.sweep_ctas(G, q, plan[1]),
                    ctas_per_sm=dict(zip(qcd.SWEEP_ROWS, resident)), regs_spill=regs,
@@ -865,6 +923,111 @@ def check_outlier_iteration(gen, dev, detail):
                 corr_ms=totals["corr_ms"], suffix_ms=totals["suffix_ms"],
                 shape=f"one fp32 outlier-aware CD iteration of a decoder layer, B={bsz}: "
                 + " + ".join(f"G={G} ({q},{p})" for G, q, p, dt in OUTLIER_SHAPES if dt == "float32"))
+
+
+def check_legacy_engines(gen, dev, detail):
+    """QuantEase's legacy schedule (kernel 1 launched alone per block, the
+    full P̂ and each block's correction by fp32 ``torch.matmul``) at the
+    three solver groups, B = LEGACY_BLOCK: one iteration from a mid-solve
+    state on the kernel path against the card's plain path (rows within
+    CD_ATOL outside verified tie flips) and against one fused iteration
+    from the same state (LEGACY_FUSED_ATOL, again outside verified ties);
+    then 25-iteration solves, legacy against fused (relative error within
+    LEGACY_REL), with kernel 1's launches held to n_blocks x 25, wall ms
+    per iteration and the legacy solve's device time by kernel.  Last,
+    Algorithm 3's legacy schedule at G=1 (3072, 8192), 3 bits, 1 %: its
+    error within LEGACY_OUTLIER_REL of the fused engine's, both ways."""
+    import torch
+
+    from repro_torch.core import quantease as qe
+    from repro_torch.core.outlier import outlier_quantease
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant import GridSpec
+
+    bsz, spec = LEGACY_BLOCK, GridSpec(bits=4)
+    rows, t_legacy, t_fused = [], 0.0, 0.0
+    for G, q, p in LEGACY_SHAPES:
+        s = cd_state(gen, G, q, p, dev)
+        pmat_t = s["base"] + s["sig_t"] @ s["w"]  # P, from base = P − ŴΣ̃
+        args = (pmat_t, s["sig_t"], s["w"], s["scale"], s["zero"])
+        kw = dict(n_levels=16, quantize=True, bsz=bsz)
+        what = f"legacy iteration G={G} ({q},{p}) B={bsz}"
+        k_out = qe._legacy_iteration(ops.quantease_block_sweep, *args, **kw)
+        p_out = qe._legacy_iteration(ref.quantease_block_sweep_t_ref, *args, **kw)
+        state = dict(scale=s["scale"], zero=s["zero"], sig_t=s["sig_t"])
+        ok_p, err_p, diff_p = cd_rows_agree(k_out, p_out, state, bsz, 16, f"{what}, kernel vs plain")
+        del p_out
+        f_out = ops.quantease_fused_iteration(s["base"], s["sig_t"], s["sig_t"], s["w"], s["scale"],
+                                              s["zero"], torch.zeros_like(s["w"]), **kw)
+        ok_f, err_f, diff_f = cd_rows_agree(k_out, f_out, state, bsz, 16, f"{what}, legacy vs fused",
+                                            atol=LEGACY_FUSED_ATOL)
+        del k_out, f_out, s, args, pmat_t
+        w, sigma = cd_problem(gen, G, q, p, CD_TOKENS, dev)
+        solve = lambda engine: qe.quantease_quantize(w, sigma, spec, iterations=PTQ_ITERATIONS,
+                                                     block_size=bsz, engine=engine)[0]
+        torch.cuda.synchronize()
+        before = ops.launch_counts()["quantease_block_sweep"]
+        t0 = time.monotonic()
+        wl = solve("legacy")
+        torch.cuda.synchronize()
+        t_l = time.monotonic() - t0
+        launches = ops.launch_counts()["quantease_block_sweep"] - before
+        want = p // bsz * PTQ_ITERATIONS
+        check(launches == want, f"{what}: kernel 1 launched {launches} times in a 25-iteration "
+                                f"solve, expected {want} (n_blocks x 25)")
+        t0 = time.monotonic()
+        wf = solve("fused")
+        torch.cuda.synchronize()
+        t_f = time.monotonic() - t0
+        prof = device_profile(lambda: solve("legacy"))
+        el, ef = qe.relative_error(w, wl, sigma), qe.relative_error(w, wf, sigma)
+        rel = float(((el - ef).abs() / ef).max())
+        check(rel <= LEGACY_REL, f"{what}: 25-iteration relative error legacy {el.tolist()} vs "
+                                 f"fused {ef.tolist()}")
+        t_legacy += t_l
+        t_fused += t_f
+        row = dict(G=G, q=q, p=p, B=bsz, rows_ok_plain=ok_p, max_abs_err_plain=err_p,
+                   rows_differing_plain=diff_p, rows_ok_fused=ok_f, max_abs_err_fused=err_f,
+                   rows_differing_fused=diff_f, launches=launches, solve25_s=t_l,
+                   fused_solve25_s=t_f, rel_err_legacy=el.tolist(), rel_err_fused=ef.tolist(),
+                   profile=prof)
+        rows.append(row)
+        print(f"[kernel] {what}: kernel vs plain rows_ok={ok_p:.6f} (differing {diff_p}) "
+              f"max_abs_err={err_p:.3g}; vs one fused iteration rows_ok={ok_f:.6f} (differing "
+              f"{diff_f}) max_abs_err={err_f:.3g}; 25-iteration solve {t_l:.3f}s "
+              f"({t_l / PTQ_ITERATIONS * 1e3:.2f} ms per iteration; fused at B={bsz} "
+              f"{t_f / PTQ_ITERATIONS * 1e3:.2f} ms), kernel 1 launched {launches} = "
+              f"{p // bsz} blocks x {PTQ_ITERATIONS}, rel_err {el.mean():.6f} vs fused "
+              f"{ef.mean():.6f}", flush=True)
+        print_profile(f"legacy 25-iter solve G={G} ({q},{p})", prof)
+        if (G, q, p) != LEGACY_SHAPES[-1]:
+            del w, sigma
+    print(f"[kernel] legacy engine, one decoder layer's iteration (the three groups): "
+          f"{t_legacy / PTQ_ITERATIONS * 1e3:.2f} ms wall against the fused engine's "
+          f"{t_fused / PTQ_ITERATIONS * 1e3:.2f} ms at B={bsz} "
+          f"({t_legacy / t_fused:.2f}x)", flush=True)
+    n_out = max(int(OUTLIER_FRAC * q * p), 1)
+    spec3 = GridSpec(bits=3)
+    t0 = time.monotonic()
+    rl = outlier_quantease(w, sigma, spec3, s=n_out, iterations=PTQ_ITERATIONS, engine="legacy")
+    torch.cuda.synchronize()
+    t_ol = time.monotonic() - t0
+    t0 = time.monotonic()
+    rf = outlier_quantease(w, sigma, spec3, s=n_out, iterations=PTQ_ITERATIONS, engine="fused")
+    torch.cuda.synchronize()
+    t_of = time.monotonic() - t0
+    el = float(qe.relative_error(w, rl.w_eff, sigma).max())
+    ef = float(qe.relative_error(w, rf.w_eff, sigma).max())
+    check(el <= LEGACY_OUTLIER_REL * ef and ef <= LEGACY_OUTLIER_REL * el,
+          f"outlier engines at G=1 ({q},{p}) 3 bits: legacy error {el} vs fused {ef}")
+    print(f"[kernel] legacy outlier engine G=1 ({q},{p}) 3 bits 1 %: rel_err {el:.6f} vs fused "
+          f"{ef:.6f} (ratio {el / ef:.5f}); 25 iterations {t_ol:.2f}s vs fused {t_of:.2f}s",
+          flush=True)
+    detail["legacy"] = dict(rows=rows, layer_iteration_ms=t_legacy / PTQ_ITERATIONS * 1e3,
+                            fused_layer_iteration_ms=t_fused / PTQ_ITERATIONS * 1e3,
+                            outlier=dict(rel_err_legacy=el, rel_err_fused=ef, legacy_s=t_ol,
+                                         fused_s=t_of))
+    return sum(r["launches"] for r in rows)
 
 
 def check_dequant_matmul(gen, dev, detail):
@@ -1259,7 +1422,7 @@ def main_path(dev, detail):
 
     ops.reset_launch_counts()
     t_main = time.monotonic()
-    results, coo = {}, {}
+    results, coo, zero_points = {}, {}, {}
     for method, bits in MAIN_RUNS:
         label = f"{method}@{bits}"
         pcfg = solver.PTQConfig(method=method, spec=GridSpec(bits=bits), iterations=PTQ_ITERATIONS, emit="qt",
@@ -1277,6 +1440,9 @@ def main_path(dev, detail):
                       (cfg.n_periods, max(int(OUTLIER_FRAC * q_wq * p_wq), 1)))
         if label == SERVED_RUN:
             artifact = served
+        if method in ("awq", "awq_qe", "spqr"):
+            zero_points[label] = torch.cat([leaf.zero.flatten() for blk in served["dec"].values()
+                                            for leaf in blk.values() if hasattr(leaf, "codes")])
         del qparams, served, wq
     dense = eval_model(plan, params, eval_fn, budget=budget, device=dev)
     torch.cuda.synchronize()
@@ -1309,6 +1475,25 @@ def main_path(dev, detail):
               f"at {bits} bits mean errors do not order quantease < gptq < rtn: {mean}")
     check(mean["qe_outlier@3"] < mean["quantease@3"] < mean["rtn@3"],
           f"at 3 bits mean errors do not order qe_outlier < quantease < rtn: {mean}")
+    # The paper's baselines at 3 bits: AWQ no worse than RTN, QuantEase below
+    # AWQ, and outlier-aware QuantEase below SpQR at the same budget (§5.4).
+    # AWQ+QuantEase against QuantEase is recorded only: random weights carry
+    # no per-channel activation-scale structure for AWQ's scaling to use.
+    check(mean["awq@3"] <= mean["rtn@3"] and mean["quantease@3"] < mean["awq@3"],
+          f"at 3 bits mean errors do not order quantease < awq <= rtn: {mean}")
+    check(mean["qe_outlier@3"] < mean["spqr@3"],
+          f"at 3 bits qe_outlier is not below spqr at the same budget: {mean}")
+    print(f"[main] 3 bits: awq {mean['awq@3']:.6f} <= rtn {mean['rtn@3']:.6f}, quantease "
+          f"{mean['quantease@3']:.6f} < awq; qe_outlier {mean['qe_outlier@3']:.6f} < spqr "
+          f"{mean['spqr@3']:.6f}; recorded: awq_qe {mean['awq_qe@3']:.6f} against quantease "
+          f"({mean['awq_qe@3'] / mean['quantease@3']:.4f}x)", flush=True)
+    # Their grids are re-derived from Ŵ at the emit: every zero point of the
+    # three artifacts must still be an integer in [0, 7] (checked again by
+    # quantize_params_for_serving when each was restacked).
+    for label, z in zero_points.items():
+        check(bool(((z == torch.round(z)) & (z >= 0) & (z <= 7)).all()),
+              f"{label}: zero points not integers in [0, 7]")
+    print(f"[main] zero points of {', '.join(zero_points)}: integers in [0, 7]", flush=True)
     # The outlier artifact carries its COO planes, stacked over the periods.
     have, want = coo["qe_outlier@3"]
     check(have == want and coo["quantease@3"][0] is None, f"serving params' COO planes: {coo}")
@@ -1760,7 +1945,7 @@ def recording_calls(kept: int = PATH_CALL_KEPT):
             setattr(ops, name, fn)
 
 
-def cd_rows_agree(k_out, p_out, state, bsz, n_levels, what):
+def cd_rows_agree(k_out, p_out, state, bsz, n_levels, what, atol=CD_ATOL):
     """Kernel against plain CD outputs ``(w, β0, Δ)``: rows (output
     channels) within CD_ATOL in every output, at least ROWS_OK of them, or
     every differing row starts at a verified rounding tie
@@ -1770,8 +1955,8 @@ def cd_rows_agree(k_out, p_out, state, bsz, n_levels, what):
     as3 = lambda t: t if t.dim() == 3 else t[None]
     k_out, p_out = [as3(t) for t in k_out], [as3(t) for t in p_out]
     state = {k: as3(v) for k, v in state.items()}
-    fracs, errs = zip(*(rows_within(k, pl, CD_ATOL) for k, pl in zip(k_out, p_out)))
-    n_diff, n_unexplained, ties = tie_flip_rows(k_out, p_out, state, bsz, n_levels, CD_ATOL)
+    fracs, errs = zip(*(rows_within(k, pl, atol) for k, pl in zip(k_out, p_out)))
+    n_diff, n_unexplained, ties = tie_flip_rows(k_out, p_out, state, bsz, n_levels, atol)
     n_rows = k_out[0].shape[0] * k_out[0].shape[-1]
     check(min(fracs) >= ROWS_OK
           or (n_unexplained == 0 and n_diff <= max(1.0, (1 - ROWS_TIES) * n_rows)),
@@ -1780,8 +1965,8 @@ def cd_rows_agree(k_out, p_out, state, bsz, n_levels, what):
     return min(fracs), max(errs), n_diff
 
 
-def check_path_calls(calls, variants):
-    """Each recorded call of phase 7 once more through ``kernels.ops`` (the
+def check_path_calls(calls, variants, phase="phase 7"):
+    """Each recorded call of ``phase`` once more through ``kernels.ops`` (the
     kernel) and through its plain version, on the same inputs, at the
     tolerances of phase 3: the CD iterations (kernels 2 and 4) row by row,
     kernel 4's R in the rows that agree, and kernel 1 on each block of each
@@ -1819,7 +2004,7 @@ def check_path_calls(calls, variants):
         else:
             what = (f"{name[:-5]} G={a0.shape[0] if a0.dim() == 3 else 1} p={a0.shape[-2]} "
                     f"q={a0.shape[-1]} B={kw['bsz']} levels {kw['n_levels']} quantize {kw['quantize']}")
-        what = f"phase 7 {what}"
+        what = f"{phase} {what}"
         if name in ("fused_iteration_cuda", "outlier_iteration_cuda"):
             outlier = name == "outlier_iteration_cuda"
             dispatch, plain = ((ops.quantease_outlier_iteration, ref.quantease_outlier_iteration_ref)
@@ -1883,7 +2068,7 @@ def check_path_calls(calls, variants):
         print(f"[kernel] {what}, call {min(n, PATH_CALL_KEPT)} of {n}: {line}", flush=True)
     launched = {v for v, c in variants.items() if c}
     check(launched <= checked_variants,
-          f"phase 7 launched dequant-GEMM variants {sorted(launched)}, checked {sorted(checked_variants)}")
+          f"{phase} launched dequant-GEMM variants {sorted(launched)}, checked {sorted(checked_variants)}")
     return out
 
 
@@ -2033,6 +2218,184 @@ def quality_table(dev, detail, card):
     return {k: counts[k] + train_counts[k] for k in counts}, at_path
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the command-line path at full width
+# ---------------------------------------------------------------------------
+
+
+def cli_path(dev, detail):
+    """``repro_torch.launch.{train,quantize,eval,serve}`` in process
+    (``main([...])``, stdout captured into ``chiprun_out/chip_smoke_cli.txt``)
+    on Phi-3-mini at full width, 2 of 32 decoder layers, in a temporary
+    directory: train 4 steps (4 checkpoints); quantize with QuantEase at 4
+    bits, then SpQR at 3 bits with ``--resume``; the eval grid (RTN, AWQ,
+    SpQR, QuantEase and qe_outlier at 3 bits, 25 iterations) with the
+    parity check; serve the quantize output on the paged engine (bf16, a
+    repeat, int4 KV) and the contiguous one.  Returns the kernels' launch
+    counts over the four CLIs; afterwards the eval's kernel calls are held
+    against their plain versions and the QuantEase report against a direct
+    ``ptq_quantize_model`` call."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.solver import PTQConfig, ptq_quantize_model
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.eval.harness import validate_doc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.launch import eval as leval
+    from repro_torch.launch import quantize as lquant
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.common import load_params
+    from repro_torch.launch.progress import load_progress
+    from repro_torch.models import make_plan
+    from repro_torch.quant import GridSpec
+
+    cfg = configs.register(dataclasses.replace(configs.get_config("phi3_mini_3_8b"), name=CLI_ARCH,
+                                               **MAIN_OVERRIDES))
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    free = shutil.disk_usage(root).free / 2**30
+    check(free >= CLI_DISK_GIB, f"phase 8 needs {CLI_DISK_GIB} GiB free under {root}, has {free:.1f}")
+    train_dir, quant_dir = os.path.join(root, "train"), os.path.join(root, "quant")
+    arch = ("--arch", CLI_ARCH)
+    seconds, texts = {}, {}
+
+    def run(label, cli, *argv):
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            res = cli.main([*arch, *argv, "--device", dev.type])
+        torch.cuda.synchronize()
+        seconds[label] = time.monotonic() - t0
+        texts[label] = buf.getvalue()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    try:
+        ops.reset_launch_counts()
+        log = run("train", ltrain, *CLI_TRAIN, "--ckpt-dir", train_dir)["log"]
+        steps = ckpt.list_steps(train_dir)
+        print(f"[cli] train: losses " + ", ".join(f"{m['step']}:{m['loss']:.4f}" for m in log)
+              + f"; checkpoints {steps} ({seconds['train']:.1f}s)", flush=True)
+        check(log and all(math.isfinite(m["loss"]) for m in log), f"train CLI losses {log}")
+        check(steps == [1, 2, 3, 4], f"train CLI wrote checkpoints {steps}, expected 4")
+
+        reports = {}
+        for label, extra in (("quantease@4", ("--method", "quantease", "--bits", "4")),
+                             ("spqr@3", ("--method", "spqr", "--bits", "3", "--resume"))):
+            res = run(label, lquant, "--ckpt-dir", train_dir, "--out-dir", quant_dir,
+                      "--seq", str(CLI_SEQ), "--iterations", str(CLI_ITERATIONS),
+                      "--calib-batches", str(CLI_CALIB), *extra)
+            reports[label] = res["report"]
+            check(res["layers"] == 7 * cfg.n_periods and math.isfinite(res["mean_rel_error"]),
+                  f"quantize CLI {label}: {res['layers']} layers, mean {res['mean_rel_error']}")
+            recs = load_progress(os.path.join(quant_dir, "progress.jsonl"))
+            check([r["done_blocks"] for r in recs] == list(range(1, cfg.n_periods + 1)),
+                  f"quantize CLI {label}: progress.jsonl holds {recs}")
+            print(f"[cli] quantize {label}: {res['layers']} layers mean_rel_error="
+                  f"{res['mean_rel_error']:.6f} max={res['max_rel_error']:.6f}; progress.jsonl "
+                  f"{len(recs)} records ({seconds[label]:.1f}s)", flush=True)
+        check("previous run: 2/2 blocks" in texts["spqr@3"],
+              "quantize CLI --resume did not report the previous run's progress")
+
+        with recording_calls() as calls:
+            doc = run("eval", leval, "--ckpt-dir", train_dir, "--out", os.path.join(root, "eval.json"),
+                      *CLI_EVAL)
+        eval_counts = ops.launch_counts()
+        variants = dict(dequant_matmul_cuda.launches_by_variant)
+        for r in doc["grid"]:
+            print(f"[cli] eval {r['method']}@{r['bits']}: mean_layer_err={r['mean_layer_err']:.6f} "
+                  f"ppl={r['ppl']:.4f} top1={r['top1']:.4f} choice_acc={r['choice_acc']:.4f}",
+                  flush=True)
+        problems = validate_doc(doc)
+        print(f"[cli] eval: dense ppl={doc['dense']['ppl']:.4f}; parity {doc['parity']}; "
+              f"validate_doc {problems}; launches {eval_counts}, dequant_matmul by variant "
+              f"{variants} ({seconds['eval']:.1f}s)", flush=True)
+        unexpected = [p for p in problems if not p.startswith(CLI_RECORDED)]
+        check(not unexpected, f"the eval CLI's document fails validate_doc: {unexpected}")
+        par = doc["parity"]
+        check(max(par["max_abs_diff_contiguous"], par["max_abs_diff_paged"],
+                  par["max_abs_diff_paged_contiguous"]) <= SERVE_LOGIT_TOL * par["max_abs_logit"],
+              f"the eval CLI's parity: scorer and engines part by more than {SERVE_LOGIT_TOL} of "
+              f"max |logit|: {par}")
+        for name, n in eval_counts.items():
+            check(n > 0, f"kernel {name} was not launched by the eval CLI")
+        check(variants["tc_large"] > 0, f"the eval CLI's GEMMs took {variants}: tc_large expected")
+
+        served = {}
+        for label, extra in (("paged bf16", ()), ("paged bf16 repeat", ()),
+                             ("paged int4", ("--kv-dtype", "int4")),
+                             ("contiguous", ("--engine", "contiguous"))):
+            k5 = ops.launch_counts()["paged_attention"]
+            res = run(f"serve {label}", lserve, "--ckpt-dir", quant_dir, *CLI_SERVE, *extra)
+            k5 = ops.launch_counts()["paged_attention"] - k5
+            reqs = res["requests"]
+            want_new = int(CLI_SERVE[CLI_SERVE.index("--max-new") + 1])
+            check(len(reqs) == int(CLI_SERVE[1])
+                  and all(r.status == "completed" and len(r.output) == want_new for r in reqs),
+                  f"serve CLI {label}: {[(r.rid, r.status, len(r.output or [])) for r in reqs]}")
+            paged = label.startswith("paged")
+            want_k5 = res["n_decode_steps"] * cfg.n_periods * len(cfg.pattern) if paged else 0
+            check(k5 == want_k5, f"serve CLI {label}: kernel 5 launched {k5} times, expected "
+                                 f"{want_k5} (decode steps x periods)")
+            served[label] = [r.output for r in reqs]
+            print(f"[cli] serve {label}: {len(reqs)} requests x {want_new} tokens, "
+                  f"{res['n_decode_steps']} decode steps, kernel 5 launched {k5} "
+                  f"({seconds['serve ' + label]:.1f}s)", flush=True)
+        check(served["paged bf16 repeat"] == served["paged bf16"],
+              "the serve CLI's repeat paged bf16 run gave other tokens")
+        counts = ops.launch_counts()
+
+        t0 = time.monotonic()
+        at_path = check_path_calls(calls, variants, phase="phase 8")
+        del calls
+        print(f"[cli] kernels against their plain versions on the eval CLI's calls: "
+              + ", ".join(f"{k} {v['calls']} calls, max_abs_err {v['max_abs_err']:.3g}"
+                          for k, v in at_path.items()) + f" ({time.monotonic() - t0:.1f}s)", flush=True)
+        for name in counts:
+            check(name.replace("quantease_", "") in at_path,
+                  f"kernel {name} was not held against its plain version on the eval CLI's calls")
+
+        # The quantize CLI's QuantEase report against the solver called
+        # directly on the same loaded params and calibration batches.
+        plan = make_plan(cfg)
+        params, _ = load_params(train_dir, plan, dev)
+        calib_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, 4, CLI_SEQ,
+                                    split="calib")
+        _, direct = ptq_quantize_model(plan, params, [calib_fn(i) for i in range(CLI_CALIB)],
+                                       PTQConfig(method="quantease", spec=GridSpec(bits=4),
+                                                 iterations=CLI_ITERATIONS), device=dev)
+        del params
+        cli_rep = reports["quantease@4"]
+        rel = max(abs(cli_rep[k] - v) / v for k, v in direct.items())
+        check(list(cli_rep) == list(direct) and rel <= CLI_REPORT_REL,
+              f"quantize CLI report vs ptq_quantize_model: largest relative difference {rel}")
+        print(f"[cli] quantize CLI quantease@4 against ptq_quantize_model on the same params and "
+              f"batches: largest relative difference per layer {rel:.3g} (limit {CLI_REPORT_REL})",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_cli.txt"), "w") as fh:
+            for label, text in texts.items():
+                fh.write(f"==== {label} ({seconds[label]:.1f}s)\n{text}\n")
+    print("[cli] wall seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+    detail["cli"] = dict(seconds=seconds, reports=reports, doc=doc, validate_problems=problems,
+                         served=served, launches=counts, eval_launches=eval_counts,
+                         gemm_variants=variants, kernels_at_path_shapes=at_path,
+                         report_rel_diff=rel)
+    return counts, at_path
+
+
 def main() -> None:
     try:
         import torch
@@ -2073,6 +2436,10 @@ def main() -> None:
         "paged_attention": check_paged_attention(gen, dev, detail),
     }
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    check_legacy_engines(gen, dev, detail)
+    print(f"[phase] 3, the legacy engines: {time.monotonic() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
     card_tests()
     torch.cuda.empty_cache()
     counts_ptq, plan, artifact = main_path(dev, detail)
@@ -2093,8 +2460,13 @@ def main() -> None:
     t0 = time.monotonic()
     counts_quality, at_path = quality_table(dev, detail, card)
     print(f"[phase] 7, the quality table: {time.monotonic() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    counts_cli, at_cli = cli_path(dev, detail)
+    print(f"[phase] 8, the command-line path: {time.monotonic() - t0:.1f}s", flush=True)
     # Each path's counts were read just after it ran, from 0.
-    paths = dict(ptq=counts_ptq, train=counts_train, serving=counts_serve, quality=counts_quality)
+    paths = dict(ptq=counts_ptq, train=counts_train, serving=counts_serve, quality=counts_quality,
+                 cli=counts_cli)
     counts = {k: sum(c[k] for c in paths.values()) for k in counts_ptq}
     detail["launches"] = paths
 
@@ -2109,6 +2481,8 @@ def main() -> None:
             **{k: m[k] for k in ("call_ms", "library_bf16_ms", "corr_ms", "suffix_ms") if k in m},
             quality_calls_checked=at_path[name.replace("quantease_", "")]["calls"],
             quality_max_abs_err=at_path[name.replace("quantease_", "")]["max_abs_err"],
+            cli_calls_checked=at_cli[name.replace("quantease_", "")]["calls"],
+            cli_max_abs_err=at_cli[name.replace("quantease_", "")]["max_abs_err"],
         ))
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -31,6 +31,12 @@ Initialization: Ĥ = P_s(W), Ŵ = W − Ĥ.
 
 Batched: ``w: (G, q, p)`` with ``sigma: (G, p, p)`` solves G independent
 layers at once; the result's leaves and grid gain the leading G.
+
+``engine="legacy"`` is the reference's pre-fused schedule, kept as the
+benchmark baseline and for the equivalence tests: each outer iteration runs
+one whole QuantEase iteration (the fused engine, so kernel 2 on the card)
+on the target W − Ĥ from the current Ŵ, then the IHT step with the
+gradient ``2 (Ŵ + Ĥ − W) Σ`` computed in full.
 """
 
 from __future__ import annotations
@@ -159,9 +165,7 @@ def outlier_quantease(
     ``w: (q, p)`` with ``sigma: (p, p)``, or batched ``(G, q, p)`` with
     ``(G, p, p)``.
     """
-    if engine == "legacy":
-        raise NotImplementedError("the outlier engine='legacy' is ported in a later slice")
-    if engine != "fused":
+    if engine not in ("fused", "legacy"):
         raise ValueError(f"unknown engine {engine!r}")
     if matmul_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
@@ -190,6 +194,13 @@ def outlier_quantease(
     else:
         excl = top_s_mask(w32, s)
     grid = compute_grid_excluding_outliers(w32, spec, excl)
+    if engine == "legacy":
+        w_hat, h, objs = _outlier_legacy(
+            w32, sigma_d, spec, grid, excl, eta, s=s, iterations=iterations,
+            structured=structured, cd_block_size=cd_block_size, use_kernel=use_kernel,
+            track_objective=track_objective, n_cols=n_cols,
+        )
+        return _result(w_hat, h, objs, grid, single)
 
     bsz = max(_SWEEP_CHUNK, min(cd_block_size, p))
     bsz = -(-bsz // _SWEEP_CHUNK) * _SWEEP_CHUNK
@@ -253,9 +264,12 @@ def outlier_quantease(
         # taken when base is read (the −dĤ_prev in β0).
         w_hat_t, h_t, base_t, delta_t = new_t, h_new, base_out, dpure - dh_t
     unpad = lambda a_t: a_t.transpose(-1, -2)[..., :p].contiguous()
+    return _result(unpad(w_hat_t), unpad(h_t), objs, grid, single)
+
+
+def _result(w_hat, h, objs, grid, single) -> OutlierResult:
     res = OutlierResult(
-        w_hat=unpad(w_hat_t), h=unpad(h_t),
-        objective=torch.stack(objs, dim=-1) if track_objective else None, grid=grid,
+        w_hat=w_hat, h=h, objective=torch.stack(objs, dim=-1) if objs else None, grid=grid,
     )
     if single:
         res = OutlierResult(
@@ -263,3 +277,27 @@ def outlier_quantease(
             objective=None if res.objective is None else res.objective[0], grid=grid[0],
         )
     return res
+
+
+def _outlier_legacy(w32, sigma_d, spec, grid, excl, eta, *, s, iterations, structured,
+                    cd_block_size, use_kernel, track_objective, n_cols):
+    """The legacy schedule on ``(G, q, p)``; returns ``(Ŵ, Ĥ, objectives)``."""
+    project = ((lambda a: _project_columns(a, n_cols)) if structured
+               else (lambda a: _project_s(a, s)))
+    # Init: Ĥ = P_s(W), Ŵ = W − Ĥ.
+    h = torch.where(excl, w32, 0.0)
+    w_hat = w32 - h
+    eta = eta[:, None, None]
+    objs = []
+    for _ in range(iterations):
+        # Ŵ-block: one QuantEase iteration on the target W − Ĥ (Σ already damped).
+        w_hat, _ = quantease.quantease_quantize(
+            w32 - h, sigma_d, spec, iterations=1, block_size=cd_block_size, percdamp=0.0,
+            unquantized_heuristic=False, w_init=w_hat, grid=grid, use_kernel=use_kernel,
+        )
+        # Ĥ-block: IHT step, ∇_H g = 2 (Ŵ + Ĥ − W) Σ.
+        grad = 2.0 * ((w_hat + h - w32) @ sigma_d)
+        h = project(h - eta * grad)
+        if track_objective:
+            objs.append(quantease.layer_objective(w32, w_hat + h, sigma_d))
+    return w_hat, h, objs

@@ -14,6 +14,13 @@ Math (Lemma 1): with Σ = XXᵀ, the optimal quantized value of coordinate
   On CUDA each iteration runs the hand-written kernels of
   :mod:`repro_torch.kernels.quantease_cd`; elsewhere the plain version.
   The state is carried transposed, ``(G, p_pad, q)``, the kernels' layout.
+* ``engine="legacy"`` — the pre-fused schedule, the reference's benchmark
+  baseline: each iteration recomputes P̂ = ŴΣ̃ in full, and each column
+  block starts from β0 = (P − P̂)[:, blk] + Δ·Σ̃[:, blk] (full width, exact
+  because Δ is zero on unprocessed columns) before the block sweep.  The
+  two products are fp32 ``torch.matmul``; the sweep is kernel 1
+  (:func:`repro_torch.kernels.ops.quantease_block_sweep`), one launch per
+  block and iteration.
 
 The paper's "every third iteration unquantized" heuristic and starting from
 any Ŵ (``w_init``) are supported.  The objective history is opt-in.
@@ -72,6 +79,30 @@ def _iteration_step(use_kernel: str, device: torch.device,
     if use_kernel == "cuda" and device.type != "cuda":
         raise ValueError("use_kernel='cuda' needs CUDA tensors")
     return plain if use_kernel == "torch" else routed
+
+
+def _legacy_iteration(sweep, pmat_t, sig_t, w_t, scale_t, zero_t, *, n_levels, quantize, bsz):
+    """One iteration of the legacy schedule in the transposed layout: the
+    full P̂ recompute, then per block the full-width correction and the
+    sweep.  Returns ``(Ŵᵀ, β0ᵀ, Δᵀ)``, β0 of each block as its sweep read
+    it (the fused iteration's ``base_new``)."""
+    base_t = pmat_t - sig_t @ w_t  # P − P̂, P̂ = ŴΣ̃ in full
+    delta_t = torch.zeros_like(w_t)  # old − new; zero on unprocessed columns
+    w_new = torch.empty_like(w_t)
+    for col0 in range(0, w_t.shape[-2], bsz):
+        sl = slice(col0, col0 + bsz)
+        beta0_t = base_t[..., sl, :] + sig_t[..., sl, :] @ delta_t
+        base_t[..., sl, :] = beta0_t  # this block's base is read no more
+        # Fresh (…, B, q) copies: the kernel takes row operands of one
+        # stride pattern, and a view of a single group keeps the state's.
+        blk = lambda a: torch.empty_like(beta0_t).copy_(a[..., sl, :])
+        new, delta = sweep(
+            beta0_t, sig_t[..., sl, sl].contiguous(), blk(w_t), blk(scale_t), blk(zero_t),
+            n_levels=n_levels, quantize=quantize,
+        )
+        w_new[..., sl, :] = new
+        delta_t[..., sl, :] = delta
+    return w_new, base_t, delta_t
 
 
 def layer_objective(w, w_hat, sigma) -> torch.Tensor:
@@ -152,8 +183,8 @@ def quantease_quantize(
     track_objective: bool = False,
     engine: str = "fused",
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Blocked Algorithm 2 with the fused engine.  Returns (Ŵ fp32, objective
-    history or None).
+    """Blocked Algorithm 2 with the fused engine (or, ``engine="legacy"``,
+    the pre-fused schedule).  Returns (Ŵ fp32, objective history or None).
 
     ``w: (q, p)`` with ``sigma: (p, p)``, or batched ``w: (G, q, p)`` with
     ``sigma: (G, p, p)``, solving G independent layers at once; ``grid``
@@ -161,13 +192,15 @@ def quantease_quantize(
     when ``track_objective``, is evaluated after each iteration against the
     damped Σ: shape ``(iterations,)`` or ``(G, iterations)``.
     """
-    if engine == "legacy":
-        raise NotImplementedError("engine='legacy' is ported in a later slice")
-    if engine != "fused":
+    if engine not in ("fused", "legacy"):
         raise ValueError(f"unknown engine {engine!r}")
     if matmul_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}")
-    step = _iteration_step(use_kernel, w.device)
+    if engine == "legacy":  # matmul_dtype applies to the fused engine only, as in the reference
+        step = _iteration_step(use_kernel, w.device, plain=ref.quantease_block_sweep_t_ref,
+                               routed=ops.quantease_block_sweep)
+    else:
+        step = _iteration_step(use_kernel, w.device)
     single = w.dim() == 2
     if single:
         w, sigma = w[None], sigma[None]
@@ -190,24 +223,33 @@ def quantease_quantize(
         sig_tilde = torch.nn.functional.pad(sig_tilde, (0, pad, 0, pad))
         sigma_d = torch.nn.functional.pad(sigma_d, (0, pad, 0, pad))
 
-    # Incremental-state init: base = P − Ŵ₀Σ̃ in fp32, rolling Δ = 0.
     t = lambda a: a.transpose(-1, -2).contiguous()
-    base_t = t(pmat - w_hat @ sig_tilde)
-    del pmat
-    sig_t = t(sig_tilde)
-    del sig_tilde
-    sig_corr = sig_t if matmul_dtype == "float32" else sig_t.to(torch.bfloat16)
-    w_t, scale_t, zero_t = t(w_hat), t(scale_pc), t(zero_pc)
-    delta_t = torch.zeros_like(base_t)
-
     objs = []
-    for quantize in _quantize_flags(iterations, unquantized_heuristic):
-        w_t, base_t, delta_t = step(
-            base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_t,
-            n_levels=spec.n_levels, quantize=quantize, bsz=bsz,
-        )
-        if track_objective:
-            objs.append(layer_objective(w32, w_t.transpose(-1, -2), sigma_d))
+    if engine == "legacy":
+        pmat_t, sig_t = t(pmat), t(sig_tilde)
+        del pmat, sig_tilde
+        w_t, scale_t, zero_t = t(w_hat), t(scale_pc), t(zero_pc)
+        for quantize in _quantize_flags(iterations, unquantized_heuristic):
+            w_t = _legacy_iteration(step, pmat_t, sig_t, w_t, scale_t, zero_t,
+                                    n_levels=spec.n_levels, quantize=quantize, bsz=bsz)[0]
+            if track_objective:
+                objs.append(layer_objective(w32, w_t.transpose(-1, -2), sigma_d))
+    else:
+        # Incremental-state init: base = P − Ŵ₀Σ̃ in fp32, rolling Δ = 0.
+        base_t = t(pmat - w_hat @ sig_tilde)
+        del pmat
+        sig_t = t(sig_tilde)
+        del sig_tilde
+        sig_corr = sig_t if matmul_dtype == "float32" else sig_t.to(torch.bfloat16)
+        w_t, scale_t, zero_t = t(w_hat), t(scale_pc), t(zero_pc)
+        delta_t = torch.zeros_like(base_t)
+        for quantize in _quantize_flags(iterations, unquantized_heuristic):
+            w_t, base_t, delta_t = step(
+                base_t, sig_t, sig_corr, w_t, scale_t, zero_t, delta_t,
+                n_levels=spec.n_levels, quantize=quantize, bsz=bsz,
+            )
+            if track_objective:
+                objs.append(layer_objective(w32, w_t.transpose(-1, -2), sigma_d))
     w_hat = w_t.transpose(-1, -2)[..., :p].contiguous()
     hist = torch.stack(objs, dim=-1) if track_objective else None
     if single:

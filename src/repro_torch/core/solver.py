@@ -12,10 +12,20 @@
   an optional per-block progress callback.  For the outlier-aware methods
   they are errors of the effective weights Ŵ + Ĥ.
 
-Methods ``rtn``, ``gptq``, ``quantease`` (optionally warm-started from
-GPTQ, ``init_from_gptq``), ``qe_outlier`` and ``qe_outlier_struct``
-(Algorithm 3, unstructured and column outliers) are ported; ``awq``,
-``awq_qe`` and ``spqr`` raise.
+Methods: ``rtn``, ``gptq``, ``quantease`` (optionally warm-started from
+GPTQ, ``init_from_gptq``) and ``qe_outlier``/``qe_outlier_struct``
+(Algorithm 3, unstructured and column outliers) solve each same-shape
+group in one batched call; ``awq``, ``awq_qe`` (AWQ's scaling, then
+QuantEase) and ``spqr`` solve layer by layer inside the same grouped
+interface, as in the reference.  Those three return no grid: their Ŵ is
+off any single uniform grid, so ``emit="qt"`` re-derives one from Ŵ (the
+reference's lossy fallback, kept as it is so the artifact is the
+reference's).
+
+Mixed precision: :class:`LayerSpec` overrides in ``PTQConfig.layer_specs``
+(keyed by layer path, ``"dec.p0.b1/wq"``, or bare leaf name) resolve per
+layer through :meth:`PTQConfig.for_layer`, and same-shape groups split by
+the effective per-layer config.
 """
 
 from __future__ import annotations
@@ -28,9 +38,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import quantease
+from repro_torch.core.awq import awq_quantize, awq_then_quantease
 from repro_torch.core.calib import CalibStats
 from repro_torch.core.gptq import gptq_quantize
 from repro_torch.core.outlier import outlier_quantease
+from repro_torch.core.spqr import spqr_quantize
 from repro_torch.core.quantease import relative_error
 from repro_torch.device import require_on_device
 from repro_torch.models import model as M
@@ -44,15 +56,33 @@ from repro_torch.quant import (
     quantize_dequantize,
 )
 
-__all__ = ["PTQConfig", "ptq_quantize_model", "QUANTIZABLE"]
+__all__ = ["LayerSpec", "PTQConfig", "ptq_quantize_model", "QUANTIZABLE"]
 
 QUANTIZABLE = {"wq", "wk", "wv", "wo", "wg", "wu", "wd"}
-_METHODS = ("rtn", "gptq", "quantease", "qe_outlier", "qe_outlier_struct")
+_METHODS = ("rtn", "gptq", "awq", "quantease", "awq_qe", "spqr", "qe_outlier",
+            "qe_outlier_struct")
+_PER_LAYER = ("awq", "awq_qe", "spqr")
+
+# Tells "inherit the base config's" from an explicit ``None`` (one group
+# spanning the row) for ``LayerSpec.group_size``.
+_INHERIT = "__inherit__"
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """Per-layer override of the global :class:`PTQConfig`; a field left at
+    its default inherits the base config's."""
+
+    bits: Optional[int] = None
+    group_size: object = _INHERIT
+    outlier_frac: Optional[float] = None
+    method: Optional[str] = None
+    iterations: Optional[int] = None
 
 
 @dataclasses.dataclass
 class PTQConfig:
-    method: str = "quantease"  # rtn | gptq | quantease | qe_outlier | qe_outlier_struct
+    method: str = "quantease"  # rtn|gptq|awq|quantease|awq_qe|spqr|qe_outlier|qe_outlier_struct
     spec: GridSpec = dataclasses.field(default_factory=lambda: GridSpec(bits=4))
     iterations: int = 25
     outlier_frac: float = 0.01  # outlier budget of the qe_outlier methods, per matrix
@@ -62,6 +92,14 @@ class PTQConfig:
     init_from_gptq: bool = False  # QuantEase warm start from GPTQ's Ŵ (paper §3.1)
     use_kernel: str = "auto"  # see QuantEaseConfig
     matmul_dtype: str = "float32"
+    # Feed the capture pass and the recompute of each block's outputs at
+    # most this many sequences at a time (0 = a whole calibration batch), so
+    # transient activation memory is bounded whatever the calibration set's
+    # size; Σ is the same sum in another order.
+    stream_chunk: int = 0
+    # Per-layer overrides keyed by layer path ("dec.p0.b1/wq") or bare leaf
+    # name ("wq"); the exact path wins.
+    layer_specs: Optional[dict] = None
 
     def qe_config(self) -> quantease.QuantEaseConfig:
         """The CD-solver config this run resolves to.  As in the reference,
@@ -74,14 +112,53 @@ class PTQConfig:
             matmul_dtype=self.matmul_dtype,
         )
 
+    def for_layer(self, key: str) -> "PTQConfig":
+        """The effective config of one layer path: an exact-path entry of
+        ``layer_specs``, else a bare-name one, else the base config.  The
+        result has ``layer_specs=None``."""
+        if not self.layer_specs:
+            return self
+        ov = self.layer_specs.get(key)
+        if ov is None:
+            ov = self.layer_specs.get(key.rsplit("/", 1)[-1])
+        if ov is None:
+            return dataclasses.replace(self, layer_specs=None)
+        pick = lambda mine, base: base if mine is None else mine
+        spec = dataclasses.replace(
+            self.spec, bits=pick(ov.bits, self.spec.bits),
+            group_size=self.spec.group_size if ov.group_size is _INHERIT else ov.group_size,
+        )
+        return dataclasses.replace(
+            self, layer_specs=None, spec=spec, method=pick(ov.method, self.method),
+            outlier_frac=pick(ov.outlier_frac, self.outlier_frac),
+            iterations=pick(ov.iterations, self.iterations),
+        )
+
+    def _group_key(self) -> tuple:
+        """Everything that changes a grouped solve."""
+        return (self.method, self.spec, self.outlier_frac, self.iterations, self.init_from_gptq)
+
 
 def _outlier_budget(cfg: PTQConfig, q: int, p: int) -> int:
     return max(int(cfg.outlier_frac * q * p), 1)
 
 
+def _solve_one(w, sigma, cfg: PTQConfig):
+    """One ``(q, p)`` layer of a per-layer method → Ŵ fp32."""
+    if cfg.method == "awq":
+        return awq_quantize(w, sigma, cfg.spec)
+    if cfg.method == "awq_qe":
+        return awq_then_quantease(w, sigma, cfg.spec, iterations=cfg.iterations,
+                                  percdamp=cfg.percdamp)
+    return spqr_quantize(w, sigma, cfg.spec, s=_outlier_budget(cfg, *w.shape),
+                         percdamp=cfg.percdamp, block_size=cfg.block_size)[0]
+
+
 def _solve_group(w3, sig3, cfg: PTQConfig):
     """(G, q, p) × (G, p, p) → (Ŵ (G, q, p), Ĥ (G, q, p) or None, batched
-    grid the solve quantized onto)."""
+    grid the solve quantized onto, or None for the per-layer methods)."""
+    if cfg.method in _PER_LAYER:
+        return torch.stack([_solve_one(w, s, cfg) for w, s in zip(w3, sig3)]), None, None
     if cfg.method in ("qe_outlier", "qe_outlier_struct"):
         res = outlier_quantease(
             w3, sig3, cfg.spec, s=_outlier_budget(cfg, *w3.shape[-2:]),
@@ -112,10 +189,14 @@ def _emit_leaf(w_hat, h, like, cfg: PTQConfig, grid):
     """One solved linear → its leaf: the dequantized effective weights
     (``emit="fake"``), or a QuantizedTensor whose codes are Ŵ on the grid
     the solve used and, with an Ĥ, whose COO planes hold Ĥ's top-s entries
-    (flat int32 ``row·p + col``, fp16 values; §5.4's 48 bits an outlier)."""
+    (flat int32 ``row·p + col``, fp16 values; §5.4's 48 bits an outlier).
+    Without a grid (``awq``, ``awq_qe``, ``spqr``) one is re-derived from
+    Ŵ, lossy where Ŵ does not reach its grid's extremes."""
     if cfg.emit == "fake":
         w_eff = w_hat if h is None else w_hat + h
         return w_eff.T.reshape(like.shape).to(like.dtype)
+    if grid is None:
+        grid = compute_grid(w_hat, cfg.spec)
     codes = quantize_codes(w_hat, grid)
     packed = cfg.spec.bits == 4 and codes.shape[-1] % 2 == 0
     if packed:
@@ -138,34 +219,43 @@ def _emit_leaf(w_hat, h, like, cfg: PTQConfig, grid):
 
 
 def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report: dict) -> dict:
-    """Quantize every captured linear of one block, grouped by shape.
+    """Quantize every captured linear of one block, grouped by shape and
+    effective per-layer config (layers given other bits or another method
+    never share a solve).
 
     Leaves are visited in sorted order, the order of the reference's
     param pytrees, so groups and report keys come out in the same order."""
-    groups: dict[tuple, list] = {}
+    groups: dict[tuple, tuple] = {}
     for name in sorted(p_blk):
         key = f"{scope}/{name}"
         if name not in QUANTIZABLE or key not in stats:
             continue
         st: CalibStats = stats[key]
         w2 = _to_2d(p_blk[name], st.p)
-        groups.setdefault(tuple(w2.shape), []).append((name, key, w2, st.sigma))
+        eff = cfg.for_layer(key)
+        if eff.method not in _METHODS:
+            raise ValueError(f"{key}: unknown method {eff.method!r} (have {_METHODS})")
+        gk = (tuple(w2.shape), eff._group_key())
+        groups.setdefault(gk, (eff, []))[1].append((name, key, w2, st.sigma))
     new = dict(p_blk)
-    for group in groups.values():
+    for eff, group in groups.values():
         w3 = torch.stack([it[2] for it in group])
         sig3 = torch.stack([it[3] for it in group])
-        w_hat3, h3, grid3 = _solve_group(w3, sig3, cfg)
+        w_hat3, h3, grid3 = _solve_group(w3, sig3, eff)
         errs = relative_error(w3, w_hat3 if h3 is None else w_hat3 + h3, sig3).tolist()
         for g, (name, key, _, _) in enumerate(group):
             report[key] = float(errs[g])
-            new[name] = _emit_leaf(w_hat3[g], None if h3 is None else h3[g], p_blk[name], cfg,
-                                   grid3[g])
+            new[name] = _emit_leaf(w_hat3[g], None if h3 is None else h3[g], p_blk[name], eff,
+                                   None if grid3 is None else grid3[g])
     return new
 
 
-def _apply_block(plan, b, blk, x) -> torch.Tensor:
+def _apply_block(plan, b, blk, x, chunk: int = 0) -> torch.Tensor:
     pos = torch.arange(x.shape[1], device=x.device)
-    return M._block_apply(plan.cfg, plan.heads, b, blk, x, mode="train", pos_ids=pos)
+    parts = x.split(chunk) if chunk else (x,)
+    outs = [M._block_apply(plan.cfg, plan.heads, b, blk, xc, mode="train", pos_ids=pos)
+            for xc in parts]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 @torch.no_grad()
@@ -188,7 +278,7 @@ def ptq_quantize_model(
     params must live on ``device`` (default ``"cuda"``).
     """
     if cfg.method not in _METHODS:
-        raise NotImplementedError(f"method {cfg.method!r} is not ported yet (have {_METHODS})")
+        raise ValueError(f"unknown method {cfg.method!r} (have {_METHODS})")
     if cfg.emit not in ("fake", "qt"):
         raise ValueError(f"unknown emit {cfg.emit!r}")
     dev = require_on_device(params["embed"], device)
@@ -211,12 +301,12 @@ def _quantize_period(plan, p_period: dict, period: int, xs: list, cfg: PTQConfig
         stats: dict[str, CalibStats] = {}
         with capture_gram_stats(stats), capture_scope(scope):
             for x in xs:
-                _apply_block(plan, b, p_period[f"b{i}"], x)
+                _apply_block(plan, b, p_period[f"b{i}"], x, cfg.stream_chunk)
         n_before = len(report)
         new_blk = _quantize_block(p_period[f"b{i}"], stats, scope, cfg, report)
         new_period[f"b{i}"] = new_blk
         # Recompute this block's outputs with its quantized weights.
-        xs = [_apply_block(plan, b, new_blk, x) for x in xs]
+        xs = [_apply_block(plan, b, new_blk, x, cfg.stream_chunk) for x in xs]
         if progress_cb is not None:
             new_keys = list(report)[n_before:]
             errs = [report[k] for k in new_keys]
@@ -244,5 +334,6 @@ def _quantize_stack(plan, stack, xs, cfg: PTQConfig, report: dict, progress_cb):
         if cfg.emit == "fake":
             for key, blk in new_period.items():
                 for name, leaf in blk.items():
-                    stack_out[key][name][period] = leaf.to(stack_out[key][name].dtype)
+                    if name in QUANTIZABLE:  # the norms (dicts) are unchanged
+                        stack_out[key][name][period] = leaf.to(stack_out[key][name].dtype)
     return quantized_periods if cfg.emit == "qt" else stack_out

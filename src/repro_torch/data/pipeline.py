@@ -12,6 +12,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.faults import fault_point
+
 __all__ = ["SyntheticCorpus", "DataConfig", "make_batch_fn", "SPLITS"]
 
 SPLITS = {"train": None, "calib": 0xCA11B, "eval": 0xE7A1}
@@ -64,6 +66,10 @@ def make_batch_fn(data_cfg: DataConfig, model_cfg, batch: int, seq: int, split: 
     corpus = SyntheticCorpus(data_cfg)
 
     def get(step: int) -> dict:
+        # Fault site "data.fetch": a transient fault models a flaky storage
+        # read; batch ``step`` is a pure function of (seed, split, step), so
+        # a retry reproduces it bit for bit.
+        fault_point("data.fetch")
         key = (data_cfg.seed, step) if salt is None else (data_cfg.seed, salt, step)
         rng = np.random.default_rng(key)
         return {"tokens": corpus.sample(rng, batch, seq)}

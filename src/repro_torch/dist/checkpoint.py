@@ -13,6 +13,14 @@ Leaves are raw ``tobytes`` buffers.  bfloat16 leaves, which numpy has no
 dtype for without ``ml_dtypes``, are written and read as their ``uint16``
 bit patterns under the reference's dtype string ``"bfloat16"``.
 
+A ``QuantizedTensor`` is stored as its array fields (the reference's
+pytree order); its static fields (bits, layout) come from ``like`` at load,
+since neither package's manifest records them: a tile-native file read
+with a linear template is mis-read, in both.  A leaf that ``like`` gives
+the reference's tile-native pack layout is un-prepacked to the linear
+layout as it loads (an exact column permutation), since the port's
+dequant-GEMM reads the linear layout.
+
 Corruption: each leaf's CRC-32 is taken over the bytes the writer intended
 (before any injected corruption) and checked on read; a mismatch raises
 :class:`CheckpointCorrupt`.  :func:`load_last_good` walks the steps newest
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.faults import active_plan, corrupt_bytes, fault_point
+from repro_torch.quant.qtensor import as_linear_layout
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 __all__ = [
@@ -165,7 +174,7 @@ def load_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None):
             )
         t = _leaf_tensor(raw, rec)
         out.append(t.to(like_leaf.device) if isinstance(like_leaf, torch.Tensor) else t)
-    return tree_unflatten(treedef, out), manifest
+    return as_linear_layout(tree_unflatten(treedef, out)), manifest
 
 
 def load_last_good(ckpt_dir: str, like: Any):

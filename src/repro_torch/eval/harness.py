@@ -231,19 +231,24 @@ def quantized_parity(
     run :func:`engine_parity` on the resulting serving artifact, so the
     quality numbers describe the bytes serving executes.
 
-    ``prepack_backend`` must be None: the tile weight layout it would
-    prepack into is not ported yet (modules still to port, queue 1 item 4:
-    tile-layout un-prepacking)."""
-    if prepack_backend is not None:
-        raise NotImplementedError(
-            f"prepack_backend={prepack_backend!r}: the tile weight layout "
-            "(quant/pack.py prepack_codes, serve/qparams.py "
-            "prepack_params_for_serving) is not ported yet (queue 1 item 4)"
-        )
+    ``prepack_backend`` pushes the artifact through
+    :func:`repro_torch.serve.qparams.prepack_params_for_serving` for that
+    backend first and records the layouts chosen (``pack_layouts``); with
+    ``"tpu"`` the leaves are prepacked tile-native, the reference's bytes,
+    and un-prepacked again (an exact permutation) before the engines run
+    them, so the parity holds on the bytes the reference would serve."""
     cell = cell or {"method": "quantease", "bits": 4}
     qp, _ = _quantize_cell(plan, params, calib, cell, iterations=iterations, emit="qt",
                            device=device)
-    out = engine_parity(plan, qp, prompts, device=device, **kw)
+    out = {}
+    if prepack_backend is not None:
+        from repro_torch.quant import as_linear_layout
+        from repro_torch.serve.qparams import prepack_params_for_serving
+
+        qp, decisions = prepack_params_for_serving(plan, qp, backend=prepack_backend)
+        out["pack_layouts"] = sorted(set(decisions.values()))
+        qp = as_linear_layout(qp)
+    out.update(engine_parity(plan, qp, prompts, device=device, **kw))
     out["cell"] = f"{cell['method']}@{cell['bits']}"
     return out
 

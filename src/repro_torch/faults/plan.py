@@ -8,8 +8,12 @@ a transient fault is a pure no-op retry), ``pool.alloc``
 (:meth:`repro_torch.serve.kv_cache.PagePool.alloc`, where ``deny`` fails the
 allocation as if the pool were dry), and ``ckpt.write`` / ``ckpt.read``
 (each shard of :mod:`repro_torch.dist.checkpoint`; ``corrupt`` flips one
-seeded byte of the written shard, :func:`corrupt_bytes`).  Its kernel
-wrappers consult no site: a CUDA tensor launches its kernel or raises.
+seeded byte of the written shard, :func:`corrupt_bytes`), ``data.fetch``
+(each batch of :func:`repro_torch.data.pipeline.make_batch_fn`) and
+``kernel.dispatch`` (the serving wrappers of
+:mod:`repro_torch.kernels.ops`, where ``deny`` on the CPU takes the plain
+version, as every CPU call does, and on the card raises, since the port has
+no plain path there).
 
 Kinds: ``transient`` raises :class:`TransientFault` (the engines count and
 retry the step), ``permanent`` raises :class:`PermanentFault`, and ``deny``
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 from typing import Optional
 
 import numpy as np
@@ -119,6 +124,43 @@ class FaultPlan:
         self._rngs = [np.random.default_rng((self.seed, i)) for i in range(len(self.specs))]
         # Seeded stream for payload corruption (the byte to flip), as the reference's.
         self._corrupt_rng = np.random.default_rng((self.seed, 0xC0FFEE))
+
+    @classmethod
+    def from_spec(cls, doc) -> "FaultPlan":
+        """Build from a JSON document (a dict, a JSON string, or a path to
+        one): ``{"seed": 0, "faults": [{"site": ..., "kind": ..., "at": [...],
+        "window": [a, b], "p": 0.0, "max_fires": null}, ...]}``, the
+        reference's format (the CLIs' ``--fault-plan``)."""
+        if isinstance(doc, str):
+            try:
+                doc = json.loads(doc)
+            except json.JSONDecodeError:
+                with open(doc) as f:
+                    doc = json.load(f)
+        if not isinstance(doc, dict):
+            raise ValueError(f"fault plan must be a JSON object, got {type(doc).__name__}")
+        if set(doc) - {"seed", "faults"}:
+            raise ValueError(f"unknown fault-plan key(s) {sorted(set(doc) - {'seed', 'faults'})}; "
+                             'expected {"seed", "faults"}')
+        keys = {"site", "kind", "at", "window", "p", "max_fires"}
+        specs = []
+        for i, d in enumerate(doc.get("faults", [])):
+            if not isinstance(d, dict):
+                raise ValueError(f"faults[{i}]: expected an object, got {type(d).__name__}")
+            if set(d) - keys:
+                raise ValueError(f"faults[{i}]: unknown key(s) {sorted(set(d) - keys)}")
+            if {"site", "kind"} - set(d):
+                raise ValueError(f"faults[{i}]: missing required key(s) "
+                                 f"{sorted({'site', 'kind'} - set(d))}")
+            try:
+                specs.append(FaultSpec(
+                    site=d["site"], kind=d["kind"], at=tuple(d.get("at", ())),
+                    window=tuple(d["window"]) if d.get("window") else None,
+                    p=float(d.get("p", 0.0)), max_fires=d.get("max_fires"),
+                ))
+            except ValueError as e:
+                raise ValueError(f"faults[{i}]: {e}") from None
+        return cls(specs, seed=int(doc.get("seed", 0)))
 
     def check(self, site: str) -> str:
         if site not in self.counts:

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.quant import QuantizedTensor, check_zero_points
+from repro_torch.quant import QuantizedTensor, as_linear_layout, check_zero_points
 
 __all__ = ["tensor_from_numpy", "qtensor_from_jax", "params_from_jax", "opt_state_from_jax"]
 
@@ -36,7 +36,9 @@ def _is_qtensor(x) -> bool:
 
 
 def qtensor_from_jax(qt, device="cuda") -> QuantizedTensor:
-    """A reference ``QuantizedTensor`` (read by attribute) → the port's.
+    """A reference ``QuantizedTensor`` (read by attribute) → the port's, in
+    the linear pack layout (a tile-native leaf is un-prepacked here, once:
+    an exact column permutation).
 
     Raises ``ValueError`` if a zero point is not an integer in
     ``[0, 2^bits − 1]`` (the dequant-GEMM's precondition)."""
@@ -51,7 +53,7 @@ def qtensor_from_jax(qt, device="cuda") -> QuantizedTensor:
         **arrays,
     )
     check_zero_points(out)
-    return out
+    return as_linear_layout(out)
 
 
 def params_from_jax(tree, device="cuda"):

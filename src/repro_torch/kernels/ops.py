@@ -3,6 +3,11 @@
 A tensor on the CPU goes to the plain PyTorch version in :mod:`.ref`; a
 CUDA tensor goes to the hand-written kernel, which raises on what it does
 not take.  There is no fallback from a CUDA tensor to the plain version.
+The serving wrappers (:func:`dequant_matmul`, :func:`paged_attention`) arm
+the ``kernel.dispatch`` fault site, as the reference does: a ``"deny"`` is
+recorded in the plan's ``fired`` trail; on the CPU the call takes the
+plain version, as the reference's denied call does, and on the card it
+raises :class:`DispatchDenied` without launching.
 
 :data:`KERNELS` names every ported kernel with its wrapper, its source and
 the TPU kernel it replaces; :func:`launch_counts` reads the wrappers'
@@ -14,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.faults import PermanentFault, active_plan, fault_point
 from repro_torch.kernels import ref
 from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
@@ -25,6 +31,7 @@ from repro_torch.kernels.quantease_cd import (
 
 __all__ = [
     "KERNELS",
+    "DispatchDenied",
     "quantease_block_sweep",
     "quantease_fused_iteration",
     "quantease_outlier_iteration",
@@ -85,6 +92,19 @@ def _on_cpu(*tensors) -> bool:
     raise ValueError(f"kernel operands span devices {sorted(types)}; expected all cpu or all cuda")
 
 
+class DispatchDenied(PermanentFault):
+    """A ``"deny"`` at ``kernel.dispatch`` on card tensors: the port has no
+    plain path on the card, so the denied call fails instead of degrading."""
+
+
+def _serving_on_cpu(*tensors) -> bool:
+    """:func:`_on_cpu` behind the ``kernel.dispatch`` fault site."""
+    on_cpu = _on_cpu(*tensors)
+    if fault_point("kernel.dispatch") == "deny" and not on_cpu:
+        raise DispatchDenied("kernel.dispatch", active_plan().fired[-1][1])
+    return on_cpu
+
+
 def quantease_block_sweep(beta0_t, sig_t, w_old_t, scale_t, zero_t, *, n_levels, quantize):
     """Intra-block CD sweep in the transposed ``(…, B, q)`` layout; returns
     ``(w_new_t, delta_t)``."""
@@ -123,7 +143,7 @@ def dequant_matmul(
 ):
     """Serving GEMM ``y = x @ dequant(codes)ᵀ``; packed4 codes are in the
     linear layout."""
-    if _on_cpu(x, codes, scale, zero):
+    if _serving_on_cpu(x, codes, scale, zero):
         if packed4:
             from repro_torch.quant.pack import unpack_codes
 
@@ -153,6 +173,6 @@ def paged_attention(
         raise ValueError("int4-packed KV pages require scale planes (dequant-in-kernel)")
     args = (q, k_pages, v_pages, page_table, lengths)
     scales = (k_scale_pages, v_scale_pages) if quantized else ()
-    fn = ref.paged_attention_ref if _on_cpu(*args, *scales) else paged_attention_cuda
+    fn = ref.paged_attention_ref if _serving_on_cpu(*args, *scales) else paged_attention_cuda
     return fn(*args, window=window, attn_softcap=attn_softcap,
               k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)

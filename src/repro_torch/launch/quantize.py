@@ -1,0 +1,169 @@
+"""PTQ launcher: quantize a trained checkpoint with any of the paper's
+methods (the port's ``repro.launch.quantize``).
+
+    PYTHONPATH=src python -m repro_torch.launch.quantize --arch phi3_mini_3_8b \
+        --reduce --ckpt-dir /tmp/rt_train --method quantease --bits 3 \
+        --device cpu --out-dir /tmp/rt_quant
+
+* ``--stream-calib N`` — feed the capture pass at most N sequences at a
+  time (0 = a whole calibration batch).
+* ``--resume`` — report a previous run's ``progress.jsonl`` (tolerating a
+  torn last line), then restart from scratch: calibration batch ``i`` is a
+  pure function of ``(seed, "calib", i)`` and the solve has no RNG, so the
+  restart writes the same bytes as an uninterrupted run.
+* ``--fault-plan`` — a seeded fault-injection plan (path or inline JSON);
+  transient faults in the calibration fetch are retried
+  (``RetryingRunner``), a damaged newest source step falls back to the last
+  good one with a warning.
+* ``--shard`` — the reference's mesh over local devices.  With one device
+  the reference itself takes the local path, and so does the port; with
+  more, the port refuses (sharded solves: ROADMAP queue 1 item 8).
+
+Writes ``{"params": ...}`` (the dequantized weights, ``emit="fake"``) as a
+checkpoint at the source's step with the reference's ``meta``, one
+progress line and ``progress.jsonl`` record per block, and a JSON report.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+
+from repro_torch.launch.common import add_device_flag, device_of, fault_plan_of
+from repro_torch.launch.progress import append_record, load_progress
+
+__all__ = ["main", "load_progress", "append_record"]
+
+METHODS = ["rtn", "gptq", "awq", "quantease", "awq_qe", "spqr", "qe_outlier", "qe_outlier_struct"]
+
+
+def main(argv=None) -> dict:
+    tmp = tempfile.gettempdir()
+    ap = argparse.ArgumentParser(description="Whole-model PTQ with the port's QuantEase engine.")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduce", action="store_true",
+                    help="CPU-sized config (same reduction as launch/train.py)")
+    ap.add_argument("--ckpt-dir", default=os.path.join(tmp, "repro_torch_train"))
+    ap.add_argument("--out-dir", default=os.path.join(tmp, "repro_torch_quant"))
+    ap.add_argument("--method", default="quantease", choices=METHODS)
+    ap.add_argument("--bits", type=int, default=4)
+    ap.add_argument("--iterations", type=int, default=25)
+    ap.add_argument("--outlier-frac", type=float, default=0.01)
+    ap.add_argument("--group-size", type=int, default=0)
+    ap.add_argument("--calib-batches", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--data-seed", type=int, default=0,
+                    help="corpus seed: must match the training corpus (TrainerConfig.seed, 0)")
+    ap.add_argument("--shard", action="store_true",
+                    help="the reference's mesh; one device takes the local path")
+    ap.add_argument("--stream-calib", type=int, default=0, metavar="N",
+                    help="capture-pass chunk size in sequences (0 = whole batch)")
+    ap.add_argument("--resume", action="store_true",
+                    help="report a previous run's block progress before starting")
+    ap.add_argument("--fault-plan", default="",
+                    help="fault-injection plan: path to a JSON spec or an inline JSON string")
+    add_device_flag(ap)
+    args = ap.parse_args(argv)
+    dev = device_of(args)
+    with fault_plan_of(args.fault_plan):
+        return _run(args, dev)
+
+
+def _shard_devices(dev) -> int:
+    import torch
+
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def _run(args, dev) -> dict:
+    import numpy as np
+
+    from repro_torch.core.solver import PTQConfig, ptq_quantize_model
+    from repro_torch.data.pipeline import DataConfig, make_batch_fn
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.dist.elastic import RetryingRunner
+    from repro_torch.launch.common import model_config, train_template
+    from repro_torch.models import make_plan
+    from repro_torch.quant import GridSpec
+
+    cfg = model_config(args.arch, args.reduce)
+    plan = make_plan(cfg)
+
+    progress_path = os.path.join(args.out_dir, "progress.jsonl")
+    if args.resume:
+        lines = load_progress(progress_path)
+        if lines:
+            last = lines[-1]
+            print(f"previous run: {last['done_blocks']}/{last['total_blocks']} blocks "
+                  f"({last['stack']}.p{last['period']}.b{last['block']}), "
+                  f"mean_err={last['mean_rel_error']:.4g} — restarting from scratch")
+        else:
+            print("previous run: no complete progress records — cold start")
+    # Each run owns its progress file, so records never interleave across runs.
+    if os.path.exists(progress_path):
+        os.remove(progress_path)
+
+    state, manifest, skipped = ckpt.load_last_good(args.ckpt_dir, train_template(plan, dev))
+    for step, reason in skipped:
+        print(f"WARNING: skipped damaged checkpoint step_{step}: {reason.splitlines()[0]}",
+              file=sys.stderr)
+    params = state["params"]
+    del state
+    print(f"loaded checkpoint step {manifest['step']}")
+
+    if args.shard:
+        n = _shard_devices(dev)
+        if n > 1:
+            raise SystemExit(
+                f"--shard over {n} devices: the sharded Σ accumulation and CD solve are not "
+                "ported yet (ROADMAP queue 1 item 8); run without --shard or on one device")
+        print(f"--shard: {n} device(s) — single-device fallback")
+
+    batch_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=args.data_seed), cfg,
+                                batch=4, seq=args.seq, split="calib")
+    # Batch i is a pure function of (seed, "calib", i): after a transient
+    # storage fault the fetch restarts from an empty list and reproduces
+    # the same calibration set.
+    fetcher = RetryingRunner(lambda acc, i: acc + [batch_fn(i)], lambda: ([], 0), max_retries=5)
+    calib, _ = fetcher.run([], 0, args.calib_batches)
+    if fetcher.recoveries:
+        print(f"calibration fetch recovered from {fetcher.recoveries} transient fault(s)")
+    pcfg = PTQConfig(
+        method=args.method,
+        spec=GridSpec(bits=args.bits, group_size=args.group_size or None),
+        iterations=args.iterations,
+        outlier_frac=args.outlier_frac,
+        stream_chunk=args.stream_calib,
+    )
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    def progress(rec: dict):
+        print(f"[{rec['stack']} p{rec['period']} b{rec['block']} "
+              f"{rec['done_blocks']}/{rec['total_blocks']}] "
+              f"{rec['n_linears']} linears  mean_err={rec['mean_rel_error']:.4g}  "
+              f"{rec['seconds']}s")
+        append_record(progress_path, rec)
+
+    qparams, report = ptq_quantize_model(plan, params, calib, pcfg, progress_cb=progress,
+                                         device=dev)
+    ckpt.save_checkpoint(
+        args.out_dir, manifest["step"], {"params": qparams},
+        meta={"method": args.method, "bits": args.bits,
+              "report": {k: float(v) for k, v in report.items()}},
+    )
+    errs = np.array(list(report.values()))
+    summary = {
+        "layers": len(report),
+        "mean_rel_error": float(errs.mean()),
+        "max_rel_error": float(errs.max()),
+        "out_dir": args.out_dir,
+    }
+    print(json.dumps(summary, indent=1))
+    return dict(summary, report=report)
+
+
+if __name__ == "__main__":
+    main()

@@ -162,7 +162,10 @@ def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) ->
         from repro_torch.kernels import ops
 
         if w.pack_layout != "linear":
-            raise NotImplementedError("the port reads the linear pack layout only")
+            raise NotImplementedError(
+                "the port's dequant-GEMM reads the linear pack layout; tile-native "
+                "codes are un-prepacked where an artifact enters the port "
+                "(interop.qtensor_from_jax, dist.checkpoint, quant.as_linear_layout)")
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         y2 = ops.dequant_matmul(

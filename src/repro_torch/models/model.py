@@ -49,6 +49,7 @@ __all__ = [
     "make_plan",
     "model_defs",
     "init_params",
+    "empty_params",
     "train_loss",
     "tree_map",
     "period_slice",
@@ -167,6 +168,14 @@ def model_defs(plan: ModelPlan) -> dict:
     if not cfg.tie_embeddings:
         defs["lm_head"] = _P((d, plan.vocab_pad))
     return defs
+
+
+def empty_params(plan: ModelPlan, *, device="cuda") -> dict:
+    """Uninitialized params of the model's shapes and dtype: the template a
+    checkpoint is loaded into (the reference's ``param_shapes``)."""
+    dev = torch.device(device) if device == "meta" else resolve_device(device)
+    return tree_map(lambda pd: torch.empty(pd.shape, dtype=plan.dtype, device=dev),
+                    model_defs(plan), is_leaf=lambda x: isinstance(x, _P))
 
 
 def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:

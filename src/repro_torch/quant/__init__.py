@@ -14,9 +14,18 @@ from repro_torch.quant.pack import (
     kv_unpack_int4,
     pack_codes,
     packed_words_per_row,
+    prepack_codes,
+    tile_native_perm,
     unpack_codes,
+    unprepack_codes,
 )
-from repro_torch.quant.qtensor import QuantizedTensor, check_zero_points, dequantize_tensor
+from repro_torch.quant.qtensor import (
+    QuantizedTensor,
+    as_linear_layout,
+    check_zero_points,
+    dequantize_tensor,
+    quantize_tensor,
+)
 
 __all__ = [
     "Grid",
@@ -31,7 +40,12 @@ __all__ = [
     "pack_codes",
     "packed_words_per_row",
     "unpack_codes",
+    "prepack_codes",
+    "unprepack_codes",
+    "tile_native_perm",
     "QuantizedTensor",
+    "as_linear_layout",
     "check_zero_points",
     "dequantize_tensor",
+    "quantize_tensor",
 ]

@@ -10,13 +10,23 @@ straddle bytes and are a storage format only.
 int4 KV pages (paged serving) pack fold-in-half instead: byte ``d`` of a
 head row holds element ``d`` in its low nibble and ``d + hd/2`` in its high
 nibble, both two's complement (:func:`kv_pack_int4`).
+
+The reference's TPU GEMM can also read codes prepacked in a tile-native,
+plane-wise order (:func:`prepack_codes`, ``pack_layout="tile"``).  The
+port's dequant-GEMM reads the linear layout only, so a tile artifact is
+un-prepacked once where it enters the port (:func:`unprepack_codes`, an
+exact column permutation).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["pack_codes", "unpack_codes", "packed_words_per_row", "kv_pack_int4", "kv_unpack_int4"]
+__all__ = [
+    "pack_codes", "unpack_codes", "packed_words_per_row", "kv_pack_int4", "kv_unpack_int4",
+    "tile_native_perm", "prepack_codes", "unprepack_codes", "select_tile_k",
+]
 
 
 def packed_words_per_row(p: int, bits: int) -> int:
@@ -87,3 +97,52 @@ def kv_unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     lo = ((b & 0xF) ^ 8) - 8  # sign-extend the 4-bit two's complement
     hi = ((b >> 4) ^ 8) - 8
     return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+# Codes per byte-aligned packing word: the columns one storage word
+# interleaves in the linear layout (3-bit codes straddle bytes; their word
+# is the 3-byte block of 8 codes).
+_PLANES = {2: 4, 3: 8, 4: 2, 8: 1}
+
+
+def select_tile_k(p: int, group_size=None, tk: int = 512) -> int:
+    """The k-tile the reference's TPU dequant-GEMM runs for a ``(·, p)``
+    GEMM (``repro.kernels.dequant_matmul.select_tile_k``), the tile a
+    tile-native prepack is made for."""
+    tk = min(tk, p)
+    gsz = group_size if group_size else p
+    if group_size and p // gsz > 1:
+        if tk >= gsz:
+            tk = (tk // gsz) * gsz
+        elif gsz % tk:
+            tk = gsz
+    return tk
+
+
+def tile_native_perm(p: int, bits: int, tile_k: int) -> np.ndarray:
+    """Column permutation putting each full k-tile in plane-wise order.
+
+    With ``n = _PLANES[bits]`` planes, storage word ``i`` of a tile packs
+    columns ``(i, i + tile_k/n, …, i + (n-1)·tile_k/n)``.  The ragged tail
+    past the last full tile keeps the linear order."""
+    n = _PLANES[bits]
+    cols = np.arange(p, dtype=np.int64)
+    n_full = p // tile_k
+    if n == 1 or tile_k % n or n_full == 0:
+        return cols
+    head = cols[: n_full * tile_k].reshape(n_full, n, tile_k // n).transpose(0, 2, 1).reshape(-1)
+    return np.concatenate([head, cols[n_full * tile_k:]])
+
+
+def prepack_codes(codes: torch.Tensor, bits: int, tile_k: int) -> torch.Tensor:
+    """``(…, p)`` uint8 linear codes → packed bytes in tile-native order."""
+    perm = torch.from_numpy(tile_native_perm(codes.shape[-1], bits, tile_k)).to(codes.device)
+    return pack_codes(codes[..., perm], bits)
+
+
+def unprepack_codes(packed: torch.Tensor, bits: int, p: int, tile_k: int) -> torch.Tensor:
+    """Inverse of :func:`prepack_codes`: ``(…, p)`` uint8 codes, linear order."""
+    perm = tile_native_perm(p, bits, tile_k)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(p, dtype=np.int64)
+    return unpack_codes(packed, bits, p)[..., torch.from_numpy(inv).to(packed.device)]

@@ -6,6 +6,12 @@ tensor stores ``codes`` (``(q, p)`` uint8, or ``(q, p/2)`` packed two per
 byte for 4 bits) and ``scale``/``zero`` (``(q, n_groups)`` fp32).  Leading
 dims (a period stack) are allowed on every field.
 
+Packed codes are in the linear layout, or, in an artifact the reference
+prepacked for its TPU GEMM, the tile-native one (``pack_layout="tile"``,
+``pack_tile`` the k-tile); :meth:`QuantizedTensor.unpacked_codes` reads
+both, and :func:`as_linear_layout` rewrites a tile leaf as linear once,
+where it enters the port (the dequant-GEMM reads the linear layout).
+
 Outlier-aware QuantEase (Algorithm 3) adds Ĥ as planes beside the codes:
 unstructured outliers as COO (``outlier_idx``: flat int32 ``row·p + col``,
 ``outlier_values``: fp16), added after the dequant; structured outliers as
@@ -20,21 +26,27 @@ from typing import Optional
 
 import torch
 
-from repro_torch.quant.grid import Grid, GridSpec
+from repro_torch.quant.grid import Grid, GridSpec, compute_grid, quantize_codes
+from repro_torch.tree import register_dataclass, tree_flatten, tree_unflatten
 
-__all__ = ["QuantizedTensor", "dequantize_tensor", "check_zero_points"]
+__all__ = ["QuantizedTensor", "quantize_tensor", "dequantize_tensor", "check_zero_points",
+           "as_linear_layout"]
 
 
+_STATIC = dict(static=True)  # not a tree child (the reference's register_dataclass)
+
+
+@register_dataclass
 @dataclasses.dataclass
 class QuantizedTensor:
     codes: torch.Tensor
     scale: torch.Tensor
     zero: torch.Tensor
-    bits: int = 4
-    group_size: Optional[int] = None
-    packed: bool = False
-    pack_layout: str = "linear"
-    pack_tile: Optional[int] = None
+    bits: int = dataclasses.field(metadata=_STATIC, default=4)
+    group_size: Optional[int] = dataclasses.field(metadata=_STATIC, default=None)
+    packed: bool = dataclasses.field(metadata=_STATIC, default=False)
+    pack_layout: str = dataclasses.field(metadata=_STATIC, default="linear")
+    pack_tile: Optional[int] = dataclasses.field(metadata=_STATIC, default=None)
     outlier_values: Optional[torch.Tensor] = None
     outlier_idx: Optional[torch.Tensor] = None
     outlier_col_idx: Optional[torch.Tensor] = None
@@ -49,10 +61,10 @@ class QuantizedTensor:
     def unpacked_codes(self) -> torch.Tensor:
         if not self.packed:
             return self.codes
-        from repro_torch.quant.pack import unpack_codes
+        from repro_torch.quant.pack import unpack_codes, unprepack_codes
 
-        if self.pack_layout != "linear":
-            raise NotImplementedError("the port reads the linear pack layout only")
+        if self.pack_layout == "tile":
+            return unprepack_codes(self.codes, self.bits, self.shape[-1], self.pack_tile)
         return unpack_codes(self.codes, self.bits, self.shape[-1])
 
     @property
@@ -85,6 +97,30 @@ class QuantizedTensor:
             if isinstance(getattr(self, f.name), torch.Tensor)
         }
         return dataclasses.replace(self, **kw)
+
+
+def quantize_tensor(w: torch.Tensor, spec: GridSpec) -> QuantizedTensor:
+    """Round-to-nearest into a QuantizedTensor (unpacked codes, no outliers)."""
+    grid = compute_grid(w, spec)
+    return QuantizedTensor(codes=quantize_codes(w, grid), scale=grid.scale, zero=grid.zero,
+                           bits=spec.bits, group_size=spec.group_size)
+
+
+def as_linear_layout(tree):
+    """``tree`` (a QuantizedTensor, or params holding them) with every packed
+    leaf in the linear layout: a tile-native leaf is un-prepacked and packed
+    again linearly (an exact column permutation, so the dequantized weights
+    are bit for bit the same); everything else is returned as it is."""
+    from repro_torch.quant.pack import pack_codes
+
+    def linear(x):
+        if not (isinstance(x, QuantizedTensor) and x.packed and x.pack_layout == "tile"):
+            return x
+        return dataclasses.replace(x, codes=pack_codes(x.unpacked_codes(), x.bits),
+                                   pack_layout="linear", pack_tile=None)
+
+    leaves, treedef = tree_flatten(tree, is_leaf=lambda x: isinstance(x, QuantizedTensor))
+    return tree_unflatten(treedef, [linear(x) for x in leaves])
 
 
 def dequantize_tensor(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:

@@ -5,14 +5,33 @@ order.
 treats ``None`` as an empty subtree.  The optimizer (leaf order of the
 gradient norm's sum) and the checkpoints (``leaf_<i>.bin`` ↔ leaf i) need
 exactly that order, so a state flattened here lines up leaf for leaf with
-the reference's.
+the reference's.  A dataclass registered with :func:`register_dataclass`
+is a node whose children are its fields not marked ``static`` in their
+metadata, in declaration order (a ``None`` field is an empty subtree), as
+``jax.tree_util.register_dataclass`` makes it.
 """
 
 from __future__ import annotations
 
-__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves"]
+import dataclasses
+
+__all__ = ["tree_flatten", "tree_unflatten", "tree_leaves", "register_dataclass"]
 
 _LEAF = object()
+_DATA_FIELDS: dict[type, tuple[str, ...]] = {}
+
+
+def register_dataclass(cls):
+    """Make instances of the dataclass ``cls`` tree nodes (a decorator)."""
+    _DATA_FIELDS[cls] = tuple(f.name for f in dataclasses.fields(cls)
+                              if not f.metadata.get("static"))
+    return cls
+
+
+@dataclasses.dataclass(frozen=True)
+class _Node:
+    template: object  # the instance flattened: it carries the static fields
+    children: tuple
 
 
 def _walk(t, is_leaf, leaves):
@@ -21,6 +40,8 @@ def _walk(t, is_leaf, leaves):
     if is_leaf is not None and is_leaf(t):
         leaves.append(t)
         return _LEAF
+    if type(t) in _DATA_FIELDS:
+        return _Node(t, tuple(_walk(getattr(t, f), is_leaf, leaves) for f in _DATA_FIELDS[type(t)]))
     if isinstance(t, dict):
         d = {k: _walk(t[k], is_leaf, leaves) for k in sorted(t)}
         return {k: d[k] for k in t}  # keep the caller's key order
@@ -50,6 +71,9 @@ def _build(d, it):
         return None
     if d is _LEAF:
         return next(it)
+    if isinstance(d, _Node):
+        fields = _DATA_FIELDS[type(d.template)]
+        return dataclasses.replace(d.template, **{f: _build(c, it) for f, c in zip(fields, d.children)})
     if isinstance(d, dict):
         vals = {k: _build(d[k], it) for k in sorted(d)}
         return {k: vals[k] for k in d}

@@ -893,3 +893,110 @@ def test_eval_model_on_card_matches_cpu(cuda):
     assert out["cuda_launches"] > 0 and out["cpu_launches"] == 0
     for k, v in out["cpu"].items():
         assert out["cuda"][k] == pytest.approx(v, rel=1e-3), k
+
+
+@pytest.mark.parametrize("G,q,p,bsz", [(1, 96, 128, 32), (2, 70, 200, 64)])
+def test_legacy_engine_on_card_matches_cpu(cuda, G, q, p, bsz):
+    """QuantEase's legacy schedule: kernel 1 launched once per column block
+    and iteration (fp32 ``torch.matmul`` corrections between), iterates
+    within ATOL of the CPU's in at least 99 % of rows (a rounding tie flips
+    the rest of its row); the outlier engine's legacy schedule within 1 %
+    of the CPU's error."""
+    r = np.random.default_rng(G * q + p)
+    x = r.standard_normal((G, p, 2 * p)).astype(np.float32)
+    w = torch.from_numpy(r.standard_normal((G, q, p)).astype(np.float32))
+    sigma = torch.from_numpy(x @ x.transpose(0, 2, 1))
+    kw = dict(iterations=4, block_size=bsz, engine="legacy")
+    before = ops.launch_counts()["quantease_block_sweep"]
+    wk, _ = qe.quantease_quantize(w.to(cuda), sigma.to(cuda), GridSpec(bits=3), **kw)
+    launches = ops.launch_counts()["quantease_block_sweep"] - before
+    wp, _ = qe.quantease_quantize(w, sigma, GridSpec(bits=3), **kw)
+    assert launches == 4 * -(-p // bsz)
+    assert _rows_ok(wk.cpu().transpose(-1, -2), wp.transpose(-1, -2)) >= 0.99
+
+    from repro_torch.core.outlier import outlier_quantease
+
+    s = max(int(0.01 * q * p), 1)
+    ok = outlier_quantease(w.to(cuda), sigma.to(cuda), GridSpec(bits=3), s=s, iterations=4,
+                           engine="legacy")
+    op = outlier_quantease(w, sigma, GridSpec(bits=3), s=s, iterations=4, engine="legacy")
+    ek = qe.relative_error(w, ok.w_eff.cpu(), sigma)
+    ep = qe.relative_error(w, op.w_eff, sigma)
+    torch.testing.assert_close(ek, ep, rtol=1e-2, atol=0)
+
+
+@pytest.mark.parametrize("method", ["awq", "awq_qe", "spqr"])
+def test_baselines_on_card_match_cpu(cuda, method):
+    """AWQ, AWQ+QuantEase and SpQR on the card against the CPU, one layer:
+    relative error within 1e-3 relative (α, the outlier mask and the sweeps
+    may part only at rounding ties), every value of Ŵ finite."""
+    from repro_torch.core import awq, spqr
+
+    r = np.random.default_rng(7)
+    x = r.standard_normal((128, 512)).astype(np.float32) * (r.random(128)[:, None] * 3 + 0.2)
+    w = torch.from_numpy(r.standard_normal((96, 128)).astype(np.float32))
+    sigma = torch.from_numpy(x @ x.T)
+    spec = GridSpec(bits=3)
+    run = {
+        "awq": lambda a, b: awq.awq_quantize(a, b, spec),
+        "awq_qe": lambda a, b: awq.awq_then_quantease(a, b, spec, iterations=6),
+        "spqr": lambda a, b: spqr.spqr_quantize(a, b, spec, s=120)[0],
+    }[method]
+    before = ops.launch_counts()["quantease_fused_iteration"]
+    wk = run(w.to(cuda), sigma.to(cuda)).cpu()
+    if method == "awq_qe":
+        assert ops.launch_counts()["quantease_fused_iteration"] > before
+    wp = run(w, sigma)
+    assert bool(torch.isfinite(wk).all())
+    ek, ep = qe.relative_error(w, wk, sigma), qe.relative_error(w, wp, sigma)
+    torch.testing.assert_close(ek, ep, rtol=1e-3, atol=0)
+
+
+def test_kernel_dispatch_deny_on_the_card_raises_uncounted(cuda):
+    """Under a plan, ``deny`` at kernel.dispatch on card tensors raises
+    :class:`ops.DispatchDenied` (the port has no plain path on the card)
+    without a launch, and the trail records it; the next call launches
+    the kernel."""
+    from repro_torch.faults import FaultPlan, FaultSpec, fault_plan
+
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.standard_normal((8, 256)).astype(np.float32)).to(cuda, torch.bfloat16)
+    codes = torch.from_numpy(r.integers(0, 16, (64, 256)).astype(np.uint8)).to(cuda)
+    scale = torch.full((64, 1), 0.01, device=cuda)
+    zero = torch.full((64, 1), 8.0, device=cuda)
+    plan = FaultPlan([FaultSpec(site="kernel.dispatch", kind="deny", at=(0,))])
+    before = ops.launch_counts()["dequant_matmul"]
+    with fault_plan(plan):
+        with pytest.raises(ops.DispatchDenied):
+            ops.dequant_matmul(x, codes, scale, zero, out_dtype=torch.float32)
+        assert ops.launch_counts()["dequant_matmul"] == before
+        launched = ops.dequant_matmul(x, codes, scale, zero, out_dtype=torch.float32)
+    assert ops.launch_counts()["dequant_matmul"] == before + 1
+    assert plan.fired == [("kernel.dispatch", 0, "deny")]
+    plain = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32)
+    torch.testing.assert_close(launched, plain, rtol=1e-2, atol=1e-2 * float(plain.abs().max()))
+
+
+def test_quantize_and_serve_clis_on_card(cuda, tmp_path, capsys):
+    """``launch.train``, ``launch.quantize`` and ``launch.serve`` with
+    ``--device cuda`` on the reduced Phi-3 (bf16): the quantize report is
+    14 finite layers and runs the CD kernels, and every request completes
+    with --max-new tokens on both engines, the paged one through kernel 5."""
+    from repro_torch.launch import quantize, serve, train
+
+    arch = ("--arch", "phi3_mini_3_8b", "--reduce")
+    train.main([*arch, "--steps", "2", "--batch", "2", "--seq", "32",
+                "--ckpt-dir", str(tmp_path / "t"), "--device", "cuda"])
+    before = ops.launch_counts()
+    out = quantize.main([*arch, "--ckpt-dir", str(tmp_path / "t"), "--out-dir", str(tmp_path / "q"),
+                         "--method", "awq_qe", "--bits", "4", "--iterations", "3",
+                         "--calib-batches", "2", "--seq", "32", "--device", "cuda"])
+    assert out["layers"] == 14 and np.isfinite(out["mean_rel_error"])
+    assert ops.launch_counts()["quantease_fused_iteration"] > before["quantease_fused_iteration"]
+    for engine in ("paged", "contiguous"):
+        k5 = ops.launch_counts()["paged_attention"]
+        res = serve.main([*arch, "--ckpt-dir", str(tmp_path / "q"), "--requests", "3",
+                          "--max-new", "5", "--engine", engine, "--device", "cuda"])
+        assert all(r.status == "completed" and len(r.output) == 5 for r in res["requests"])
+        launched = ops.launch_counts()["paged_attention"] - k5
+        assert launched == (res["n_decode_steps"] * 2 if engine == "paged" else 0)

@@ -182,9 +182,14 @@ def test_quantized_parity(setup):
            "grid": [{k: 0 for k in jharness._GRID_KEYS}]}
     assert par["max_abs_diff_paged_contiguous"] <= 2e-2 * par["max_abs_logit"]
     assert set(validate_doc(doc)) <= {"parity: paged != contiguous bitwise"}
-    with pytest.raises(NotImplementedError, match="tile"):
-        tharness.quantized_parity(s["tp"], s["tparams"], s["t_calib"], _prompts(3, (7,)),
-                                  prepack_backend="tpu", device=CPU)
+    # Through the reference's tile prepack (its TPU bytes), un-prepacked
+    # again before serving: the same parity, with the layouts recorded.
+    tile = tharness.quantized_parity(s["tp"], s["tparams"], s["t_calib"], _prompts(3, (7, 19)),
+                                     iterations=2, max_seq=64, page_size=8, prefill_chunk=8,
+                                     prepack_backend="tpu", device=CPU)
+    assert tile["pack_layouts"] and all(lb.startswith("tile") for lb in tile["pack_layouts"])
+    for k in ("max_abs_diff_contiguous", "max_abs_diff_paged", "max_abs_diff_paged_contiguous"):
+        assert tile[k] == par[k]
 
 
 # ---------------------------------------------------------------------------

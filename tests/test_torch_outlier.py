@@ -264,8 +264,8 @@ def test_bf16_operands_match_jax_quality():
 def test_engine_options_refused():
     w, sig = _problem(7, 16, 32, 64)
     args = (torch.from_numpy(w), torch.from_numpy(sig), TSpec(bits=3))
-    with pytest.raises(NotImplementedError):
-        tout.outlier_quantease(*args, s=5, engine="legacy")
+    with pytest.raises(ValueError, match="engine"):
+        tout.outlier_quantease(*args, s=5, engine="pre-fused")
     with pytest.raises(ValueError):
         tout.outlier_quantease(*args, s=0)
     with pytest.raises(ValueError):

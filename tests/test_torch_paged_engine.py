@@ -473,10 +473,10 @@ def _serve_outputs(plan, params, prompts, fplan=None, **kw):
 
 
 def test_chaos_serving_invariant(served_model):
-    """Under engine-step transients and pool-exhaustion spikes every request
+    """Under engine-step transients, pool-exhaustion spikes and kernel-dispatch
+    denials (on the CPU each denied call takes the plain version) every request
     finishes completed or preempted_resumed with the fault-free tokens, and no
-    page leaks.  (The plan's kernel.dispatch spec is the reference's; the
-    port arms no such site, so it never fires.)"""
+    page leaks."""
     plan, params, prompts = served_model
     kw = dict(max_batch=3, max_seq=128, page_size=8, n_pages=13, prefill_chunk=16,
               prefix_cache=False)
@@ -490,7 +490,7 @@ def test_chaos_serving_invariant(served_model):
     ], seed=42)
     eng, chaotic = _serve_outputs(plan, params, prompts, fplan=fplan, **kw)
     assert fplan.fired and eng.n_transient_faults >= 3
-    assert all(site != "kernel.dispatch" for site, _, _ in fplan.fired)
+    assert any(site == "kernel.dispatch" for site, _, _ in fplan.fired)
     assert len(chaotic) == len(prompts)
     for rid, req in chaotic.items():
         assert req.status in ("completed", "preempted_resumed")

@@ -123,8 +123,8 @@ def test_relative_error_and_calib_match_jax():
 def test_config_and_engine_options():
     w, sigma, _ = _problem(6, q=8, p=16, n=32)
     assert tqe.QuantEaseConfig().solve_kwargs()["block_size"] == 256
-    with pytest.raises(NotImplementedError):
-        _torch(w, sigma, 3, iterations=1, engine="legacy")
+    with pytest.raises(ValueError, match="engine"):
+        _torch(w, sigma, 3, iterations=1, engine="pre-fused")
     with pytest.raises(ValueError):
         _torch(w, sigma, 3, iterations=1, use_kernel="cuda")
     a = _torch(w, sigma, 3, iterations=2, use_kernel="auto")[0]

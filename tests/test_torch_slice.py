@@ -125,8 +125,8 @@ def test_progress_records_carry_reference_keys(slice_runs):
 def test_port_imports_no_jax_and_no_reference():
     """Importing every module of the port (Algorithm 3's ``core.outlier``,
     the serving engines, the fault plans, the eval tasks and harness, GPTQ,
-    the trainer and the checkpoints among them), and chip_smoke, loads
-    neither jax nor the reference package."""
+    the trainer and the checkpoints, AWQ, SpQR and the launchers among
+    them), and chip_smoke, loads neither jax nor the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -140,7 +140,10 @@ def test_port_imports_no_jax_and_no_reference():
         "        'repro_torch.eval.harness', 'repro_torch.core.gptq', 'repro_torch.train.optimizer',\n"
         "        'repro_torch.train.train_step', 'repro_torch.train.trainer',\n"
         "        'repro_torch.dist.checkpoint', 'repro_torch.dist.elastic',\n"
-        "        'repro_torch.configs.bench_opt_s']\n"
+        "        'repro_torch.configs.bench_opt_s', 'repro_torch.core.awq', 'repro_torch.core.spqr',\n"
+        "        'repro_torch.launch.progress', 'repro_torch.launch.train',\n"
+        "        'repro_torch.launch.quantize', 'repro_torch.launch.eval',\n"
+        "        'repro_torch.launch.serve']\n"
         "bad += [m + ' not loaded' for m in need if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
     )
