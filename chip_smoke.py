@@ -105,7 +105,32 @@ Phases (any failed check exits non-zero; no phase is skipped):
    the same tokens, int4 KV) and the contiguous one, every request complete
    and kernel 5 launched once per decode step and period.  Each step's wall
    seconds are printed; the CLIs' output goes to
-   ``chiprun_out/chip_smoke_cli.txt``.
+   ``chiprun_out/chip_smoke_cli.txt``;
+9. speculation and the tuner at full width: (a) phase 5's ``quantease@4``
+   artifact serves phase 6's first 8 prompts (32 new tokens each) on the
+   paged engine (bf16 KV, pages of 16, chunks of 128, a pool of twice the
+   ample default) with γ = 4 and no draft, the target itself, a 3-bit RTN
+   draft of the dense params and the 1-period truncation: decode tokens/s,
+   rounds, proposed and accepted tokens, propose calls, ms per round, free
+   pages before and after (equal: no leak), kernel 3's variants in the
+   verify (tc_small only) and in the draft, kernel 5's launches held to
+   (verify rounds + propose steps) x periods, no round with budget that
+   proposed fewer than min(γ, budget), every speculative stream equal to
+   the plain one up to the first position whose top-2 margin (plain run)
+   is below ``SERVE_LOGIT_TOL`` of max |logit|, and the self-draft rejected
+   only at such margins; (b) phase 7's trained ``bench_opt_s`` with a
+   3-bit RTN and a 1-period draft (acceptance recorded, the same stream
+   rule); then one verify call (8 lanes x 5 positions) against 5
+   sequential decode steps within ``SERVE_LOGIT_TOL`` of max |logit|, and
+   that call's and one RTN draft call's kernel 3 and 5 launches against
+   their plain versions; (c) ``repro_torch.launch.tune`` on phase 8's
+   training checkpoint (budget 3 bits, widths 2, 3, 4, 8, 10 iterations),
+   the winner's perplexity at most the uniform candidate's, kernel 3
+   launched by every candidate's artifact, kernels 1 and 2 by the solves,
+   then ``--resume`` replaying every candidate; then ``launch.serve`` on
+   the tuner's output, plain and with ``--speculate --draft-bits 3`` and
+   ``--speculate --draft-layers 1``, held to the plain tokens by the same
+   rule (output in ``chiprun_out/chip_smoke_tune_cli.txt``).
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -120,9 +145,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -283,6 +310,21 @@ SERVE_LOGIT_TOL = 2e-2
 # step (max/7) is 18x int8's (max/127); at full width int4 moves the first
 # logits by ~0.26 of max |logit| and int8 by ~0.02.
 SERVE_KV_BOUND = 0.5
+# Phase 9: speculative serving, γ = 4, on phase 6's engine shape and its
+# first 8 prompts; the pool holds twice the engine's ample default (target
+# and draft pages share it), so no proposal shortens for want of pages.
+SPEC_GAMMA, SPEC_REQUESTS, SPEC_NEW_TOKENS, SPEC_DRAFT_BITS = 4, 8, 32, 3
+SPEC_PAGED = SERVE_PAGED
+SPEC_POOL = 2
+# (b): phase 7's trained bench_opt_s, prompts of 32 eval-split tokens.
+SPEC_TRAINED_PROMPT = 32
+SPEC_TRAINED = dict(max_batch=8, max_seq=128, page_size=PAGE, prefill_chunk=32, n_pages=1 + 2 * 8 * 8)
+# (c): the tuner's CLI on phase 8's training checkpoint, then the serve CLI
+# on its output (its default γ).
+TUNE_CLI = ("--budget-avg-bits", "3", "--bits-candidates", "2,3,4,8", "--iterations", "10",
+            "--calib-batches", "4")
+TUNE_SERVE_GAMMA = 4
+CLI_PERIODS = 2  # phi3_mini_3_8b_2l: 2 periods of one attention block
 
 
 def fail(msg: str) -> None:
@@ -1514,7 +1556,7 @@ def main_path(dev, detail):
         blocks=blocks,
         seconds=t_main,
     )
-    return counts, plan, artifact
+    return counts, plan, artifact, params
 
 
 # ---------------------------------------------------------------------------
@@ -2215,7 +2257,7 @@ def quality_table(dev, detail, card):
               f"kernel {name} was not held against its plain version at phase 7's shapes")
     detail["quality"] = dict(doc=doc, train_log=log, launches=counts, train_launches=train_counts,
                              gemm_variants=variants, kernels_at_path_shapes=at_path)
-    return {k: counts[k] + train_counts[k] for k in counts}, at_path
+    return {k: counts[k] + train_counts[k] for k in counts}, at_path, (plan, params)
 
 
 # ---------------------------------------------------------------------------
@@ -2223,11 +2265,12 @@ def quality_table(dev, detail, card):
 # ---------------------------------------------------------------------------
 
 
-def cli_path(dev, detail):
+def cli_path(dev, detail, root):
     """``repro_torch.launch.{train,quantize,eval,serve}`` in process
     (``main([...])``, stdout captured into ``chiprun_out/chip_smoke_cli.txt``)
-    on Phi-3-mini at full width, 2 of 32 decoder layers, in a temporary
-    directory: train 4 steps (4 checkpoints); quantize with QuantEase at 4
+    on Phi-3-mini at full width, 2 of 32 decoder layers, in the temporary
+    directory ``root`` (phase 9 reads its training checkpoints; the caller
+    removes it): train 4 steps (4 checkpoints); quantize with QuantEase at 4
     bits, then SpQR at 3 bits with ``--resume``; the eval grid (RTN, AWQ,
     SpQR, QuantEase and qe_outlier at 3 bits, 25 iterations) with the
     parity check; serve the quantize output on the paged engine (bf16, a
@@ -2237,7 +2280,6 @@ def cli_path(dev, detail):
     ``ptq_quantize_model`` call."""
     import io
     import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -2260,7 +2302,7 @@ def cli_path(dev, detail):
 
     cfg = configs.register(dataclasses.replace(configs.get_config("phi3_mini_3_8b"), name=CLI_ARCH,
                                                **MAIN_OVERRIDES))
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    check(cfg.n_periods * len(cfg.pattern) == CLI_PERIODS, f"{CLI_ARCH}: {cfg.n_periods} periods")
     free = shutil.disk_usage(root).free / 2**30
     check(free >= CLI_DISK_GIB, f"phase 8 needs {CLI_DISK_GIB} GiB free under {root}, has {free:.1f}")
     train_dir, quant_dir = os.path.join(root, "train"), os.path.join(root, "quant")
@@ -2382,7 +2424,6 @@ def cli_path(dev, detail):
               f"batches: largest relative difference per layer {rel:.3g} (limit {CLI_REPORT_REL})",
               flush=True)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
         out_dir = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke_cli.txt"), "w") as fh:
@@ -2394,6 +2435,431 @@ def cli_path(dev, detail):
                          gemm_variants=variants, kernels_at_path_shapes=at_path,
                          report_rel_diff=rel)
     return counts, at_path
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: speculative serving and the tuner at full width
+# ---------------------------------------------------------------------------
+
+
+def spec_agree(plain_trace, plain_out, spec_out, tol):
+    """Per request, the speculative stream against the plain one: equal up
+    to the first position where the plain run's top-2 margin is below
+    ``tol`` × its max |logit| (a near-tie there may go either way).
+    Returns ``(parted, compared)``: the requests parting before such a
+    position, and the positions compared."""
+    import numpy as np
+
+    parted, compared = [], 0
+    for rid, out in plain_out.items():
+        for j, l in enumerate(plain_trace[rid]):
+            top2 = np.sort(l)[-2:]
+            if top2[1] - top2[0] < tol * float(np.abs(l).max()):
+                break
+            compared += 1
+            if spec_out[rid][j] != out[j]:
+                parted.append((rid, j))
+                break
+    return parted, compared
+
+
+def _variant_delta(before) -> dict:
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+
+    return {v: c - before[v] for v, c in dequant_matmul_cuda.launches_by_variant.items()}
+
+
+def spec_serve(label, make_engine, prompts, new_tokens, gamma):
+    """One engine run with every round watched: per round and lane the
+    budget the engine gave the proposal and the tokens it then verified, the
+    top-2 margin at each rejected position, and the dequant-GEMM's variants
+    inside the verify calls and inside the draft calls.  Returns the run's
+    numbers, the outputs and the engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.serve import Request
+
+    eng = make_engine()
+    free0 = eng.pool.n_free
+    mgr = eng.spec_mgr
+    rounds, rejections = [], []
+    verify_variants = dict.fromkeys(dequant_matmul_cuda.launches_by_variant, 0)
+    draft_variants = dict(verify_variants)
+    budgets = {}
+
+    def count_into(acc, fn):
+        def call(*a, **kw):
+            before = dict(dequant_matmul_cuda.launches_by_variant)
+            out = fn(*a, **kw)
+            for v, n in _variant_delta(before).items():
+                acc[v] += n
+            return out
+        return call
+
+    eng._verify = count_into(verify_variants, eng._verify)
+    if mgr is not None:
+        mgr._propose_fn = count_into(draft_variants, mgr._propose_fn)
+        propose = mgr.propose
+
+        def watched_propose(items):
+            budgets.clear()
+            budgets.update({lane: budget for lane, _, _, budget in items})
+            return propose(items)
+
+        mgr.propose = watched_propose
+        commit = eng._commit
+
+        def watched_commit(active, proposals, logits):
+            for i in active:
+                props = proposals[i]
+                rounds.append((budgets.get(i, 0), len(props)))
+                greedy = [int(np.argmax(logits[i, j])) for j in range(len(props) + 1)]
+                a = next((j for j, (d, t) in enumerate(zip(props, greedy)) if d != t), len(props))
+                if a < len(props):
+                    l = logits[i, a]
+                    top2 = np.sort(l)[-2:]
+                    rejections.append(float((top2[1] - top2[0]) / np.abs(l).max()))
+            return commit(active, proposals, logits)
+
+        eng._commit = watched_commit
+    k5 = ops.launch_counts()["paged_attention"]
+    t0 = time.monotonic()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=new_tokens))
+    reqs = sorted(eng.run(), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    k5 = ops.launch_counts()["paged_attention"] - k5
+    n_tok = sum(len(r.output) for r in reqs)
+    cfg = eng.plan.cfg
+    want_k5 = eng.n_decode_steps * cfg.n_periods * len(cfg.pattern)
+    if mgr is not None:
+        dcfg = mgr.cfg.draft_plan.cfg
+        want_k5 += mgr.n_propose_calls * (gamma + 1) * dcfg.n_periods * len(dcfg.pattern)
+    stats = dict(
+        run=label, requests=len(reqs), tokens=n_tok, wall_s=wall, decode_s=eng.decode_seconds,
+        propose_s=eng.propose_seconds, decode_tok_s=n_tok / eng.decode_seconds,
+        decode_steps=eng.n_decode_steps, ms_per_round=eng.decode_seconds / eng.n_decode_steps * 1e3,
+        spec_rounds=eng.n_spec_rounds, proposed=eng.n_draft_tokens, accepted=eng.n_draft_accepted,
+        acceptance=eng.acceptance_rate(), propose_calls=mgr.n_propose_calls if mgr else 0,
+        free_before=free0, free_after=eng.pool.n_free, k5_launches=k5, k5_expected=want_k5,
+        verify_variants=verify_variants, draft_variants=draft_variants,
+        short_rounds=[(b, n) for b, n in rounds if b >= 1 and n < min(gamma, b)],
+        rounds_with_budget=sum(b >= 1 for b, _ in rounds), rejection_margins=rejections,
+        statuses=sorted({r.status for r in reqs}),
+    )
+    acc = "-" if stats["acceptance"] is None else f"{stats['acceptance']:.3f}"
+    print(f"[spec] {label}: {n_tok} tokens, decode {stats['decode_tok_s']:.1f} tok/s, "
+          f"{stats['ms_per_round']:.2f} ms per round over {eng.n_decode_steps} rounds "
+          f"({eng.n_spec_rounds} speculative, propose {eng.propose_seconds:.2f}s of "
+          f"{eng.decode_seconds:.2f}s); proposed {eng.n_draft_tokens}, accepted "
+          f"{eng.n_draft_accepted} (rate {acc}); propose calls {stats['propose_calls']}; free "
+          f"pages {free0} -> {eng.pool.n_free}; kernel 3 by variant in the verify "
+          f"{verify_variants}, in the draft {draft_variants}; kernel 5 launched {k5} (expected "
+          f"{want_k5}); rounds with budget {stats['rounds_with_budget']}, short "
+          f"{len(stats['short_rounds'])}; wall {wall:.2f}s", flush=True)
+    check(len(reqs) == len(prompts) and stats["statuses"] == ["completed"]
+          and all(len(r.output) == new_tokens for r in reqs),
+          f"{label}: {[(r.rid, r.status, len(r.output)) for r in reqs]}")
+    check(eng.pool.n_free == free0 and eng.pool.n_free == eng.n_pages - 1,
+          f"{label}: {free0} free pages before, {eng.pool.n_free} after (of {eng.n_pages - 1})")
+    check(k5 == want_k5, f"{label}: kernel 5 launched {k5} times, expected {want_k5} "
+                         "((verify rounds + propose steps) x periods)")
+    check(verify_variants["simt"] == 0 and verify_variants["tc_large"] == 0,
+          f"{label}: the verify's GEMMs took {verify_variants}; tc_small only expected")
+    if mgr is not None:
+        check(eng.n_draft_tokens > 0, f"{label}: no draft token was proposed")
+        check(not stats["short_rounds"],
+              f"{label}: rounds proposed fewer than min(gamma, budget) tokens: "
+              f"{stats['short_rounds'][:8]}")
+        for r in reqs:
+            check(len(r.output) == r.n_draft_accepted + r.n_spec_rounds,
+                  f"{label}: request {r.rid}'s accounting {len(r.output)} != "
+                  f"{r.n_draft_accepted} + {r.n_spec_rounds}")
+    return stats, {r.rid: r.output for r in reqs}, eng
+
+
+def verify_and_draft_calls(dev, plan, artifact, draft_plan, draft_params, prompts, gamma):
+    """One verify call (B = 8 lanes, L = γ + 1) of the served artifact against
+    L sequential ``paged_decode_step`` calls on a copy of the same cache, and
+    one ``paged_draft_tokens`` call of the RTN draft; both calls' kernel 3
+    and kernel 5 launches held against their plain versions at phase 3's
+    tolerances (:func:`check_path_calls`).  Returns the verify's largest
+    |Δ logit| as a share of max |logit| and the kernels' checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.models import model as M
+
+    B, L, psz = len(prompts), gamma + 1, PAGE
+    rng = np.random.default_rng(9)
+    pages = [-(-(len(p) + L) // psz) for p in prompts]
+    n_pages = 1 + sum(pages)
+    table = np.zeros((B, max(pages)), np.int32)
+    nxt = 1
+    for b, n in enumerate(pages):
+        table[b, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    checks = {}
+    for who, pl, prm in (("verify", plan, artifact), ("draft", draft_plan, draft_params)):
+        cache = M.init_paged_cache(pl, n_pages, psz, device=dev)
+        dt = torch.as_tensor(table, device=dev)
+        for b, p in enumerate(prompts):
+            for off in range(0, len(p), SPEC_PAGED["prefill_chunk"]):
+                buf = np.zeros((1, SPEC_PAGED["prefill_chunk"]), np.int32)
+                chunk = p[off : off + SPEC_PAGED["prefill_chunk"]]
+                buf[0, : len(chunk)] = chunk
+                M.paged_prefill_chunk(pl, prm, buf, cache, dt[b : b + 1], off)
+        pos0 = np.array([len(p) - 1 for p in prompts], np.int64)
+        wp = np.array([[table[b, (pos0[b] + j) // psz] for j in range(L)] for b in range(B)])
+        toks = np.concatenate([np.array([[p[-1]] for p in prompts]),
+                               rng.integers(0, pl.cfg.vocab, (B, L - 1))], 1).astype(np.int32)
+        copy = {k: {n: t.clone() for n, t in v.items()} for k, v in cache.items()}
+        before = dict(dequant_matmul_cuda.launches_by_variant)
+        with recording_calls(kept=1) as calls:
+            if who == "verify":
+                got, _ = M.paged_verify_tokens(pl, prm, toks, cache, pos0, dt, wp)
+            else:
+                got, _ = M.paged_draft_tokens(pl, prm, toks, np.ones(B, np.int32), cache, pos0,
+                                              dt, wp)
+        variants = _variant_delta(before)
+        checks[who] = check_path_calls(calls, variants, phase=f"phase 9 {who}")
+        del calls
+        if who == "verify":
+            got = got.float().cpu().numpy()
+            seq = []
+            for j in range(L):
+                lg, _ = M.paged_decode_step(pl, prm, toks[:, j : j + 1], copy, pos0 + j, dt, wp[:, j])
+                seq.append(lg.float().cpu().numpy())
+            seq = np.stack(seq, 1)
+            share = float(np.abs(got - seq).max() / np.abs(seq).max())
+            print(f"[spec] verify of {B} lanes x {L} positions against {L} sequential decode steps: "
+                  f"max |Δ logit| {share:.3g} of max |logit| (tolerance {SERVE_LOGIT_TOL}); its "
+                  f"GEMMs by variant {variants}", flush=True)
+            check(share <= SERVE_LOGIT_TOL, f"verify vs sequential decode: {share} of max |logit|")
+            check(variants["tc_small"] > 0 and variants["tc_large"] == variants["simt"] == 0,
+                  f"the verify's GEMMs at m = {B * L} took {variants}: tc_small only expected")
+        else:
+            print(f"[spec] draft call ({B} lanes x {L} steps, {draft_params['dec']['b0']['wq'].bits}-"
+                  f"bit RTN codes): GEMMs by variant {variants}", flush=True)
+            check(variants["tc_small"] > 0 and variants["simt"] == 0,
+                  f"the draft's GEMMs at m = {B} took {variants}")
+        del cache, copy
+    return share, checks
+
+
+def speculation(dev, detail, plan, artifact, dense, quality_model):
+    """Phase 9 (a) and (b): the ``quantease@4`` artifact (Phi-3-mini, full
+    width, 2 of 32 layers) served with γ = 4 by no draft, the target itself,
+    a 3-bit RTN draft of the dense params and the 1-period truncation; then
+    the trained ``bench_opt_s`` of phase 7 with a 3-bit RTN and a 1-period
+    draft.  Afterwards one verify and one draft call are held against
+    their plain versions.  Returns the kernels' launch counts over the
+    served runs and those checks."""
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.serve import PagedServingEngine
+    from repro_torch.serve.qparams import rtn_quantize_for_serving
+    from repro_torch.serve.spec import SpecConfig, truncate_draft
+
+    def runs_against_plain(tag, make_engine, drafts, prompts):
+        """Each draft's run (the first, "plain", has none), one engine at a
+        time, each speculative stream held to the plain one."""
+        runs, plain = {}, None
+        for label, spec in drafts.items():
+            stats, out, eng = spec_serve(f"{tag}{label}", lambda: make_engine(spec), prompts,
+                                         SPEC_NEW_TOKENS, SPEC_GAMMA)
+            runs[label] = stats
+            if plain is None:
+                plain = (eng.logit_trace, out)
+                continue
+            del eng
+            gc.collect()
+            parted, compared = spec_agree(*plain, out, SERVE_LOGIT_TOL)
+            stats["margin_rule"] = dict(parted=parted, compared=compared)
+            print(f"[spec] {tag}{label} against plain under the margin rule: {compared} "
+                  f"positions compared, parted at {parted}; identical streams "
+                  f"{sum(out[i] == plain[1][i] for i in out)} of {len(out)}", flush=True)
+            check(not parted, f"{tag}{label}: the speculative stream parts from the plain one "
+                              f"above the margin at {parted}")
+        return runs
+
+    cfg = plan.cfg
+    prompts = serve_traffic(cfg.vocab)[:SPEC_REQUESTS]
+    ample = 1 + SPEC_PAGED["max_batch"] * -(-SPEC_PAGED["max_seq"] // PAGE)
+    rtn, rtn_layout = rtn_quantize_for_serving(plan, dense, bits=SPEC_DRAFT_BITS)
+    drafts = {
+        "plain": None,
+        "self-draft": SpecConfig(draft_plan=plan, draft_params=artifact, gamma=SPEC_GAMMA),
+        f"{SPEC_DRAFT_BITS}-bit RTN draft": SpecConfig(draft_plan=plan, draft_params=rtn,
+                                                       gamma=SPEC_GAMMA),
+        "1-period draft": SpecConfig(*truncate_draft(plan, artifact, 1), gamma=SPEC_GAMMA),
+    }
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    runs = runs_against_plain("", lambda spec: PagedServingEngine(
+        plan, artifact, **SPEC_PAGED, n_pages=SPEC_POOL * ample, spec=spec, record_logits=True,
+        device=dev), drafts, prompts)
+    t_a = time.monotonic() - t0
+    margins = runs["self-draft"]["rejection_margins"]
+    print(f"[spec] self-draft: {len(margins)} rejections, the largest top-2 margin at one "
+          f"{max(margins, default=0.0):.3g} of max |logit| (tolerance {SERVE_LOGIT_TOL}); "
+          f"RTN draft layout {rtn_layout}; {t_a:.1f}s", flush=True)
+    check(max(margins, default=0.0) < SERVE_LOGIT_TOL,
+          f"the self-draft was rejected at top-2 margins {sorted(margins)[-4:]} of max |logit|")
+
+    # (b) Acceptance on a model whose logits carry signal: random Phi-3
+    # weights give near-uniform logits, so (a)'s rates say nothing of a draft.
+    t0 = time.monotonic()
+    qplan, qparams = quality_model
+    fn, _ = make_batch_fn(DataConfig(vocab=qplan.cfg.vocab, seed=0), qplan.cfg, SPEC_REQUESTS,
+                          SPEC_TRAINED_PROMPT, split="eval")
+    qprompts = [t.astype("int32") for t in fn(0)["tokens"]]
+    qdrafts = {
+        "plain": None,
+        f"{SPEC_DRAFT_BITS}-bit RTN draft": SpecConfig(
+            qplan, rtn_quantize_for_serving(qplan, qparams, bits=SPEC_DRAFT_BITS)[0],
+            gamma=SPEC_GAMMA),
+        "1-period draft": SpecConfig(*truncate_draft(qplan, qparams, 1), gamma=SPEC_GAMMA),
+    }
+    trained = runs_against_plain(f"{qplan.cfg.name} ", lambda spec: PagedServingEngine(
+        qplan, qparams, **SPEC_TRAINED, spec=spec, record_logits=True, device=dev),
+        qdrafts, qprompts)
+    counts = ops.launch_counts()
+    variants = dict(dequant_matmul_cuda.launches_by_variant)
+    print(f"[spec] {qplan.cfg.name} (trained {QUALITY_TRAIN['steps']} steps): acceptance "
+          + ", ".join(f"{k} {v['acceptance']:.3f}" for k, v in trained.items()
+                      if v["acceptance"] is not None)
+          + f" ({time.monotonic() - t0:.1f}s); launches over phase 9's served runs: {counts}, "
+          f"dequant_matmul by variant {variants}", flush=True)
+    for name in ("dequant_matmul", "paged_attention"):
+        check(counts[name] > 0, f"kernel {name} was not launched by speculative serving")
+
+    # One verify and one draft call against their plain versions (after the
+    # counts were read: these launches are checks).
+    share, path_checks = verify_and_draft_calls(dev, plan, artifact, plan, rtn, prompts, SPEC_GAMMA)
+    detail["speculation"] = dict(runs=runs, trained=trained, verify_share=share,
+                                 kernels_at_path=path_checks, launches=counts,
+                                 gemm_variants=variants, seconds_a=t_a)
+    return counts, path_checks
+
+
+def tune_cli(dev, detail, root, train_dir):
+    """Phase 9 (c): ``repro_torch.launch.tune`` in process on
+    ``phi3_mini_3_8b_2l`` from phase 8's training checkpoint, then with
+    ``--resume`` (every candidate replayed); then ``launch.serve`` on the
+    tuner's output, plain and with ``--speculate --draft-bits 3`` and
+    ``--speculate --draft-layers 1``.  Returns the kernels' launch counts
+    over the CLIs."""
+    import io
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import tune as ltune
+    from repro_torch.launch.progress import load_progress
+    from repro_torch.tune import search
+
+    tune_dir = os.path.join(root, "tune")
+    seconds, texts, per_cand = {}, {}, []
+    evaluate = search.evaluate_candidate
+
+    def counted(*a, **kw):
+        before = ops.launch_counts()["dequant_matmul"]
+        res = evaluate(*a, **kw)
+        per_cand.append((res["label"], ops.launch_counts()["dequant_matmul"] - before))
+        return res
+
+    def run(label, cli, *argv):
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(["--arch", CLI_ARCH, *argv, "--device", dev.type])
+        torch.cuda.synchronize()
+        seconds[label] = time.monotonic() - t0
+        texts[label] = buf.getvalue()
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    ops.reset_launch_counts()
+    search.evaluate_candidate = counted
+    try:
+        doc = run("tune", ltune, "--ckpt-dir", train_dir, "--out-dir", tune_dir, *TUNE_CLI)
+        evaluated = list(per_cand)
+        per_cand.clear()
+        tune_counts = ops.launch_counts()
+        variants = dict(dequant_matmul_cuda.launches_by_variant)
+        resumed = run("tune --resume", ltune, "--ckpt-dir", train_dir, "--out-dir", tune_dir,
+                      *TUNE_CLI, "--resume")
+    finally:
+        search.evaluate_candidate = evaluate
+    cands = doc["candidates"]
+    print("[tune] candidates: " + "; ".join(
+        f"{c['label']} avg_bits {c['avg_bits']} ppl {c['ppl']:.4f} mean_layer_err "
+        f"{c['mean_layer_err']:.6f}" + (f" bits {c['bits_histogram']}" if "bits_histogram" in c else "")
+        for c in cands) + f"; winner {doc['best']['label']}; kernel 3 launches per candidate "
+        f"{evaluated}; launches {tune_counts}, dequant_matmul by variant {variants} "
+        f"({seconds['tune']:.1f}s); --resume replayed {len(resumed['candidates'])} and evaluated "
+        f"{len(per_cand)} ({seconds['tune --resume']:.1f}s)", flush=True)
+    check(doc["best"]["ppl"] <= doc["uniform"]["ppl"],
+          f"the tuner's winner {doc['best']} is worse than uniform {doc['uniform']}")
+    check(len(evaluated) == len(cands) and all(n > 0 for _, n in evaluated),
+          f"kernel 3 launches per candidate artifact: {evaluated}")
+    check(tune_counts["quantease_block_sweep"] > 0 and tune_counts["quantease_fused_iteration"] > 0,
+          f"the tuner's QuantEase solves did not launch kernels 1 and 2: {tune_counts}")
+    check(f"resume: {len(cands)} candidate(s) already evaluated" in texts["tune --resume"]
+          and not per_cand and resumed["candidates"] == cands and resumed["best"] == doc["best"],
+          f"tune --resume: {texts['tune --resume'][:300]}")
+    recs = load_progress(os.path.join(tune_dir, "progress.jsonl"))
+    check(sum("candidate" in r for r in recs) == len(cands),
+          f"progress.jsonl holds {sum('candidate' in r for r in recs)} candidate records")
+
+    served = {}
+    for label, extra in (("plain", ()), ("--draft-bits 3", ("--speculate", "--draft-bits", "3")),
+                         ("--draft-layers 1", ("--speculate", "--draft-layers", "1"))):
+        k5 = ops.launch_counts()["paged_attention"]
+        res = run(f"serve {label}", lserve, "--ckpt-dir", tune_dir, *CLI_SERVE, "--record-logits",
+                  *extra)
+        k5 = ops.launch_counts()["paged_attention"] - k5
+        reqs = res["requests"]
+        want_new = int(CLI_SERVE[CLI_SERVE.index("--max-new") + 1])
+        check(all(r.status == "completed" and len(r.output) == want_new for r in reqs),
+              f"serve {label} on the tuner's output: "
+              f"{[(r.rid, r.status, len(r.output or [])) for r in reqs]}")
+        want_k5 = res["n_decode_steps"] * CLI_PERIODS
+        line = ""
+        if "spec" in res:
+            sp = res["spec"]
+            want_k5 += sp["propose_calls"] * (TUNE_SERVE_GAMMA + 1) * sp["draft_periods"]
+            line = next((l for l in texts[f"serve {label}"].splitlines()
+                         if l.startswith("speculative:")), "")
+            check(bool(line) and sp["draft_tokens"] > 0, f"serve {label}: no speculative report")
+            parted, compared = spec_agree(served["plain"][0], served["plain"][1],
+                                          {r.rid: r.output for r in reqs}, SERVE_LOGIT_TOL)
+            check(not parted, f"serve {label}: parts from the plain serve above the margin at {parted}")
+            line += f"; against plain: {compared} positions compared, none parted"
+        check(k5 == want_k5, f"serve {label}: kernel 5 launched {k5}, expected {want_k5}")
+        served[label] = (res["logit_trace"], {r.rid: r.output for r in reqs})
+        print(f"[tune] serve {label} on the tuner's output: {len(reqs)} requests x {want_new} "
+              f"tokens, {res['n_decode_steps']} decode rounds, kernel 5 launched {k5}"
+              + (f"; {line}" if line else "") + f" ({seconds['serve ' + label]:.1f}s)", flush=True)
+    counts = ops.launch_counts()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_tune_cli.txt"), "w") as fh:
+        for label, text in texts.items():
+            fh.write(f"==== {label} ({seconds[label]:.1f}s)\n{text}\n")
+    detail["tune_cli"] = dict(seconds=seconds, doc=doc, per_candidate_gemm_launches=evaluated,
+                              launches=counts, gemm_variants=variants)
+    return counts
 
 
 def main() -> None:
@@ -2442,7 +2908,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     card_tests()
     torch.cuda.empty_cache()
-    counts_ptq, plan, artifact = main_path(dev, detail)
+    counts_ptq, plan, artifact, dense = main_path(dev, detail)
     expected = sum(x["launches_on_path"] for x in detail["block_sweep"])
     check(counts_ptq["quantease_block_sweep"] == expected,
           f"kernel 1 launched {counts_ptq['quantease_block_sweep']} times on the PTQ path, "
@@ -2455,18 +2921,30 @@ def main() -> None:
     print(f"[phase] 5b, training at full width: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
     counts_serve = serving(dev, detail, plan, artifact)
-    del artifact
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    counts_quality, at_path = quality_table(dev, detail, card)
+    counts_quality, at_path, quality_model = quality_table(dev, detail, card)
     print(f"[phase] 7, the quality table: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
-    t0 = time.monotonic()
-    counts_cli, at_cli = cli_path(dev, detail)
-    print(f"[phase] 8, the command-line path: {time.monotonic() - t0:.1f}s", flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.monotonic()
+        counts_cli, at_cli = cli_path(dev, detail, root)
+        print(f"[phase] 8, the command-line path: {time.monotonic() - t0:.1f}s", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        counts_spec, at_spec = speculation(dev, detail, plan, artifact, dense, quality_model)
+        del artifact, dense, quality_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts_tune = tune_cli(dev, detail, root, os.path.join(root, "train"))
+        print(f"[phase] 9, speculation and the tuner at full width: {time.monotonic() - t0:.1f}s",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     # Each path's counts were read just after it ran, from 0.
     paths = dict(ptq=counts_ptq, train=counts_train, serving=counts_serve, quality=counts_quality,
-                 cli=counts_cli)
+                 cli=counts_cli, speculation=counts_spec, tune=counts_tune)
     counts = {k: sum(c[k] for c in paths.values()) for k in counts_ptq}
     detail["launches"] = paths
 
@@ -2483,6 +2961,8 @@ def main() -> None:
             quality_max_abs_err=at_path[name.replace("quantease_", "")]["max_abs_err"],
             cli_calls_checked=at_cli[name.replace("quantease_", "")]["calls"],
             cli_max_abs_err=at_cli[name.replace("quantease_", "")]["max_abs_err"],
+            spec_calls_checked=sum(c.get(name.replace("quantease_", ""), {}).get("calls", 0)
+                                   for c in at_spec.values()),
         ))
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")

@@ -41,7 +41,7 @@ from repro_torch.core import quantease
 from repro_torch.core.awq import awq_quantize, awq_then_quantease
 from repro_torch.core.calib import CalibStats
 from repro_torch.core.gptq import gptq_quantize
-from repro_torch.core.outlier import outlier_quantease
+from repro_torch.core.outlier import outlier_quantease, power_lambda_max
 from repro_torch.core.spqr import spqr_quantize
 from repro_torch.core.quantease import relative_error
 from repro_torch.device import require_on_device
@@ -100,6 +100,9 @@ class PTQConfig:
     # Per-layer overrides keyed by layer path ("dec.p0.b1/wq") or bare leaf
     # name ("wq"); the exact path wins.
     layer_specs: Optional[dict] = None
+    # The tuner's sensitivity signal: each progress record also carries the
+    # block's per-layer λ_max(Σ) (power iteration) under "lambda_max".
+    collect_sensitivity: bool = False
 
     def qe_config(self) -> quantease.QuantEaseConfig:
         """The CD-solver config this run resolves to.  As in the reference,
@@ -218,10 +221,12 @@ def _emit_leaf(w_hat, h, like, cfg: PTQConfig, grid):
     return qt
 
 
-def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report: dict) -> dict:
+def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report: dict,
+                    sens: Optional[dict] = None) -> dict:
     """Quantize every captured linear of one block, grouped by shape and
     effective per-layer config (layers given other bits or another method
-    never share a solve).
+    never share a solve).  With ``cfg.collect_sensitivity``, ``sens`` gets
+    each layer's λ_max(Σ) under its report key.
 
     Leaves are visited in sorted order, the order of the reference's
     param pytrees, so groups and report keys come out in the same order."""
@@ -243,6 +248,10 @@ def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report
         sig3 = torch.stack([it[3] for it in group])
         w_hat3, h3, grid3 = _solve_group(w3, sig3, eff)
         errs = relative_error(w3, w_hat3 if h3 is None else w_hat3 + h3, sig3).tolist()
+        if cfg.collect_sensitivity and sens is not None:
+            lam = power_lambda_max(sig3).tolist()
+            for g, (_, key, _, _) in enumerate(group):
+                sens[key] = float(lam[g])
         for g, (name, key, _, _) in enumerate(group):
             report[key] = float(errs[g])
             new[name] = _emit_leaf(w_hat3[g], None if h3 is None else h3[g], p_blk[name], eff,
@@ -303,14 +312,15 @@ def _quantize_period(plan, p_period: dict, period: int, xs: list, cfg: PTQConfig
             for x in xs:
                 _apply_block(plan, b, p_period[f"b{i}"], x, cfg.stream_chunk)
         n_before = len(report)
-        new_blk = _quantize_block(p_period[f"b{i}"], stats, scope, cfg, report)
+        sens: dict[str, float] = {}
+        new_blk = _quantize_block(p_period[f"b{i}"], stats, scope, cfg, report, sens)
         new_period[f"b{i}"] = new_blk
         # Recompute this block's outputs with its quantized weights.
         xs = [_apply_block(plan, b, new_blk, x, cfg.stream_chunk) for x in xs]
         if progress_cb is not None:
             new_keys = list(report)[n_before:]
             errs = [report[k] for k in new_keys]
-            progress_cb({
+            rec = {
                 "stack": "dec",
                 "period": period,
                 "block": i,
@@ -320,7 +330,10 @@ def _quantize_period(plan, p_period: dict, period: int, xs: list, cfg: PTQConfig
                 "mean_rel_error": float(np.mean(errs)) if errs else 0.0,
                 "layer_errors": {k: float(report[k]) for k in new_keys},
                 "seconds": round(time.monotonic() - t0, 3),
-            })
+            }
+            if sens:
+                rec["lambda_max"] = sens
+            progress_cb(rec)
     return new_period, xs
 
 

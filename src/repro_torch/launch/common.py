@@ -1,5 +1,10 @@
 """What the launchers share: the device flag, the fault plan, the model
-config and the checkpoint templates."""
+config and the checkpoint templates.
+
+A checkpoint of quantized serving params (``launch.tune``'s output) records
+each QuantizedTensor leaf's static fields in its ``meta["qt_layout"]``
+(:func:`qt_layout`), since the manifest records only array shapes and
+dtypes; :func:`load_params` builds its template from them."""
 
 from __future__ import annotations
 
@@ -10,7 +15,7 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["add_device_flag", "device_of", "fault_plan_of", "model_config", "load_params",
-           "train_template"]
+           "train_template", "qt_layout"]
 
 
 def add_device_flag(ap) -> None:
@@ -57,14 +62,81 @@ def train_template(plan, device) -> dict:
             "opt": adamw_init(empty_params(plan, device="meta"), AdamWConfig())}
 
 
+def qt_layout(params) -> dict:
+    """``{"<block>/<name>": fields}`` for every QuantizedTensor ``dec`` leaf:
+    its static fields and the names of its array fields that are set (the
+    ``meta["qt_layout"]`` of a quantized checkpoint)."""
+    import dataclasses
+
+    from repro_torch.quant import QuantizedTensor
+
+    out = {}
+    for key, blk in params["dec"].items():
+        for name, leaf in blk.items():
+            if isinstance(leaf, QuantizedTensor):
+                static = {f.name: getattr(leaf, f.name) for f in dataclasses.fields(leaf)
+                          if f.metadata.get("static")}
+                out[f"{key}/{name}"] = dict(static, arrays=[
+                    f.name for f in dataclasses.fields(leaf)
+                    if not f.metadata.get("static") and getattr(leaf, f.name) is not None])
+    return out
+
+
+def _quantized_template(plan, device, manifest: dict) -> dict:
+    """A ``{"params": ...}`` template for a checkpoint whose meta has a
+    ``qt_layout``: the dense params with those leaves made QuantizedTensors,
+    each array an empty tensor of the manifest's shape and dtype."""
+    import numpy as np
+
+    from repro_torch.models import empty_params
+    from repro_torch.quant import QuantizedTensor
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    marker = object()
+    params = empty_params(plan, device="meta")
+    for path, fields in manifest["meta"]["qt_layout"].items():
+        key, name = path.split("/")
+        static = {k: v for k, v in fields.items() if k != "arrays"}
+        params["dec"][key][name] = QuantizedTensor(
+            codes=marker, scale=marker, zero=marker, **static,
+            **{f: marker for f in fields["arrays"] if f not in ("codes", "scale", "zero")})
+    leaves, treedef = tree_flatten({"params": params})
+    recs = manifest["leaves"]
+    if len(recs) != len(leaves):
+        raise ValueError(f"checkpoint has {len(recs)} leaves, its qt_layout template {len(leaves)}")
+
+    def dtype(name):
+        return torch.bfloat16 if name == "bfloat16" else torch.from_numpy(np.empty(0, name)).dtype
+
+    def empty(leaf, rec):
+        if leaf is marker:
+            return torch.empty(rec["shape"], dtype=dtype(rec["dtype"]), device=device)
+        return torch.empty_like(leaf, device=device)
+
+    return tree_unflatten(treedef, [empty(l, r) for l, r in zip(leaves, recs)])
+
+
 def load_params(ckpt_dir: str, plan, device):
-    """The params of the newest checkpoint in ``ckpt_dir``: a params-only
-    one (quantize/eval output), or a training one (params and optimizer
-    state).  Returns ``(params, manifest)``; raises ``FileNotFoundError``
-    when there is none."""
+    """The params of the newest checkpoint in ``ckpt_dir``: quantized serving
+    params (a ``qt_layout`` in its meta: ``launch.tune``'s output), a
+    params-only one (quantize/eval output), or a training one (params and
+    optimizer state).  Returns ``(params, manifest)``; raises
+    ``FileNotFoundError`` when there is none."""
+    import json
+    import os
+
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.models import empty_params
 
+    step = ckpt.latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    with open(os.path.join(ckpt_dir, f"step_{step}", "manifest.json")) as f:
+        manifest = json.load(f)
+    if "qt_layout" in manifest["meta"]:
+        like = _quantized_template(plan, device, manifest)
+        state, manifest = ckpt.load_checkpoint(ckpt_dir, like, step=step)
+        return state["params"], manifest
     try:
         state, manifest = ckpt.load_checkpoint(ckpt_dir, {"params": empty_params(plan, device=device)})
     except ValueError:

@@ -9,8 +9,20 @@ page pool, chunked prefill, prefix caching, SLO-aware scheduling);
 ``--engine contiguous`` keeps the per-slot ``max_seq`` reservation.
 ``--kv-dtype int4`` needs the paged engine.  SLO knobs: ``--deadline-ms``,
 ``--priority``, ``--scheduler``; ``--fault-plan`` activates seeded fault
-injection.  Speculative decoding (``--speculate``, ``--draft-*``) is not
-ported yet (ROADMAP queue 1 item 5): those flags exit with a message.
+injection.
+
+Speculative decoding (paged engine): ``--speculate`` turns on
+self-speculative greedy decode, a draft stack proposing ``--gamma`` tokens a
+round into draft-owned pages of the same pool and one target forward
+verifying them.  The draft is ``--draft-layers K`` (the served stack's first
+K periods), ``--draft-bits B`` (round-to-nearest of the loaded checkpoint:
+``serve.qparams.rtn_quantize_for_serving``; a quantized checkpoint is
+dequantized first), ``--draft-checkpoint DIR``, or a combination (bits or
+checkpoint, then truncated by ``--draft-layers``); ``--speculate`` alone
+truncates at half depth.  ``--record-logits`` keeps each step's logits in the
+returned result (``"logit_trace"``), for callers that compare runs.
+Checkpoints of quantized serving params (``launch.tune``'s output) load as
+they are.
 """
 
 from __future__ import annotations
@@ -23,9 +35,6 @@ import tempfile
 from repro_torch.launch.common import add_device_flag, device_of, fault_plan_of, load_params
 
 __all__ = ["main", "load_params"]
-
-_SPEC_REFUSAL = ("speculative decoding (serve/spec.py: the draft stack, batched verify) is not "
-                 "ported yet (ROADMAP queue 1 item 5)")
 
 
 def _positive_int(name):
@@ -69,17 +78,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--priority", type=int, default=0, help="request priority (higher = sooner)")
     ap.add_argument("--fault-plan", default="",
                     help="fault-injection plan: path to a JSON spec or an inline JSON string")
-    ap.add_argument("--speculate", action="store_true", help="not ported: exits")
-    ap.add_argument("--gamma", type=_positive_int("--gamma"), default=4, help="not ported")
+    ap.add_argument("--speculate", action="store_true",
+                    help="self-speculative greedy decode (paged engine only)")
+    ap.add_argument("--gamma", type=_positive_int("--gamma"), default=4,
+                    help="draft tokens proposed per speculative round")
     ap.add_argument("--draft-layers", type=_positive_int("--draft-layers"), default=None,
-                    help="not ported: exits")
+                    help="truncated self-draft: the served stack's first K periods")
     ap.add_argument("--draft-bits", type=_positive_int("--draft-bits"), default=None,
-                    help="not ported: exits")
-    ap.add_argument("--draft-checkpoint", default="", help="not ported: exits")
+                    help="round-to-nearest the loaded checkpoint to this many bits as the draft")
+    ap.add_argument("--draft-checkpoint", default="",
+                    help="the draft from a separate checkpoint dir (same arch)")
+    ap.add_argument("--record-logits", action="store_true",
+                    help="return each step's logits (result['logit_trace'])")
     add_device_flag(ap)
     args = ap.parse_args(argv)
-    if args.speculate or args.draft_layers or args.draft_bits or args.draft_checkpoint:
-        raise SystemExit(f"--speculate/--draft-*: {_SPEC_REFUSAL}")
     dev = device_of(args)
     with fault_plan_of(args.fault_plan):
         return _run(args, dev)
@@ -127,14 +139,22 @@ def _run(args, dev) -> dict:
                   "BACK to the contiguous engine: no paged KV pool, no prefix cache, no SLO "
                   "preemption (pass --strict-engine to make this a hard error)", file=sys.stderr)
             args.engine = "contiguous"
+    if args.speculate and args.engine != "paged":
+        # No silent downgrade: draft pages live in the paged pool.
+        raise SystemExit(
+            "--speculate requires the paged engine (draft tokens decode into draft-owned "
+            f"pages of the shared pool); it is unavailable with --engine {args.engine} for "
+            f"arch {args.arch!r}")
+    spec = _spec_config(args, cfg, plan, params, dev) if args.speculate else None
     if args.engine == "paged":
         eng = PagedServingEngine(
             plan, params, max_batch=args.max_batch, max_seq=512, page_size=args.page_size,
             n_pages=args.n_pages or None, prefill_chunk=args.prefill_chunk,
-            scheduler=args.scheduler, device=dev,
+            scheduler=args.scheduler, spec=spec, record_logits=args.record_logits, device=dev,
         )
     else:
-        eng = ServingEngine(plan, params, max_batch=args.max_batch, max_seq=512, device=dev)
+        eng = ServingEngine(plan, params, max_batch=args.max_batch, max_seq=512,
+                            record_logits=args.record_logits, device=dev)
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, rng.integers(4, 32)).astype(np.int32)
@@ -149,11 +169,48 @@ def _run(args, dev) -> dict:
               f"({eng.n_prefix_hit_tokens} prefix-cached tokens, "
               f"{eng.n_preemptions} preemptions, {eng.n_shed} shed, "
               f"{eng.n_deadline_missed} deadline-missed)")
+        if args.speculate:
+            acc = eng.acceptance_rate()
+            print(f"speculative: {eng.n_spec_rounds} rounds, {eng.n_draft_accepted}/"
+                  f"{eng.n_draft_tokens} draft tokens accepted (rate "
+                  f"{'-' if acc is None else format(acc, '.3f')}, γ={args.gamma})")
     else:
         print(f"{len(finished)} requests, {eng.n_decode_steps} decode steps, "
               f"{eng.n_prefills} prefills")
-    return {"engine": args.engine, "requests": finished, "n_decode_steps": eng.n_decode_steps,
-            "layouts": layouts}
+    out = {"engine": args.engine, "requests": finished, "n_decode_steps": eng.n_decode_steps,
+           "layouts": layouts, "logit_trace": eng.logit_trace}
+    if spec is not None:
+        out["spec"] = {"rounds": eng.n_spec_rounds, "draft_tokens": eng.n_draft_tokens,
+                       "accepted": eng.n_draft_accepted, "acceptance_rate": eng.acceptance_rate(),
+                       "propose_calls": eng.spec_mgr.n_propose_calls,
+                       "draft_periods": spec.draft_plan.cfg.n_periods}
+    return out
+
+
+def _spec_config(args, cfg, plan, params, dev):
+    """The ``SpecConfig`` of ``--speculate`` and the ``--draft-*`` flags."""
+    from repro_torch.serve.qparams import rtn_quantize_for_serving
+    from repro_torch.serve.spec import SpecConfig, truncate_draft
+
+    draft_plan, draft_params = plan, params
+    if args.draft_checkpoint:
+        draft_params, d_manifest = load_params(args.draft_checkpoint, plan, dev)
+        print(f"draft checkpoint: step {d_manifest['step']}")
+    if args.draft_bits:
+        draft_params, d_layout = rtn_quantize_for_serving(plan, draft_params, bits=args.draft_bits)
+        print(f"draft: {args.draft_bits}-bit RTN [{d_layout}]")
+    k = args.draft_layers
+    if k is None and not args.draft_bits and not args.draft_checkpoint:
+        k = max(1, cfg.n_periods // 2)
+        print(f"--speculate with no draft source: truncated self-draft at {k}/{cfg.n_periods} "
+              "periods")
+    if k is not None:
+        if k >= cfg.n_periods:
+            raise SystemExit(
+                f"--draft-layers {k} must be < the target's {cfg.n_periods} periods — a "
+                "full-depth draft is the target itself and speculation would only add overhead")
+        draft_plan, draft_params = truncate_draft(draft_plan, draft_params, k)
+    return SpecConfig(draft_plan=draft_plan, draft_params=draft_params, gamma=args.gamma)
 
 
 if __name__ == "__main__":

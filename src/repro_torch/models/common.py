@@ -6,7 +6,9 @@ needed, so the :class:`HeadPlan` is the true architecture.
 
 Any weight may be a :class:`~repro_torch.quant.QuantizedTensor`;
 :func:`apply_linear` sends those through the dequantizing GEMM
-(:func:`repro_torch.kernels.ops.dequant_matmul`).
+(:func:`repro_torch.kernels.ops.dequant_matmul`).  A :class:`HoistedDequant`
+(:func:`hoist_dequant`) holds such a weight already dequantized, for the
+plain path on the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.quant import QuantizedTensor
+from repro_torch.tree import register_dataclass
 
 __all__ = [
     "HeadPlan",
@@ -34,6 +37,8 @@ __all__ = [
     "capture_scope",
     "capture_gram_stats",
     "apply_linear",
+    "HoistedDequant",
+    "hoist_dequant",
     "flash_attention",
     "decode_attention",
 ]
@@ -154,36 +159,47 @@ def _record_linear(name, x):
     stats[key] = stats[key].update_tokens(x)
 
 
-def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) -> torch.Tensor:
-    """y = x @ W, where W is ``(d_in, *out_dims)`` dense or a QuantizedTensor
-    with codes ``(prod(out_dims), d_in)``.  x: ``(..., d_in)``."""
-    _record_linear(name, x)
-    if isinstance(w, QuantizedTensor):
-        from repro_torch.kernels import ops
+def _outlier_adds(w, x2: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
+    """The post-GEMM outlier corrections of a quantized weight ``w`` (a
+    QuantizedTensor or HoistedDequant), in fp32: the rank-s COO planes,
+    ``y[:, rows] += x[:, cols] · vals``, then the structured columns."""
+    if w.outlier_values is not None:
+        idx = w.outlier_idx.long()
+        rows, cols = idx // w.shape[-1], idx % w.shape[-1]
+        contrib = x2[:, cols].to(torch.float32) * w.outlier_values.to(torch.float32)
+        y2 = y2.to(torch.float32).index_add(1, rows, contrib).to(x2.dtype)
+    if w.outlier_col_idx is not None:
+        cols = w.outlier_col_idx.long()
+        y2 = (y2.to(torch.float32)
+              + x2[:, cols].to(torch.float32) @ w.outlier_col_vals.to(torch.float32).T
+              ).to(x2.dtype)
+    return y2
 
-        if w.pack_layout != "linear":
-            raise NotImplementedError(
-                "the port's dequant-GEMM reads the linear pack layout; tile-native "
-                "codes are un-prepacked where an artifact enters the port "
-                "(interop.qtensor_from_jax, dist.checkpoint, quant.as_linear_layout)")
+
+def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) -> torch.Tensor:
+    """y = x @ W, where W is ``(d_in, *out_dims)`` dense, or a QuantizedTensor
+    or HoistedDequant whose matrix is ``(prod(out_dims), d_in)``.  x:
+    ``(..., d_in)``."""
+    _record_linear(name, x)
+    if isinstance(w, (QuantizedTensor, HoistedDequant)):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
-        y2 = ops.dequant_matmul(
-            x2, w.codes, w.scale, w.zero, packed4=w.packed and w.bits == 4,
-            out_dtype=x.dtype, group_size=w.group_size,
-        )
-        if w.outlier_values is not None:
-            # Rank-s COO correction after the dequant-GEMM, in fp32:
-            # y[:, rows] += x[:, cols] · vals.
-            idx = w.outlier_idx.long()
-            rows, cols = idx // w.shape[-1], idx % w.shape[-1]
-            contrib = x2[:, cols].to(torch.float32) * w.outlier_values.to(torch.float32)
-            y2 = y2.to(torch.float32).index_add(1, rows, contrib).to(x.dtype)
-        if w.outlier_col_idx is not None:
-            cols = w.outlier_col_idx.long()
-            y2 = (y2.to(torch.float32)
-                  + x2[:, cols].to(torch.float32) @ w.outlier_col_vals.to(torch.float32).T
-                  ).to(x.dtype)
+        if isinstance(w, HoistedDequant):
+            # The plain GEMM's own contraction over the bytes it would rebuild.
+            y2 = (x2.to(torch.float32) @ w.w.T).to(x.dtype)
+        else:
+            from repro_torch.kernels import ops
+
+            if w.pack_layout != "linear":
+                raise NotImplementedError(
+                    "the port's dequant-GEMM reads the linear pack layout; tile-native "
+                    "codes are un-prepacked where an artifact enters the port "
+                    "(interop.qtensor_from_jax, dist.checkpoint, quant.as_linear_layout)")
+            y2 = ops.dequant_matmul(
+                x2, w.codes, w.scale, w.zero, packed4=w.packed and w.bits == 4,
+                out_dtype=x.dtype, group_size=w.group_size,
+            )
+        y2 = _outlier_adds(w, x2, y2)
         return y2.reshape(*lead, *(out_shape or (w.shape[0],)))
     d_in = x.shape[-1]
     y = x @ w.reshape(d_in, -1)
@@ -192,6 +208,68 @@ def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) ->
     elif w.dim() > 2 and w.shape[0] == d_in:
         y = y.reshape(*y.shape[:-1], *w.shape[1:])
     return y
+
+
+@register_dataclass
+@dataclasses.dataclass
+class HoistedDequant:
+    """A QuantizedTensor whose dequantization is hoisted out of the forward
+    pass: ``w`` holds byte for byte the fp32 matrix the plain GEMM
+    (``kernels/ref.dequant_matmul_ref``) rebuilds on every call,
+    ``(codes − zero)·scale``, and the outlier planes stay post-GEMM
+    corrections exactly as on the QuantizedTensor path, so the results are
+    bitwise those of the un-hoisted plain path.
+
+    Speculative serving (:mod:`repro_torch.serve.spec`) runs several
+    positions through each weight per call; on the CPU hoisting pays the
+    dequantization once per engine instead of once per call.  On the card
+    the dequant-GEMM (kernel 3) dequantizes in its prologue, and a hoisted
+    ``torch.matmul`` would replace it with a library product, so
+    :func:`repro_torch.serve.spec.maybe_hoist` refuses card params.
+
+    Leaves may carry a leading period axis like every other ``dec`` leaf."""
+
+    w: torch.Tensor  # (..., q, p) fp32
+    outlier_values: Optional[torch.Tensor] = None  # (..., s) fp16
+    outlier_idx: Optional[torch.Tensor] = None  # (..., s) int32, row·p + col
+    outlier_col_idx: Optional[torch.Tensor] = None  # (..., c) int32
+    outlier_col_vals: Optional[torch.Tensor] = None  # (..., q, c) fp32
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.w.shape)
+
+    def map_arrays(self, fn) -> "HoistedDequant":
+        """Apply ``fn`` to every array field (slicing a period, a device move)."""
+        return dataclasses.replace(self, **{
+            f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def hoist_dequant(tree):
+    """``tree`` with every QuantizedTensor leaf replaced by a
+    :class:`HoistedDequant` of its plain-path fp32 matrix (packed codes are
+    unpacked first); dense leaves pass through.  About ``32 / bits`` times
+    the quantized leaves' memory."""
+    from repro_torch.models.model import tree_map
+
+    def one(leaf):
+        if not isinstance(leaf, QuantizedTensor):
+            return leaf
+        codes = leaf.unpacked_codes()
+        p = codes.shape[-1]
+        scale, zero = leaf.scale, leaf.zero
+        if scale.dim() == codes.dim() - 1:  # a per-channel grid stored flat
+            scale, zero = scale[..., None], zero[..., None]
+        gsz = leaf.group_size or -(-p // scale.shape[-1])
+        idx = torch.arange(p, device=codes.device) // gsz
+        return HoistedDequant(
+            w=(codes.to(torch.float32) - zero[..., idx]) * scale[..., idx],
+            outlier_values=leaf.outlier_values, outlier_idx=leaf.outlier_idx,
+            outlier_col_idx=leaf.outlier_col_idx, outlier_col_vals=leaf.outlier_col_vals,
+        )
+
+    return tree_map(one, tree, is_leaf=lambda a: isinstance(a, QuantizedTensor))
 
 
 # --------------------------------------------------------------------------

@@ -14,7 +14,9 @@ stack is a Python loop over periods (the reference scans them).
 Serving: :func:`prefill` / :func:`decode_step` run on a contiguous per-slot
 KV cache (:func:`init_cache`), :func:`paged_prefill_chunk` /
 :func:`paged_decode_step` on a block-paged one (:func:`init_paged_cache`),
-whose decode attention goes through ``kernels.ops.paged_attention``.  Cache
+whose decode attention goes through ``kernels.ops.paged_attention``;
+speculative serving adds :func:`paged_verify_tokens` and
+:func:`paged_draft_tokens`, both built on :func:`paged_decode_step`.  Cache
 leaves carry a leading period axis, as the reference's.  The reference
 returns a new cache from each call; here the cache tensors are updated in
 place and the same dict is returned, so callers keep the reference's form.
@@ -32,6 +34,7 @@ from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (
     HeadPlan,
+    HoistedDequant,
     activation,
     apply_linear,
     apply_norm,
@@ -61,6 +64,8 @@ __all__ = [
     "decode_step",
     "paged_prefill_chunk",
     "paged_decode_step",
+    "paged_verify_tokens",
+    "paged_draft_tokens",
 ]
 
 KV_CACHE_DTYPES = ("bf16", "int8", "int4")
@@ -222,10 +227,10 @@ def _qkv(cfg, hp: HeadPlan, p, h):
 
 
 def _apply_out_proj(w, o, name=None):
-    """o: (B, S, KVp, Gp, hd) → (B, S, d); dense 4-D weight or QuantizedTensor
-    with codes (d, KVp·Gp·hd)."""
+    """o: (B, S, KVp, Gp, hd) → (B, S, d); dense 4-D weight, or a
+    QuantizedTensor / HoistedDequant of matrix (d, KVp·Gp·hd)."""
     o2 = o.reshape(*o.shape[:2], -1)
-    if isinstance(w, QuantizedTensor):
+    if isinstance(w, (QuantizedTensor, HoistedDequant)):
         return apply_linear(w, o2, name=name)
     _record_linear(name, o2)
     # A bf16 o (paged prefill over bf16 pages) meets an fp32 weight exactly
@@ -373,13 +378,15 @@ def _block_apply(cfg, hp, b, p, x, *, pos_ids, **attn_kw):
     return _mlp_sublayer(cfg, b, p, x)
 
 
-def period_slice(stack, i: int):
-    """Period ``i`` of a stacked block tree (dense or QuantizedTensor leaves)."""
-    return tree_map(
-        lambda a: a.map_arrays(lambda t: t[i]) if isinstance(a, QuantizedTensor) else a[i],
-        stack,
-        is_leaf=lambda a: isinstance(a, QuantizedTensor),
-    )
+def _quantized(a) -> bool:
+    return isinstance(a, (QuantizedTensor, HoistedDequant))
+
+
+def period_slice(stack, i):
+    """Period ``i`` (or a slice of periods) of a stacked block tree (dense,
+    QuantizedTensor or HoistedDequant leaves)."""
+    return tree_map(lambda a: a.map_arrays(lambda t: t[i]) if _quantized(a) else a[i],
+                    stack, is_leaf=_quantized)
 
 
 def _run_stack(plan: ModelPlan, stack_params: dict, pattern, x, *, mode: str, pos_ids,
@@ -629,3 +636,68 @@ def paged_decode_step(plan: ModelPlan, params, tokens, cache, pos, page_table, p
         page_write=torch.as_tensor(page_write, device=dev).long(),
     )
     return _final_logits(plan, params, x), cache
+
+
+@torch.no_grad()
+def paged_verify_tokens(plan: ModelPlan, params, tokens, cache, pos0, page_table, write_pages):
+    """The speculative verify forward: ``L`` positions per lane in one
+    :func:`paged_decode_step` call.
+
+    ``tokens``: (B, L), per lane the replayed last committed token and then
+    the draft proposal (right-padded); ``pos0``: (B,) the position of
+    ``tokens[:, 0]``; ``write_pages``: (B, L) the page holding position
+    ``pos0[b] + j`` (the null page for pad columns and inactive lanes).
+    Returns ``(logits (B, L, V), cache)``, ``logits[:, j]`` scoring the
+    token after ``tokens[:, j]``.
+
+    The positions run as ``B·L`` virtual lanes: lane ``(b, j)`` decodes
+    ``tokens[b, j]`` at ``pos0[b] + j`` against lane b's table row.  Each
+    layer writes every lane's K/V into the pages before its attention, so
+    lane ``(b, j)`` reads the keys of ``(b, 0..j-1)`` and its length
+    ``pos + 1`` hides ``(b, j+1..)``: every position takes the decode path's
+    arithmetic, and the weights are read once for all of them.  Pad columns
+    write into the null page; their logits are ignored by the engine.
+    """
+    dev = params["embed"].device
+    tokens = as_tokens(tokens, dev)
+    B, L = tokens.shape
+    pos = (_positions(pos0, B, dev)[:, None] + torch.arange(L, device=dev)[None]).reshape(-1)
+    table = torch.as_tensor(page_table, device=dev, dtype=torch.int32)
+    logits, cache = paged_decode_step(
+        plan, params, tokens.reshape(B * L, 1), cache, pos, table.repeat_interleave(L, dim=0),
+        torch.as_tensor(write_pages, device=dev).reshape(-1),
+    )
+    return logits.reshape(B, L, -1), cache
+
+
+@torch.no_grad()
+def paged_draft_tokens(plan: ModelPlan, params, forced, n_forced, cache, pos0, page_table,
+                       write_pages):
+    """The greedy draft proposal: ``S`` decode steps of the draft stack with
+    the argmax fed back on the device.
+
+    Step ``j`` runs at position ``pos0[b] + j``; for ``j < n_forced[b]`` it
+    is teacher-forced with ``forced[b, j]`` (committed tokens the draft's KV
+    has not seen), later steps feed back the previous step's argmax.
+    ``forced``: (B, S); ``n_forced``: (B,); ``write_pages``: (B, S), the page
+    of position ``pos0[b] + j`` (null once a lane's steps run out).  Returns
+    ``(tokens (B, S) int32, cache)``, ``tokens[b, j]`` step j's argmax
+    (``torch.argmax`` takes the first maximal index, as the engine's
+    ``np.argmax`` does).  Nothing comes back to the host before the end.
+    """
+    dev = params["embed"].device
+    forced = as_tokens(forced, dev)
+    B, S = forced.shape
+    n_forced = torch.as_tensor(n_forced, device=dev).long()
+    pos0 = _positions(pos0, B, dev)
+    table = torch.as_tensor(page_table, device=dev, dtype=torch.int32)
+    write_pages = torch.as_tensor(write_pages, device=dev)
+    prev = torch.zeros(B, dtype=torch.long, device=dev)
+    out = []
+    for j in range(S):
+        inp = torch.where(j < n_forced, forced[:, j], prev)
+        logits, cache = paged_decode_step(plan, params, inp[:, None], cache, pos0 + j, table,
+                                          write_pages[:, j])
+        prev = torch.argmax(logits, dim=-1)
+        out.append(prev)
+    return torch.stack(out, 1).to(torch.int32), cache

@@ -39,8 +39,17 @@ back to the host (``.cpu()`` synchronises), so the step timers behind the
 shed floor read finished work; prefill chunks synchronise the card before
 their timer stops.  ``decode_seconds`` and ``prefill_seconds`` sum the host
 wall time (``time.perf_counter``) of those calls; the injectable ``clock``
-is read exactly where the reference reads it.  Speculative decoding
-(``spec=``) is not ported yet.
+is read exactly where the reference reads it.
+
+Speculative decoding (``spec=``, a :class:`~repro_torch.serve.spec.SpecConfig`):
+each decode round of the paged engine is propose → verify → commit.  A
+draft stack proposes up to γ tokens per lane, the target scores them in one
+:func:`~repro_torch.models.paged_verify_tokens` call, and the longest prefix
+matching the target's own argmaxes commits with one bonus token
+(:mod:`repro_torch.serve.spec`).  A round in which no lane has a proposal
+is the plain decode step.  ``decode_seconds`` then covers the whole round,
+and ``propose_seconds`` the draft's part of it (its prompt sync and its
+proposals).
 """
 
 from __future__ import annotations
@@ -62,8 +71,9 @@ from repro_torch.models import (
     paged_prefill_chunk,
     prefill,
 )
-from repro_torch.models.model import ModelPlan
+from repro_torch.models.model import ModelPlan, paged_verify_tokens
 from repro_torch.serve.kv_cache import NULL_PAGE, PagePool, page_nbytes
+from repro_torch.serve.spec import DraftManager, SpecConfig, greedy_accept_len, maybe_hoist
 
 __all__ = ["Request", "ServingEngine", "PagedServingEngine", "TERMINAL_STATUSES"]
 
@@ -88,6 +98,19 @@ class Request:
     finish_t: Optional[float] = None
     n_preemptions: int = 0
     submit_order: int = -1  # arrival tie-break (assigned by the engine)
+    # Speculative accounting (zero without speculation): commit rounds,
+    # proposed and accepted draft tokens.  Each round commits accepted + 1
+    # tokens, so len(output) == n_draft_accepted + n_spec_rounds.
+    n_spec_rounds: int = 0
+    n_draft_tokens: int = 0
+    n_draft_accepted: int = 0
+
+    def acceptance_rate(self) -> Optional[float]:
+        """Accepted share of this request's proposed draft tokens (None
+        when none was proposed)."""
+        if self.n_draft_tokens == 0:
+            return None
+        return self.n_draft_accepted / self.n_draft_tokens
 
     def deadline_at(self) -> float:
         """Absolute engine-clock deadline (inf when no SLO attached)."""
@@ -267,18 +290,16 @@ class PagedServingEngine:
         prefix_cache: bool = True,
         record_logits: bool = False,
         scheduler: str = "slo",
-        spec=None,
+        spec: Optional[SpecConfig] = None,
         clock: Optional[Callable[[], float]] = None,
         device="cuda",
     ):
         if scheduler not in ("slo", "fifo"):
             raise ValueError(f"unknown scheduler {scheduler!r}; expected slo|fifo")
-        if spec is not None:
-            raise NotImplementedError(
-                "speculative decoding (serve/spec.py, paged_verify_tokens, "
-                "paged_draft_tokens) is not ported yet: it arrives with the "
-                "speculative-serving slice of the port"
-            )
+        if spec is not None and spec.draft_plan.cfg.vocab != plan.cfg.vocab:
+            raise ValueError(
+                f"draft vocab {spec.draft_plan.cfg.vocab} != target vocab {plan.cfg.vocab}: "
+                "draft proposals would not be target tokens")
         self.device = require_on_device(params["embed"], device)
         self.plan = plan
         self.params = params
@@ -308,6 +329,19 @@ class PagedServingEngine:
         self._submitted = 0
         self.logit_trace: dict[int, list] = {}
 
+        # Speculation: the draft proposes into its own pages of this pool,
+        # the verify runs the target's decode step over B·(γ+1) lanes.
+        self.spec = spec
+        self.spec_mgr: Optional[DraftManager] = None
+        if spec is not None:
+            require_on_device(spec.draft_params["embed"], self.device, "draft params")
+            self.spec_mgr = DraftManager(
+                spec, pool=self.pool, n_pages=n_pages, max_batch=max_batch, max_seq=max_seq,
+                page_size=page_size, prefill_chunk=prefill_chunk, device=self.device)
+            # Hoisted on the CPU only (spec.maybe_hoist); the L = 1 branch
+            # keeps self.params, the plain step's bytes.
+            self._verify_params = maybe_hoist(params, spec.hoist_dequant)
+
         self.n_decode_steps = 0
         self.n_prefill_chunks = 0
         self.n_prefill_tokens = 0
@@ -320,6 +354,10 @@ class PagedServingEngine:
         self.n_transient_faults = 0
         self.decode_seconds = 0.0
         self.prefill_seconds = 0.0
+        self.propose_seconds = 0.0
+        self.n_spec_rounds = 0
+        self.n_draft_tokens = 0
+        self.n_draft_accepted = 0
         # Fastest step costs observed (engine clock): the optimistic floor
         # behind provable-shed admission.  None until measured, so a cold
         # engine never sheds.
@@ -337,6 +375,12 @@ class PagedServingEngine:
             self.plan.cfg.n_periods, self.plan.kv_cache_dtype,
         )
         return self.n_kv_page_reads * per_page
+
+    def acceptance_rate(self) -> Optional[float]:
+        """Engine-wide draft acceptance (None before any proposal)."""
+        if self.n_draft_tokens == 0:
+            return None
+        return self.n_draft_accepted / self.n_draft_tokens
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -370,6 +414,8 @@ class PagedServingEngine:
             self.pool.release(p)
         self.lanes[lane] = None
         self._set_row(lane, [])
+        if self.spec_mgr is not None:  # draft pages go with the lane
+            self.spec_mgr.release_lane(lane)
 
     def _dev_table_now(self) -> torch.Tensor:
         if self._dev_table is None:
@@ -541,6 +587,8 @@ class PagedServingEngine:
                 self.pool._unregister(pid)
         self.slot_pos[lane] = seq.n_target - 1  # replay the last known token
         self._last_tok[lane, 0] = seq.tokens[-1]
+        if self.spec_mgr is not None:
+            self.spec_mgr.attach(lane, seq)
 
     # -- chunked prefill -------------------------------------------------
     def _register_ready(self, seq: _Seq):
@@ -659,40 +707,133 @@ class PagedServingEngine:
             self._preempt(victim)
 
     def _decode_step(self) -> bool:
+        """One decode round: propose → verify → commit.  Without a
+        SpecConfig there is no proposal and the verify is the plain
+        single-token decode step."""
         active = self._ensure_capacity()
         if not active:
             return False
-        write_page = np.full(self.max_batch, NULL_PAGE, np.int64)
+        w0 = time.perf_counter()
+        proposals = self._propose(active)
+        self.propose_seconds += time.perf_counter() - w0
+        logits = self._verify(active, proposals)
+        self.decode_seconds += time.perf_counter() - w0
+        self._commit(active, proposals, logits)
+        return True
+
+    def _propose(self, active: list) -> dict:
+        """``{lane: [draft tokens]}`` (all empty without speculation).  The
+        budget keeps a round from writing past ``prompt + max_new − 2`` or
+        the window, so γ beyond ``max_new`` shortens a proposal and never
+        overshoots; draft pages come from the manager, which shortens on a
+        dry pool and never preempts."""
+        if self.spec_mgr is None:
+            return {i: [] for i in active}
+        items = []
+        for i in active:
+            seq = self.lanes[i]
+            budget = min(seq.req.max_new_tokens - len(seq.req.output) - 1,
+                         self.max_seq - 2 - int(self.slot_pos[i]))
+            items.append((i, seq, int(self.slot_pos[i]), budget))
+        return self.spec_mgr.propose(items)
+
+    def _verify(self, active: list, proposals: dict) -> np.ndarray:
+        """The target's fp32 logits ``(B, L, V)`` for every lane's replay
+        token and proposal.  With no proposal anywhere this is the plain
+        decode step (L = 1), the only branch that feeds the shed floor a
+        single step's cost.  The target's lookahead pages are grown here; on
+        a dry pool the proposal shortens (only ``_ensure_capacity``
+        preempts)."""
+        for i in active:
+            seq, d = self.lanes[i], len(proposals[i])
+            while d:
+                pg = (int(self.slot_pos[i]) + d) // self.page_size
+                if pg < len(seq.pages):
+                    break
+                got = self.pool.alloc(1)
+                if got is None:
+                    d -= 1
+                    continue
+                seq.pages.append(got[0])
+                self.table[i, len(seq.pages) - 1] = got[0]
+                self._dev_table = None
+            proposals[i] = proposals[i][:d]
+
+        if not any(proposals[i] for i in active):
+            write_page = np.full(self.max_batch, NULL_PAGE, np.int64)
+            pos = np.zeros(self.max_batch, np.int64)
+            for i in active:
+                seq = self.lanes[i]
+                pos[i] = self.slot_pos[i]
+                write_page[i] = seq.pages[int(self.slot_pos[i]) // self.page_size]
+                self.n_kv_page_reads += -(-(int(self.slot_pos[i]) + 1) // self.page_size)
+            t0 = self.clock()
+            logits, self.cache = paged_decode_step(
+                self.plan, self.params, self._last_tok, self.cache, pos,
+                self._dev_table_now(), write_page,
+            )
+            logits = _host_logits(logits)
+            self.n_decode_steps += 1
+            dt = self.clock() - t0
+            if dt > 0:
+                self._min_decode_s = dt if self._min_decode_s is None else min(self._min_decode_s, dt)
+            return logits[:, None]
+
+        L = self.spec.gamma + 1  # one shape for every outcome
+        toks = np.zeros((self.max_batch, L), np.int32)
+        wp = np.full((self.max_batch, L), NULL_PAGE, np.int64)
         pos = np.zeros(self.max_batch, np.int64)
         for i in active:
-            seq = self.lanes[i]
-            pos[i] = self.slot_pos[i]
-            write_page[i] = seq.pages[int(self.slot_pos[i]) // self.page_size]
-            self.n_kv_page_reads += -(-(int(self.slot_pos[i]) + 1) // self.page_size)
-        t0, w0 = self.clock(), time.perf_counter()
-        logits, self.cache = paged_decode_step(
-            self.plan, self.params, self._last_tok, self.cache, pos,
-            self._dev_table_now(), write_page,
-        )
+            seq, p0 = self.lanes[i], int(self.slot_pos[i])
+            pos[i] = p0
+            toks[i, 0] = self._last_tok[i, 0]
+            props = proposals[i]
+            toks[i, 1 : 1 + len(props)] = props
+            for j in range(len(props) + 1):
+                wp[i, j] = seq.pages[(p0 + j) // self.page_size]
+                self.n_kv_page_reads += -(-(p0 + j + 1) // self.page_size)
+        t0 = self.clock()
+        logits, self.cache = paged_verify_tokens(self.plan, self._verify_params, toks, self.cache,
+                                                 pos, self._dev_table_now(), wp)
         logits = _host_logits(logits)
-        self.decode_seconds += time.perf_counter() - w0
         self.n_decode_steps += 1
+        self.n_spec_rounds += 1
         dt = self.clock() - t0
         if dt > 0:
-            self._min_decode_s = dt if self._min_decode_s is None else min(self._min_decode_s, dt)
+            # Per position: a position never costs less, so the shed bound
+            # stays a lower bound.
+            per = dt / L
+            self._min_decode_s = per if self._min_decode_s is None else min(self._min_decode_s, per)
+        return logits
+
+    def _commit(self, active: list, proposals: dict, logits: np.ndarray):
+        """Per lane, commit the longest prefix of the proposal that matches
+        the target's argmaxes and the target's token after it (the whole
+        round without a proposal); draft pages past the new frontier roll
+        back."""
         now = self.clock()
         for i in active:
-            seq = self.lanes[i]
-            tok = int(np.argmax(logits[i]))
-            if self.record_logits:
-                self.logit_trace.setdefault(seq.req.rid, []).append(logits[i])
-            self._last_tok[i, 0] = tok
-            if not seq.req.output:
-                seq.req.first_token_t = now
-            seq.req.output.append(tok)
-            seq.tokens.append(tok)
-            self.slot_pos[i] += 1
-        return True
+            seq, props = self.lanes[i], proposals[i]
+            greedy = [int(np.argmax(logits[i, j])) for j in range(len(props) + 1)]
+            a = greedy_accept_len(props, greedy)
+            if self.spec_mgr is not None:
+                seq.req.n_spec_rounds += 1
+                seq.req.n_draft_tokens += len(props)
+                seq.req.n_draft_accepted += a
+                self.n_draft_tokens += len(props)
+                self.n_draft_accepted += a
+            for j in range(a + 1):
+                tok = greedy[j]
+                if self.record_logits:
+                    self.logit_trace.setdefault(seq.req.rid, []).append(logits[i, j])
+                self._last_tok[i, 0] = tok
+                if not seq.req.output:
+                    seq.req.first_token_t = now
+                seq.req.output.append(tok)
+                seq.tokens.append(tok)
+                self.slot_pos[i] += 1
+            if self.spec_mgr is not None:
+                self.spec_mgr.commit(i, int(self.slot_pos[i]))
 
     def _retire(self):
         for i, seq in enumerate(self.lanes):

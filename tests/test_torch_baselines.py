@@ -334,10 +334,23 @@ def test_layer_spec_matches_reference_grouping(small_model):
     assert rep["dec.p0.b0/wk"] != rtn["dec.p0.b0/wk"]
 
 
-def test_mixed_precision_qt_stack_refused_with_a_pointer(small_model):
+def test_mixed_precision_qt_stack_serves(small_model):
+    """A mixed-bits emit="qt" artifact (one period's wq at 3 bits, the rest
+    at 4) restacks through harmonize_qt_stack (uint8 codes, 4 bits as the
+    label) and serves: its hidden states equal those of the emit="fake"
+    artifact's dequantized weights within 1e-4 of their max (fp32 sums in
+    another order)."""
     plan, params, calib = small_model
-    cfg = PTQConfig(method="rtn", spec=GridSpec(bits=4), emit="qt",
-                    layer_specs={"dec.p1.b0/wq": LayerSpec(bits=3)})
+    specs = {"dec.p1.b0/wq": LayerSpec(bits=3)}
+    cfg = PTQConfig(method="rtn", spec=GridSpec(bits=4), emit="qt", layer_specs=specs)
     qp, _ = tsolver.ptq_quantize_model(plan, params, calib, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        quantize_params_for_serving(plan, params, qp["dec"], device="cpu")
+    served = quantize_params_for_serving(plan, params, qp["dec"], device="cpu")
+    wq = served["dec"]["b0"]["wq"]
+    assert (wq.bits, wq.packed) == (4, False) and wq.codes.shape[0] == plan.cfg.n_periods
+    assert int(wq.codes[1].max()) <= 7 and served["dec"]["b0"]["wk"].packed
+    fake, _ = tsolver.ptq_quantize_model(plan, params, calib, dataclasses.replace(cfg, emit="fake"),
+                                         device="cpu")
+    tokens = torch.as_tensor(calib[0]["tokens"]).long()
+    got = tmodel.hidden_states(plan, served, tokens)
+    want = tmodel.hidden_states(plan, fake, tokens)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))

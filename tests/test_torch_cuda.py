@@ -1000,3 +1000,168 @@ def test_quantize_and_serve_clis_on_card(cuda, tmp_path, capsys):
         assert all(r.status == "completed" and len(r.output) == 5 for r in res["requests"])
         launched = ops.launch_counts()["paged_attention"] - k5
         assert launched == (res["n_decode_steps"] * 2 if engine == "paged" else 0)
+
+
+# ---------------------------------------------------------------------------
+# Speculative serving and mixed-bits stacks on the card
+# ---------------------------------------------------------------------------
+
+
+def _spec_model(dev, bits=4):
+    """A small bf16 Phi-3 quantized to ``bits`` by round-to-nearest (the
+    serving layout), on ``dev``, with its dense params."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.qparams import rtn_quantize_for_serving
+
+    cfg = dataclasses.replace(get_config("phi3_mini_3_8b"), d_model=128, n_heads=4, n_kv_heads=4,
+                              head_dim=32, d_ff=256, vocab=300, n_periods=2)
+    plan = M.make_plan(cfg)
+    dense = M.tree_map(lambda a: a.to(dev), M.init_params(plan, 5, device="cpu"))
+    return plan, rtn_quantize_for_serving(plan, dense, bits=bits)[0], dense
+
+
+def _top2_margin(l):
+    top2 = np.sort(l)[-2:]
+    return top2[1] - top2[0]
+
+
+def test_verify_matches_sequential_decode_on_card(cuda):
+    """``paged_verify_tokens`` over 8 lanes x 5 positions (m = 40: the
+    dequant-GEMM runs tc_small only) against 5 ``paged_decode_step`` calls
+    on a copy of the cache: logits within 2e-2 of max |logit| (the card's
+    kernels are not batch-invariant: kernel 5's plan and cuBLAS's head
+    product depend on the lane count), argmaxes equal wherever the top-2
+    margin exceeds that."""
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.models import model as M
+
+    plan, params, _ = _spec_model(cuda)
+    r = np.random.default_rng(11)
+    B, L, psz = 8, 5, 16
+    prompts = [r.integers(0, 300, n).astype(np.int32) for n in r.integers(5, 60, B)]
+    n_pg = [-(-(len(p) + L) // psz) for p in prompts]
+    table = np.zeros((B, max(n_pg)), np.int32)
+    start = 1
+    for b, n in enumerate(n_pg):
+        table[b, :n] = np.arange(start, start + n)
+        start += n
+    cache = M.init_paged_cache(plan, start, psz, device=cuda)
+    dt = torch.as_tensor(table, device=cuda)
+    for b, p in enumerate(prompts):
+        buf = np.zeros((1, 64), np.int32)
+        buf[0, : len(p)] = p
+        M.paged_prefill_chunk(plan, params, buf, cache, dt[b : b + 1], 0)
+    pos0 = np.array([len(p) - 1 for p in prompts])
+    wp = np.array([[table[b, (pos0[b] + j) // psz] for j in range(L)] for b in range(B)])
+    toks = np.concatenate([[[p[-1]] for p in prompts], r.integers(0, 300, (B, L - 1))], 1)
+    copy = {k: {n: t.clone() for n, t in v.items()} for k, v in cache.items()}
+    before = dict(dequant_matmul_cuda.launches_by_variant)
+    got, _ = M.paged_verify_tokens(plan, params, toks, cache, pos0, dt, wp)
+    took = {v: n - before[v] for v, n in dequant_matmul_cuda.launches_by_variant.items()}
+    assert took["tc_small"] == 7 * plan.cfg.n_periods and took["tc_large"] == took["simt"] == 0
+    got = got.float().cpu().numpy()
+    for j in range(L):
+        lg, _ = M.paged_decode_step(plan, params, toks[:, j : j + 1], copy, pos0 + j, dt, wp[:, j])
+        lg = lg.float().cpu().numpy()
+        for b in range(B):
+            tol = 2e-2 * float(np.abs(lg[b]).max())
+            np.testing.assert_allclose(got[b, j], lg[b], rtol=0, atol=tol)
+            if _top2_margin(lg[b]) > tol:
+                assert int(np.argmax(got[b, j])) == int(np.argmax(lg[b]))
+
+
+def test_hoisting_card_params_raises(cuda):
+    """A hoisted torch.matmul on the card would stand in for kernel 3: the
+    explicit flag raises, and the default keeps the QuantizedTensors."""
+    from repro_torch.serve import PagedServingEngine
+    from repro_torch.serve.spec import SpecConfig, maybe_hoist
+
+    plan, params, _ = _spec_model(cuda)
+    with pytest.raises(ValueError, match="hoist_dequant=True with params on the card"):
+        maybe_hoist(params, True)
+    assert maybe_hoist(params, None) is params
+    with pytest.raises(ValueError, match="hoist_dequant=True"):
+        PagedServingEngine(plan, params, spec=SpecConfig(plan, params, hoist_dequant=True),
+                           device=cuda)
+
+
+@pytest.mark.parametrize("draft", ["self", "rtn3", "truncated"])
+def test_spec_engine_on_card_matches_plain(cuda, draft):
+    """The speculative paged engine on the card against the plain one: the
+    streams agree up to the first step whose top-2 margin (plain run) is
+    below 2e-2 of max |logit|, drafts were proposed, every page returns to
+    the pool, and kernel 5 runs (verify rounds + propose steps) x periods."""
+    from repro_torch.serve import PagedServingEngine, Request
+    from repro_torch.serve.qparams import rtn_quantize_for_serving
+    from repro_torch.serve.spec import SpecConfig, truncate_draft
+
+    plan, params, dense = _spec_model(cuda)
+    if draft == "self":
+        spec = SpecConfig(plan, params, gamma=3)
+    elif draft == "rtn3":
+        spec = SpecConfig(plan, rtn_quantize_for_serving(plan, dense, bits=3)[0], gamma=3)
+    else:
+        spec = SpecConfig(*truncate_draft(plan, params, 1), gamma=3)
+    r = np.random.default_rng(12)
+    prompts = [r.integers(0, 300, n).astype(np.int32) for n in (5, 40, 17, 64, 23)]
+    runs = {}
+    for sp in (None, spec):
+        eng = PagedServingEngine(plan, params, max_batch=3, max_seq=128, page_size=16,
+                                 prefill_chunk=32, n_pages=1 + 2 * 3 * 8, spec=sp,
+                                 record_logits=True, device=cuda)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=9))
+        k5 = ops.launch_counts()["paged_attention"]
+        fin = {q.rid: q for q in eng.run()}
+        k5 = ops.launch_counts()["paged_attention"] - k5
+        want = eng.n_decode_steps * plan.cfg.n_periods
+        if sp is not None:
+            want += eng.spec_mgr.n_propose_calls * 4 * sp.draft_plan.cfg.n_periods
+            assert eng.n_draft_tokens > 0
+            assert all(len(q.output) == q.n_draft_accepted + q.n_spec_rounds for q in fin.values())
+        assert k5 == want and eng.pool.n_free == eng.n_pages - 1
+        runs[sp is None] = (fin, eng.logit_trace)
+    (plain, trace), (spec_fin, _) = runs[True], runs[False]
+    for rid, q in plain.items():
+        for j, l in enumerate(trace[rid]):
+            if _top2_margin(l) < 2e-2 * float(np.abs(l).max()):
+                break
+            assert spec_fin[rid].output[j] == q.output[j], (rid, j)
+
+
+def test_harmonized_mixed_stack_through_kernel3(cuda):
+    """A 2/4/8-bit stack (4 packed, one period with COO outliers) harmonized
+    to uint8 codes: each period's dequant-GEMM on the card (bf16 x at m = 8
+    and 40 on tc_small, 128 on tc_large; fp32 x on simt) against its plain
+    version, and the COO pad entries leave the product unchanged."""
+    from repro_torch.models.common import apply_linear
+    from repro_torch.quant import GridSpec, quantize_tensor
+    from repro_torch.serve.qparams import harmonize_qt_stack
+
+    r = np.random.default_rng(13)
+    q, p = 192, 256
+    leaves = []
+    for bits in (2, 4, 8):
+        qt = quantize_tensor(torch.from_numpy(r.standard_normal((q, p)).astype(np.float32)),
+                             GridSpec(bits=bits))
+        if bits == 4:
+            qt = dataclasses.replace(qt, codes=pack_codes(qt.codes, 4), packed=True)
+        if bits == 2:
+            idx = np.sort(r.choice(q * p, 40, replace=False)).astype(np.int32)
+            qt = dataclasses.replace(qt, outlier_idx=torch.from_numpy(idx), outlier_values=torch.from_numpy(
+                r.standard_normal(40).astype(np.float16)))
+        leaves.append(qt)
+    out = harmonize_qt_stack(leaves)
+    assert {(l.bits, l.packed) for l in out} == {(8, False)}
+    for l in out:
+        l = l.map_arrays(lambda t: t.to(cuda))
+        for m, dt in ((8, torch.bfloat16), (40, torch.bfloat16), (128, torch.bfloat16),
+                      (8, torch.float32)):
+            x = torch.from_numpy(r.standard_normal((m, p)).astype(np.float32)).to(cuda, dt)
+            got = ops.dequant_matmul(x, l.codes, l.scale, l.zero, out_dtype=torch.float32)
+            want = ref.dequant_matmul_ref(x, l.codes, l.scale, l.zero, out_dtype=torch.float32)
+            tol = (1e-2 if dt == torch.bfloat16 else 1e-4) * float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=tol)
+            y = apply_linear(l, x)
+            assert y.shape == (m, q) and bool(torch.isfinite(y.float()).all())

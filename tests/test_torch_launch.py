@@ -273,10 +273,12 @@ def test_serve_cli_tokens_equal_the_reference_on_its_checkpoint(quantized_both, 
 def test_serve_cli_refusals(quantized_both, capsys):
     d = quantized_both[0]
     base = ("--arch", ARCH, "--reduce", "--ckpt-dir", d, "--requests", "1", "--max-new", "2")
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        _port(tserve, *base, "--speculate")
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        _port(tserve, *base, "--draft-layers", "1")
+    with pytest.raises(SystemExit, match="--speculate requires the paged engine"):
+        _port(tserve, *base, "--speculate", "--engine", "contiguous")
+    with pytest.raises(SystemExit, match="must be < the target's 2 periods"):
+        _port(tserve, *base, "--speculate", "--draft-layers", "2")
+    with pytest.raises(SystemExit):
+        _port(tserve, *base, "--speculate", "--gamma", "0")
     with pytest.raises(SystemExit, match="requires --engine paged"):
         _port(tserve, *base, "--kv-dtype", "int4", "--engine", "contiguous")
     with pytest.raises(SystemExit):
@@ -286,6 +288,30 @@ def test_serve_cli_refusals(quantized_both, capsys):
     if not torch.cuda.is_available():
         with fp32_configs(), pytest.raises(SystemExit, match="CUDA is not available"):
             tserve.main(list(base))  # --device defaults to cuda
+
+
+@pytest.mark.parametrize("draft", [(), ("--draft-layers", "1"), ("--draft-bits", "3"),
+                                   ("--draft-checkpoint", "TRAIN", "--draft-layers", "1")])
+def test_serve_cli_speculation_matches_the_reference(trained, quantized_both, capsys, draft):
+    """``--speculate`` with each draft source serves the reference quantize
+    CLI's checkpoint: the greedy tokens and the speculative report line's
+    counts equal the reference's serve CLI's on the same requests, and the
+    tokens equal a plain serve's."""
+    from repro.launch import serve as jserve
+
+    draft = tuple(trained[0] if a == "TRAIN" else a for a in draft)
+    args = ("--arch", ARCH, "--reduce", "--ckpt-dir", quantized_both[1], "--requests", "3",
+            "--max-new", "6", "--speculate", "--gamma", "3", *draft)
+    capsys.readouterr()
+    _reference(jserve, *args)
+    jout = capsys.readouterr().out
+    out = _port(tserve, *args)
+    tout = capsys.readouterr().out
+    report = re.compile(r"^speculative: .*$", re.M)
+    assert _REQ.findall(tout) == _REQ.findall(jout) and len(_REQ.findall(tout)) == 3
+    assert report.findall(tout) == report.findall(jout) and out["spec"]["draft_tokens"] > 0
+    plain = _port(tserve, *args[:10])
+    assert [r.output for r in plain["requests"]] == [r.output for r in out["requests"]]
 
 
 def test_eval_cli_smoke_doc_has_the_reference_keys(trained, tmp_path):

@@ -304,10 +304,12 @@ def test_admission_livelock_regression(served_model):
 
 
 def test_port_specific_refusals(served_model):
+    from repro_torch.serve.spec import SpecConfig, truncate_draft
+
     plan, params, _ = served_model
-    with pytest.raises(NotImplementedError, match="speculative"):
-        _paged(plan, params, spec=object())
     on_meta = tm.tree_map(lambda a: a.to("meta"), params)
+    with pytest.raises(ValueError, match="draft params live on meta"):
+        _paged(plan, params, spec=SpecConfig(*truncate_draft(plan, on_meta, 1)))
     for make in (PagedServingEngine, ServingEngine):
         with pytest.raises(ValueError, match="live on meta"):
             make(plan, on_meta, device="cpu")

@@ -125,8 +125,9 @@ def test_progress_records_carry_reference_keys(slice_runs):
 def test_port_imports_no_jax_and_no_reference():
     """Importing every module of the port (Algorithm 3's ``core.outlier``,
     the serving engines, the fault plans, the eval tasks and harness, GPTQ,
-    the trainer and the checkpoints, AWQ, SpQR and the launchers among
-    them), and chip_smoke, loads neither jax nor the reference package."""
+    the trainer and the checkpoints, AWQ, SpQR, the launchers, speculative
+    serving and the tuner among them), and chip_smoke, loads neither jax nor
+    the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -143,7 +144,9 @@ def test_port_imports_no_jax_and_no_reference():
         "        'repro_torch.configs.bench_opt_s', 'repro_torch.core.awq', 'repro_torch.core.spqr',\n"
         "        'repro_torch.launch.progress', 'repro_torch.launch.train',\n"
         "        'repro_torch.launch.quantize', 'repro_torch.launch.eval',\n"
-        "        'repro_torch.launch.serve']\n"
+        "        'repro_torch.launch.serve', 'repro_torch.serve.spec', 'repro_torch.serve.qparams',\n"
+        "        'repro_torch.tune', 'repro_torch.tune.sensitivity', 'repro_torch.tune.allocate',\n"
+        "        'repro_torch.tune.search', 'repro_torch.launch.tune']\n"
         "bad += [m + ' not loaded' for m in need if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
     )
@@ -152,7 +155,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 38 and bad == "[]", out.stdout
+    assert int(n) >= 44 and bad == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_a_card():
