@@ -3,8 +3,10 @@
 
 A model is ``n_periods`` repetitions of a period pattern, a tuple of
 :class:`BlockDef`.  The schema keeps every field of the reference so the
-same config transforms apply to both packages; the port runs the dense
-decoder subset (attention blocks with dense MLPs).
+same config transforms apply to both packages.  The port runs the token-only
+decoders: attention blocks with dense or mixture-of-experts MLPs, rotary or
+learned positions.  Mamba-2, Jamba, Whisper and LLaVA are not ported yet
+(``ROADMAP.md`` §1 item 7): :func:`get_config` refuses them.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["BlockDef", "ModelConfig", "register", "get_config", "ARCH_IDS"]
+__all__ = ["BlockDef", "ModelConfig", "register", "get_config", "list_configs", "ARCH_IDS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,10 +77,24 @@ class ModelConfig:
     def n_layers(self) -> int:
         return self.n_periods * len(self.pattern)
 
+    @property
+    def moe_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
 
-# Architectures the port runs so far (``bench_opt_s``, the benchmarks'
-# trained model, is registered too: ``get_config("bench_opt_s")``).
-ARCH_IDS = ("phi3_mini_3_8b",)
+
+# The reference's architectures the port runs (the paper's OPT family, in
+# ``opt_paper``, and ``bench_opt_s``, the benchmarks' trained model, are
+# registered too).
+ARCH_IDS = (
+    "stablelm_12b",
+    "gemma2_27b",
+    "qwen15_32b",
+    "phi3_mini_3_8b",
+    "olmoe_1b_7b",
+    "mixtral_8x22b",
+)
+# The reference's architectures still to port (ROADMAP.md §1 item 7).
+NOT_PORTED = ("whisper_large_v3", "jamba_1_5_large", "mamba2_2_7b", "llava_next_34b")
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -90,6 +106,23 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_").replace(".", "_")
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} is not ported yet (Mamba-2, Jamba and the encoder-decoder and prefix "
+            "families: ROADMAP.md §1 item 7)")
     if name not in _REGISTRY:
-        importlib.import_module(f"repro_torch.configs.{name}")
+        try:
+            importlib.import_module(f"repro_torch.configs.{name}")
+        except ModuleNotFoundError:
+            # family modules registering several configs (the paper's OPT family)
+            importlib.import_module("repro_torch.configs.opt_paper")
     return _REGISTRY[name]
+
+
+def list_configs() -> list[str]:
+    """Every registered config name, sorted, after importing the ported
+    architectures and the OPT family."""
+    for arch in ARCH_IDS:
+        importlib.import_module(f"repro_torch.configs.{arch}")
+    importlib.import_module("repro_torch.configs.opt_paper")
+    return sorted(_REGISTRY)

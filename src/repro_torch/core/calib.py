@@ -27,14 +27,17 @@ class CalibStats:
     """Streaming Σ accumulator for one linear layer (unnormalized Gram; the
     algorithms are scale-invariant in Σ).  ``n`` counts samples."""
 
-    sigma: torch.Tensor  # (p, p) fp32
+    sigma: torch.Tensor  # (p, p), or (E, p, p) for expert-stacked MoE linears; fp32
     n: int = 0
 
     @classmethod
-    def zeros(cls, p: int, device="cuda") -> "CalibStats":
+    def zeros(cls, p: int, experts: int = 0, device="cuda") -> "CalibStats":
         """An empty Σ on ``device`` (the card unless the caller asks for the
-        CPU, as every entry point of the port)."""
-        return cls(sigma=torch.zeros(p, p, dtype=torch.float32, device=resolve_device(device)), n=0)
+        CPU, as every entry point of the port), one per expert if
+        ``experts``."""
+        shape = (experts, p, p) if experts else (p, p)
+        return cls(sigma=torch.zeros(shape, dtype=torch.float32, device=resolve_device(device)),
+                   n=0)
 
     @property
     def p(self) -> int:
@@ -44,6 +47,15 @@ class CalibStats:
         """x_tokens: (..., p) activations in model layout."""
         x2 = x_tokens.reshape(-1, x_tokens.shape[-1]).to(torch.float32)
         return CalibStats(sigma=self.sigma + x2.T @ x2, n=self.n + x2.shape[0])
+
+    def update_expert_tokens(self, x_experts: torch.Tensor) -> "CalibStats":
+        """x_experts: (E, C, p), an MoE dispatch table.  Every slot counts,
+        the empty ones included: the table fills those with the group's
+        token 0 (``models.moe``), so each adds that token's x₀x₀ᵀ to its
+        expert's Σ, as in the reference."""
+        x32 = x_experts.to(torch.float32)
+        return CalibStats(sigma=self.sigma + x32.transpose(1, 2) @ x32,
+                          n=self.n + x_experts.shape[1])
 
 
 def damp_sigma(sigma: torch.Tensor, percdamp: float = 0.01) -> torch.Tensor:

@@ -5,7 +5,10 @@
 * Streaming Σ capture: every linear folds each batch into its fp32
   Σ = XXᵀ the moment it is computed (:func:`capture_gram_stats`).
 * Batched solves: same-shape linears of a block (wq/wk/wv/wo; wg/wu; wd)
-  are stacked and solved by one ``quantease_quantize`` call.
+  are stacked and solved by one ``quantease_quantize`` call.  An MoE
+  matrix adds its E experts to the group (each expert's own Σ, from the
+  dispatch table), so OLMoE's w_gate and w_up form one group of 2E; its
+  report has one key per expert, ``…/w_gate.e{i}``.
 * Grids are computed once from the original weights and threaded through
   the solve and the emit, so emitted codes round-trip the solve exactly.
 * Per-layer relative errors (the paper's Fig. 2 metric) are reported, with
@@ -58,7 +61,8 @@ from repro_torch.quant import (
 
 __all__ = ["LayerSpec", "PTQConfig", "ptq_quantize_model", "QUANTIZABLE"]
 
-QUANTIZABLE = {"wq", "wk", "wv", "wo", "wg", "wu", "wd"}
+QUANTIZABLE = {"wq", "wk", "wv", "wo", "wg", "wu", "wd", "w_gate", "w_up", "w_down"}
+_MOE_NAMES = {"w_gate", "w_up", "w_down"}
 _METHODS = ("rtn", "gptq", "awq", "quantease", "awq_qe", "spqr", "qe_outlier",
             "qe_outlier_struct")
 _PER_LAYER = ("awq", "awq_qe", "spqr")
@@ -221,6 +225,12 @@ def _emit_leaf(w_hat, h, like, cfg: PTQConfig, grid):
     return qt
 
 
+def _expert_keys(name: str, key: str, n: int) -> list:
+    """Report keys of a linear's ``n`` solver rows: the key itself, or one
+    ``key.e{i}`` per expert of an MoE matrix."""
+    return [f"{key}.e{e}" for e in range(n)] if name in _MOE_NAMES else [key]
+
+
 def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report: dict,
                     sens: Optional[dict] = None) -> dict:
     """Quantize every captured linear of one block, grouped by shape and
@@ -229,34 +239,58 @@ def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report
     each layer's λ_max(Σ) under its report key.
 
     Leaves are visited in sorted order, the order of the reference's
-    param pytrees, so groups and report keys come out in the same order."""
+    param pytrees, so groups and report keys come out in the same order.
+    An MoE matrix ``(E, d_in, d_out)`` with Σ ``(E, p, p)`` enters its group
+    as E rows."""
     groups: dict[tuple, tuple] = {}
     for name in sorted(p_blk):
         key = f"{scope}/{name}"
         if name not in QUANTIZABLE or key not in stats:
             continue
         st: CalibStats = stats[key]
-        w2 = _to_2d(p_blk[name], st.p)
+        if name in _MOE_NAMES:  # (E, d_in, d_out) → (E, out, in)
+            w3, sig3 = p_blk[name].transpose(1, 2).to(torch.float32), st.sigma
+        else:
+            w3, sig3 = _to_2d(p_blk[name], st.p)[None], st.sigma[None]
         eff = cfg.for_layer(key)
         if eff.method not in _METHODS:
             raise ValueError(f"{key}: unknown method {eff.method!r} (have {_METHODS})")
-        gk = (tuple(w2.shape), eff._group_key())
-        groups.setdefault(gk, (eff, []))[1].append((name, key, w2, st.sigma))
+        gk = (tuple(w3.shape[1:]), eff._group_key())
+        groups.setdefault(gk, (eff, []))[1].append((name, key, w3, sig3))
     new = dict(p_blk)
     for eff, group in groups.values():
-        w3 = torch.stack([it[2] for it in group])
-        sig3 = torch.stack([it[3] for it in group])
+        w3 = torch.cat([it[2] for it in group])
+        sig3 = torch.cat([it[3] for it in group])
         w_hat3, h3, grid3 = _solve_group(w3, sig3, eff)
         errs = relative_error(w3, w_hat3 if h3 is None else w_hat3 + h3, sig3).tolist()
+        lam = None
         if cfg.collect_sensitivity and sens is not None:
             lam = power_lambda_max(sig3).tolist()
-            for g, (_, key, _, _) in enumerate(group):
-                sens[key] = float(lam[g])
-        for g, (name, key, _, _) in enumerate(group):
-            report[key] = float(errs[g])
-            new[name] = _emit_leaf(w_hat3[g], None if h3 is None else h3[g], p_blk[name], eff,
-                                   None if grid3 is None else grid3[g])
+        off = 0
+        for name, key, w3_it, _ in group:
+            n = w3_it.shape[0]
+            for g, k in enumerate(_expert_keys(name, key, n), start=off):
+                report[k] = float(errs[g])
+                if lam is not None:
+                    sens[k] = float(lam[g])
+            leaves = [_emit_leaf(w_hat3[g], None if h3 is None else h3[g],
+                                 p_blk[name][g - off] if name in _MOE_NAMES else p_blk[name], eff,
+                                 None if grid3 is None else grid3[g])
+                      for g in range(off, off + n)]
+            new[name] = leaves[0] if name not in _MOE_NAMES else _stack_experts(leaves)
+            off += n
     return new
+
+
+def _stack_experts(leaves: list):
+    """Per-expert leaves → one leaf with a leading expert axis (a dense
+    tensor, or a QuantizedTensor whose arrays all gain the axis)."""
+    first = leaves[0]
+    if not isinstance(first, QuantizedTensor):
+        return torch.stack(leaves)
+    arrays = {f.name: torch.stack([getattr(l, f.name) for l in leaves])
+              for f in dataclasses.fields(first) if isinstance(getattr(first, f.name), torch.Tensor)}
+    return dataclasses.replace(first, **arrays)
 
 
 def _apply_block(plan, b, blk, x, chunk: int = 0) -> torch.Tensor:
@@ -291,7 +325,10 @@ def ptq_quantize_model(
     if cfg.emit not in ("fake", "qt"):
         raise ValueError(f"unknown emit {cfg.emit!r}")
     dev = require_on_device(params["embed"], device)
-    xs = [M._embed_tokens(plan, params, M.as_tokens(b["tokens"], dev)) for b in calib_batches]
+    xs = []
+    for b in calib_batches:
+        tokens = M.as_tokens(b["tokens"], dev)
+        xs.append(M._embed(plan, params, tokens, torch.arange(tokens.shape[1], device=dev)))
     report: dict[str, float] = {}
     new_params = dict(params)
     new_params["dec"] = _quantize_stack(plan, params["dec"], xs, cfg, report, progress_cb)

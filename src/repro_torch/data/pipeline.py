@@ -61,7 +61,9 @@ def make_batch_fn(data_cfg: DataConfig, model_cfg, batch: int, seq: int, split: 
     if split not in SPLITS:
         raise ValueError(f"unknown split {split!r}; expected one of {sorted(SPLITS)}")
     if model_cfg.family != "lm" or model_cfg.n_prefix:
-        raise NotImplementedError("the port's pipeline serves token-only decoders")
+        raise NotImplementedError(
+            "the port's pipeline serves token-only decoders; the encoder-decoder and prefix "
+            "families are not ported yet (ROADMAP.md §1 item 7)")
     salt = SPLITS[split]
     corpus = SyntheticCorpus(data_cfg)
 

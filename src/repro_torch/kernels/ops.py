@@ -36,6 +36,7 @@ __all__ = [
     "quantease_fused_iteration",
     "quantease_outlier_iteration",
     "dequant_matmul",
+    "dequant_matmul_experts",
     "paged_attention",
     "launch_counts",
     "reset_launch_counts",
@@ -154,6 +155,21 @@ def dequant_matmul(
     return dequant_matmul_cuda(
         x, codes, scale, zero, packed4=packed4, out_dtype=out_dtype, group_size=group_size
     )
+
+
+def dequant_matmul_experts(
+    xs, codes, scale, zero, *, packed4=False, out_dtype=torch.bfloat16, group_size=None
+):
+    """The MoE layer's expert GEMMs: ``xs`` ``(E, C, p)``, each expert's slots,
+    times its quantized weight (codes ``(E, q, p)`` or ``(E, q, p/2)``
+    packed, per-expert grids) → ``(E, C, q)``: :func:`dequant_matmul` once
+    per expert on that expert's ``(C, p)`` slots, so on the card each expert
+    is one counted launch of the kernel behind the ``kernel.dispatch`` fault
+    site, and on the CPU the plain version the reference vmaps."""
+    return torch.stack([
+        dequant_matmul(xs[e], codes[e], scale[e], zero[e], packed4=packed4,
+                       out_dtype=out_dtype, group_size=group_size)
+        for e in range(xs.shape[0])])
 
 
 def paged_attention(

@@ -146,7 +146,10 @@ def capture_gram_stats(stats: dict):
         _capture_state.stats = prev
 
 
-def _record_linear(name, x):
+def _record_linear(name, x, expert_stacked: bool = False):
+    """Fold ``x`` into the Σ of linear ``name`` under the capture context;
+    ``expert_stacked``: x is an MoE dispatch table ``(E, C, d_in)`` and each
+    expert gets its own Σ ``(E, p, p)``."""
     stats = getattr(_capture_state, "stats", None)
     if name is None or stats is None:
         return
@@ -155,8 +158,12 @@ def _record_linear(name, x):
     scope = getattr(_capture_state, "scope", None)
     key = f"{scope}/{name}" if scope else name
     if key not in stats:
-        stats[key] = CalibStats.zeros(x.shape[-1], device=x.device)
-    stats[key] = stats[key].update_tokens(x)
+        stats[key] = CalibStats.zeros(x.shape[-1], experts=x.shape[0] if expert_stacked else 0,
+                                      device=x.device)
+    if expert_stacked:
+        stats[key] = stats[key].update_expert_tokens(x)
+    else:
+        stats[key] = stats[key].update_tokens(x)
 
 
 def _outlier_adds(w, x2: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:

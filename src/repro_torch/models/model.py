@@ -1,15 +1,19 @@
-"""Model assembly for dense decoders: params, forward stack, train loss.
+"""Model assembly for token-only decoders: params, forward stack, train loss.
 
 Param tree (leaves in ``cfg.dtype``), the reference's layout:
 
   embed        (vocab_pad, d)
   lm_head      (d, vocab_pad)          [unless tied]
+  pos_emb      (max_seq, d)            [pos == "learned"]
   final_norm   {scale}
   dec          {"b0": {...}, ...}: every leaf has a leading n_periods dim
 
-Attention blocks with dense MLPs are ported; other block kinds and the
-encoder-decoder and prefix families raise ``NotImplementedError``.  The
-stack is a Python loop over periods (the reference scans them).
+Attention blocks with dense or mixture-of-experts MLPs (:mod:`.moe`:
+``router`` (d, E), ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d)),
+rotary or learned positions, are ported; Mamba blocks, cross-attention and
+the encoder-decoder and prefix families raise ``NotImplementedError``
+(``ROADMAP.md`` §1 item 7).  The stack is a Python loop over periods (the
+reference scans them).
 
 Serving: :func:`prefill` / :func:`decode_step` run on a contiguous per-slot
 KV cache (:func:`init_cache`), :func:`paged_prefill_chunk` /
@@ -45,6 +49,7 @@ from repro_torch.models.common import (
     softcap,
     _record_linear,
 )
+from repro_torch.models.moe import moe_apply, router_aux_loss
 from repro_torch.quant import QuantizedTensor, kv_pack_int4, kv_unpack_int4
 
 __all__ = [
@@ -86,12 +91,18 @@ class ModelPlan:
         return self.cfg.dtype
 
 
+_NOT_PORTED = ("Mamba-2, Jamba and the encoder-decoder and prefix families are not ported "
+               "yet (ROADMAP.md §1 item 7)")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "lm" or cfg.n_prefix or cfg.pos != "rope":
-        raise NotImplementedError("the port runs rope token-only decoders so far")
+    if cfg.family != "lm" or cfg.n_prefix:
+        raise NotImplementedError(f"{cfg.name}: the port runs token-only decoders; {_NOT_PORTED}")
+    if cfg.pos not in ("rope", "learned"):
+        raise ValueError(f"{cfg.name}: unknown positions {cfg.pos!r}")
     for b in cfg.pattern:
-        if b.kind != "attn" or b.mlp not in ("dense", "none") or b.cross:
-            raise NotImplementedError(f"block {b} is not ported yet")
+        if b.kind != "attn" or b.cross or b.mlp not in ("dense", "moe", "none"):
+            raise NotImplementedError(f"{cfg.name}: block {b} is not ported; {_NOT_PORTED}")
 
 
 def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16") -> ModelPlan:
@@ -122,7 +133,7 @@ def _norm_def(cfg, d) -> dict:
 
 
 def _block_defs(cfg: ModelConfig, hp: HeadPlan, b: BlockDef) -> dict:
-    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    d, hd = cfg.d_model, cfg.hd
     defs = {
         "ln": _norm_def(cfg, d),
         "wq": _P((d, hp.kv_pad, hp.g_pad, hd)),
@@ -136,14 +147,28 @@ def _block_defs(cfg: ModelConfig, hp: HeadPlan, b: BlockDef) -> dict:
         defs["bv"] = _P((hp.n_kv, hd), "zeros")
     if cfg.post_norms:
         defs["post_ln"] = _norm_def(cfg, d)
-    if b.mlp == "dense":
+    if b.mlp != "none":
         defs["ln2"] = _norm_def(cfg, d)
-        defs["wg"] = _P((d, f))
-        defs["wd"] = _P((f, d), "small_normal")
-        if cfg.gated_mlp:
-            defs["wu"] = _P((d, f))
+        defs.update(_moe_defs(cfg) if b.mlp == "moe" else _mlp_defs(cfg))
         if cfg.post_norms:
             defs["post_ln2"] = _norm_def(cfg, d)
+    return defs
+
+
+def _mlp_defs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    defs = {"wg": _P((d, f)), "wd": _P((f, d), "small_normal")}
+    if cfg.gated_mlp:
+        defs["wu"] = _P((d, f))
+    return defs
+
+
+def _moe_defs(cfg: ModelConfig) -> dict:
+    d, f, e = cfg.d_model, cfg.moe_ff, cfg.n_experts
+    defs = {"router": _P((d, e)), "w_gate": _P((e, d, f)),
+            "w_down": _P((e, f, d), "small_normal")}
+    if cfg.gated_mlp:
+        defs["w_up"] = _P((e, d, f))
     return defs
 
 
@@ -172,6 +197,8 @@ def model_defs(plan: ModelPlan) -> dict:
     defs = {"embed": _P((plan.vocab_pad, d)), "final_norm": _norm_def(cfg, d), "dec": dec}
     if not cfg.tie_embeddings:
         defs["lm_head"] = _P((d, plan.vocab_pad))
+    if cfg.pos == "learned":
+        defs["pos_emb"] = _P((cfg.max_seq, d), "small_normal")
     return defs
 
 
@@ -330,8 +357,9 @@ def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids, mode="train", cache=N
     with ``page_table`` set the KV cache is block-paged."""
     h = apply_norm(p["ln"], x, cfg.norm)
     q, k, v = _qkv(cfg, hp, p, h)
-    q = rope(q, pos_ids, cfg.rope_theta)
-    k = rope(k, pos_ids, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = rope(q, pos_ids, cfg.rope_theta)
+        k = rope(k, pos_ids, cfg.rope_theta)
     if page_table is not None:
         o = _paged_attention(cfg, b, q, k, v, cache, mode=mode, pos_ids=pos_ids,
                              q_offset=q_offset, kv_dtype=kv_dtype, page_table=page_table,
@@ -360,22 +388,31 @@ def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids, mode="train", cache=N
     return x + out
 
 
-def _mlp_sublayer(cfg, b: BlockDef, p, x):
+def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None):
+    """Dense or MoE MLP; an MoE block appends its router's load-balancing
+    loss to ``aux`` when one is given (training)."""
     if b.mlp == "none":
         return x
     h = apply_norm(p["ln2"], x, cfg.norm)
-    u = activation(apply_linear(p["wg"], h, name="wg"), cfg.act)
-    if cfg.gated_mlp:
-        u = u * apply_linear(p["wu"], h, name="wu")
-    y = apply_linear(p["wd"], u, name="wd")
+    if b.mlp == "moe":
+        y, probs = moe_apply(p, h, n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
+                             gated=cfg.gated_mlp, norm_topk=cfg.router_norm_topk,
+                             return_aux=aux is not None)
+        if aux is not None:
+            aux.append(router_aux_loss(probs))
+    else:
+        u = activation(apply_linear(p["wg"], h, name="wg"), cfg.act)
+        if cfg.gated_mlp:
+            u = u * apply_linear(p["wu"], h, name="wu")
+        y = apply_linear(p["wd"], u, name="wd")
     if cfg.post_norms:
         y = apply_norm(p["post_ln2"], y, cfg.norm)
     return x + y
 
 
-def _block_apply(cfg, hp, b, p, x, *, pos_ids, **attn_kw):
+def _block_apply(cfg, hp, b, p, x, *, pos_ids, aux: Optional[list] = None, **attn_kw):
     x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids, **attn_kw)
-    return _mlp_sublayer(cfg, b, p, x)
+    return _mlp_sublayer(cfg, b, p, x, aux)
 
 
 def _quantized(a) -> bool:
@@ -392,7 +429,8 @@ def period_slice(stack, i):
 def _run_stack(plan: ModelPlan, stack_params: dict, pattern, x, *, mode: str, pos_ids,
                caches=None, **attn_kw):
     """Loop over periods.  ``caches`` (leaves with a leading period axis) are
-    written in place through each period's views."""
+    written in place through each period's views; ``aux`` (a list) collects
+    the MoE blocks' router losses."""
     cfg, hp = plan.cfg, plan.heads
     for period in range(cfg.n_periods):
         p_period = period_slice(stack_params, period)
@@ -429,6 +467,28 @@ def _embed_tokens(plan, params, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def check_positions(cfg, n: int, what: str) -> None:
+    """Learned positions end at ``cfg.max_seq``: refuse ``n`` positions past
+    it (the reference's slice raises there and its gather reads NaN)."""
+    if cfg.pos == "learned" and n > cfg.max_seq:
+        raise ValueError(f"{what} {n} > max_seq {cfg.max_seq}: {cfg.name}'s learned positions "
+                         "end there")
+
+
+def _embed(plan, params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Token embeddings plus, for learned positions, ``pos_emb`` at ``pos``
+    (broadcast against ``tokens``).  A position past ``max_seq`` gets no
+    positional term: only pad lanes reach one, since :func:`hidden_states`,
+    :func:`prefill` and both engines refuse longer sequences
+    (:func:`check_positions`)."""
+    x = _embed_tokens(plan, params, tokens)
+    if plan.cfg.pos == "learned":
+        pe, pos = params["pos_emb"], pos.long()
+        inside = (pos < pe.shape[0])[..., None]
+        x = x + torch.where(inside, pe[torch.clamp(pos, max=pe.shape[0] - 1)], 0.0).to(plan.dtype)
+    return x
+
+
 def as_tokens(tokens, device) -> torch.Tensor:
     """numpy or torch token ids → int64 tensor on ``device``."""
     return torch.as_tensor(tokens, device=device).long()
@@ -454,28 +514,39 @@ def chunked_cross_entropy(x, head, labels, mask, *, real_vocab: int, chunk: int 
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def hidden_states(plan: ModelPlan, params, tokens: torch.Tensor) -> torch.Tensor:
-    """(B, S) ids → (B, S, d) final-norm hidden states, teacher-forced."""
+def hidden_states(plan: ModelPlan, params, tokens: torch.Tensor,
+                  aux: Optional[list] = None) -> torch.Tensor:
+    """(B, S) ids → (B, S, d) final-norm hidden states, teacher-forced
+    (``aux``: see :func:`_run_stack`)."""
     cfg = plan.cfg
-    x = _embed_tokens(plan, params, tokens)
-    pos = torch.arange(tokens.shape[1], device=x.device)
-    x = _run_stack(plan, params["dec"], cfg.pattern, x, mode="train", pos_ids=pos)
+    check_positions(cfg, tokens.shape[1], "sequence length")
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed(plan, params, tokens, pos)
+    x = _run_stack(plan, params["dec"], cfg.pattern, x, mode="train", pos_ids=pos, aux=aux)
     return apply_norm(params["final_norm"], x, cfg.norm)
 
 
 def train_loss(plan: ModelPlan, params, batch: dict) -> torch.Tensor:
-    """batch: {"tokens": (B, S)} → scalar next-token loss."""
+    """batch: {"tokens": (B, S)} → scalar next-token loss, plus
+    ``0.01 · Σ router losses / n_layers`` for MoE models."""
     cfg = plan.cfg
     tokens = as_tokens(batch["tokens"], params["embed"].device)
     B, S = tokens.shape
-    x = hidden_states(plan, params, tokens)
+    aux = [] if any(b.mlp == "moe" for b in cfg.pattern) else None
+    x = hidden_states(plan, params, tokens, aux)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], 1)
     mask = torch.ones(B, S, dtype=torch.float32, device=x.device)
     mask[:, -1] = 0.0
-    return chunked_cross_entropy(
+    loss = chunked_cross_entropy(
         x, _logit_head(plan, params), labels, mask,
         real_vocab=cfg.vocab, logit_softcap=cfg.logit_softcap,
     )
+    if aux is not None:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in aux:
+            total = total + a
+        loss = loss + 0.01 * total / max(cfg.n_layers, 1)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -571,8 +642,9 @@ def prefill(plan: ModelPlan, params, batch: dict, cache):
     """Full-sequence forward filling ``cache``; returns ``(last_logits, cache)``."""
     dev = params["embed"].device
     tokens = as_tokens(batch["tokens"], dev)
-    x = _embed_tokens(plan, params, tokens)
+    check_positions(plan.cfg, tokens.shape[1], "prefill length")
     pos = torch.arange(tokens.shape[1], device=dev)
+    x = _embed(plan, params, tokens, pos)
     x = _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="prefill", pos_ids=pos,
                    caches=cache)
     return _final_logits(plan, params, x[:, -1:]), cache
@@ -585,7 +657,7 @@ def decode_step(plan: ModelPlan, params, tokens, cache, pos):
     dev = params["embed"].device
     tokens = as_tokens(tokens, dev)
     pos_b = _positions(pos, tokens.shape[0], dev)
-    x = _embed_tokens(plan, params, tokens)
+    x = _embed(plan, params, tokens, pos_b[:, None])
     x = _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="decode",
                    pos_ids=pos_b[:, None], caches=cache)
     return _final_logits(plan, params, x), cache
@@ -608,8 +680,8 @@ def paged_prefill_chunk(plan: ModelPlan, params, tokens, cache, page_table, offs
     if tokens.shape[0] != 1:
         raise ValueError("paged prefill processes one sequence per call")
     offset = int(offset)
-    x = _embed_tokens(plan, params, tokens)
     pos = offset + torch.arange(tokens.shape[1], device=dev)
+    x = _embed(plan, params, tokens, pos)
     _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="prefill", pos_ids=pos,
                caches=cache, page_table=torch.as_tensor(page_table, device=dev),
                q_offset=offset)
@@ -629,7 +701,7 @@ def paged_decode_step(plan: ModelPlan, params, tokens, cache, pos, page_table, p
     dev = params["embed"].device
     tokens = as_tokens(tokens, dev)
     pos_b = _positions(pos, tokens.shape[0], dev)
-    x = _embed_tokens(plan, params, tokens)
+    x = _embed(plan, params, tokens, pos_b[:, None])
     x = _run_stack(
         plan, params["dec"], plan.cfg.pattern, x, mode="decode", pos_ids=pos_b[:, None],
         caches=cache, page_table=torch.as_tensor(page_table, device=dev, dtype=torch.int32),

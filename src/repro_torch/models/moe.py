@@ -1,0 +1,119 @@
+"""Mixture-of-Experts layer: top-k routing with sort-based static dispatch
+(the port's ``repro.models.moe``).
+
+  1. router (fp32) → top-k expert ids and weights per token;
+  2. the N·k routed copies take slots in an (E, C) table, C the capacity
+     ``max(int(N·k/E · CAPACITY_FACTOR), 8)``; copies past an expert's
+     capacity are dropped;
+  3. gather → (E, C, D), one batched product per projection over the
+     stacked expert weights;
+  4. weighted fp32 sum back to (N, D): each token gathers its kept copies
+     and adds them in the order of their slots (the reference scatter-adds
+     them), so the sum is the same on every run and device.
+
+Empty slots of the table are filled with token 0 of the dispatch group,
+as the reference fills them (``repro/models/moe.py:118``): their outputs
+carry weight 0, so the forward pass is unaffected, but the calibration
+capture records the whole table, so each expert's Σ gains one x₀x₀ᵀ per
+empty slot.  The port copies this on purpose (``ROADMAP.md`` §3).
+
+A quantized expert weight runs through the dequant-GEMM once per expert
+(``kernels.ops.dequant_matmul_experts``).  Its outlier planes are not
+applied, as in the reference's expert product (``ROADMAP.md`` §3).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import HoistedDequant, _record_linear, activation
+from repro_torch.quant import QuantizedTensor
+
+__all__ = ["moe_apply", "router_aux_loss", "CAPACITY_FACTOR"]
+
+CAPACITY_FACTOR = 1.25  # slots an expert = tokens·k/E times this (the reference's default)
+
+
+def _expert_matmul(w, xs: torch.Tensor, name: str) -> torch.Tensor:
+    """xs: (E, C, d_in) × stacked expert weights → (E, C, d_out).
+
+    ``w`` is dense ``(E, d_in, d_out)``, a QuantizedTensor with codes
+    ``(E, d_out, d_in)`` (per-expert grids stacked on the leading axis), or
+    a HoistedDequant of one."""
+    _record_linear(name, xs, expert_stacked=True)
+    if isinstance(w, QuantizedTensor):
+        from repro_torch.kernels import ops
+
+        return ops.dequant_matmul_experts(
+            xs.contiguous(), w.codes, w.scale, w.zero, packed4=w.packed and w.bits == 4,
+            out_dtype=xs.dtype, group_size=w.group_size,
+        )
+    if isinstance(w, HoistedDequant):
+        return (xs.to(torch.float32) @ w.w.transpose(-1, -2)).to(xs.dtype)
+    return torch.bmm(xs, w)
+
+
+def _dispatch_table(expert_ids: torch.Tensor, n_experts: int, capacity: int):
+    """expert_ids: (R,) expert of each routed copy → (copy of each slot
+    ``(E·C,)`` int64, -1 where empty; slot of each copy ``(R,)``, ``E·C``
+    where dropped)."""
+    r, dev = expert_ids.shape[0], expert_ids.device
+    order = torch.argsort(expert_ids, stable=True)  # groups copies by expert
+    sorted_e = expert_ids[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(n_experts, device=dev), side="left")
+    pos_in_e = torch.arange(r, device=dev) - starts[sorted_e]
+    slot_sorted = torch.where(pos_in_e < capacity, sorted_e * capacity + pos_in_e,
+                              n_experts * capacity)
+    slot = torch.empty(r, dtype=torch.long, device=dev)
+    slot[order] = slot_sorted
+    # Dropped copies all land in the overflow bucket at the end, trimmed.
+    copy_for_slot = torch.full((n_experts * capacity + 1,), -1, dtype=torch.long, device=dev)
+    copy_for_slot[slot] = torch.arange(r, device=dev)
+    return copy_for_slot[:-1], slot
+
+
+def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, act: str, gated: bool,
+              norm_topk: bool, return_aux: bool = False):
+    """x: (B, S, D) → ``(y, router probs or None)``; the B·S tokens form one
+    dispatch group (the reference's ``dispatch_groups=1``, which its model
+    passes unless a mesh splits the batch)."""
+    B, S, D = x.shape
+    n = B * S
+    xf = x.reshape(n, D)
+    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    probs = torch.softmax(logits, -1)
+    # lax.top_k's order: descending, ties to the lower index.
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :top_k], top_e[:, :top_k]
+    if norm_topk:
+        top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+
+    capacity = max(int(n * top_k / n_experts * CAPACITY_FACTOR), 8)
+    copy_for_slot, slot_of_copy = _dispatch_table(top_e.reshape(-1), n_experts, capacity)
+    filled = copy_for_slot >= 0
+    token_for_slot = torch.where(filled, copy_for_slot // top_k, 0)
+    w_for_slot = torch.where(filled, top_w.reshape(-1)[copy_for_slot.clamp_min(0)], 0.0)
+
+    xs = xf[token_for_slot].reshape(n_experts, capacity, D)
+    h = activation(_expert_matmul(p["w_gate"], xs, "w_gate"), act)
+    if gated:
+        h = h * _expert_matmul(p["w_up"], xs, "w_up")
+    ys = _expert_matmul(p["w_down"], h, "w_down").reshape(n_experts * capacity, D)
+    ys = ys * w_for_slot[:, None].to(ys.dtype)
+
+    # Each token's copies in slot order; a dropped copy reads the zero row
+    # appended at slot E·C.
+    ys32 = torch.cat([ys.to(torch.float32), ys.new_zeros(1, D, dtype=torch.float32)])
+    contrib = ys32[slot_of_copy.reshape(n, top_k).sort(-1).values]  # (n, k, D)
+    y = contrib[:, 0]
+    for i in range(1, top_k):
+        y = y + contrib[:, i]
+    return y.reshape(B, S, D).to(x.dtype), (probs if return_aux else None)
+
+
+def router_aux_loss(probs: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing loss: E · Σ_e f_e · P_e."""
+    e = probs.shape[1]
+    pe = probs.mean(0)
+    fe = (probs == probs.amax(-1, keepdim=True)).to(torch.float32).mean(0)
+    return e * torch.sum(fe * pe)

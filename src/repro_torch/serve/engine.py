@@ -71,7 +71,7 @@ from repro_torch.models import (
     paged_prefill_chunk,
     prefill,
 )
-from repro_torch.models.model import ModelPlan, paged_verify_tokens
+from repro_torch.models.model import ModelPlan, check_positions, paged_verify_tokens
 from repro_torch.serve.kv_cache import NULL_PAGE, PagePool, page_nbytes
 from repro_torch.serve.spec import DraftManager, SpecConfig, greedy_accept_len, maybe_hoist
 
@@ -143,6 +143,7 @@ class ServingEngine:
         clock: Optional[Callable[[], float]] = None,
         device="cuda",
     ):
+        check_positions(plan.cfg, max_seq, "engine max_seq")
         self.device = require_on_device(params["embed"], device)
         self.plan = plan
         self.params = params
@@ -300,6 +301,7 @@ class PagedServingEngine:
             raise ValueError(
                 f"draft vocab {spec.draft_plan.cfg.vocab} != target vocab {plan.cfg.vocab}: "
                 "draft proposals would not be target tokens")
+        check_positions(plan.cfg, max_seq, "engine max_seq")
         self.device = require_on_device(params["embed"], device)
         self.plan = plan
         self.params = params

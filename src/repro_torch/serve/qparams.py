@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.solver import QUANTIZABLE
+from repro_torch.core.solver import _MOE_NAMES, QUANTIZABLE, _stack_experts
 from repro_torch.device import require_on_device
 from repro_torch.quant import (
     GridSpec,
@@ -113,9 +113,10 @@ def _stack_trees(trees: list):
 
 def quantize_params_for_serving(plan, params: dict, solver_qt_dec: list, *, device="cuda") -> dict:
     """Restack per-period block lists (``ptq_quantize_model(..., emit="qt")``'s
-    ``["dec"]``) into the stacked layout the model runs; outlier planes (COO
-    or columns) stack with the codes, and a leaf whose periods differ in
-    bits, packing or outlier budget is harmonized first
+    ``["dec"]``) into the stacked layout the model runs (lead axes
+    ``(layers,)``, and ``(layers, experts)`` for an MoE matrix); outlier
+    planes (COO or columns) stack with the codes, and a leaf whose periods
+    differ in bits, packing or outlier budget is harmonized first
     (:func:`harmonize_qt_stack`).  The params must live on ``device``
     (default ``"cuda"``).  Raises ``ValueError`` if a zero point is not an
     integer in ``[0, 2^bits − 1]`` of its own period's bits (the
@@ -145,28 +146,34 @@ def rtn_quantize_for_serving(plan, params: dict, *, bits: int, outlier_frac: flo
     :func:`prepack_params_for_serving`.
 
     Returns ``(params, layout_label)``; the leaves stay on the params'
-    device, and every zero point is an integer in ``[0, 2^bits − 1]``."""
+    device, and every zero point is an integer in ``[0, 2^bits − 1]``.  An
+    MoE matrix is quantized expert by expert, lead axes ``(layers,
+    experts)``."""
     spec = GridSpec(bits=bits)
+
+    def qt_one(wi):  # (out, d_in) fp32
+        qt = quantize_tensor(wi, spec)
+        if outlier_frac:
+            resid = (wi - dequantize_tensor(qt)).reshape(-1)
+            s = max(1, int(outlier_frac * resid.numel()))
+            idx = torch.sort(resid.abs(), stable=True).indices[-s:]
+            qt = dataclasses.replace(qt, outlier_values=resid[idx].to(torch.float16),
+                                     outlier_idx=idx.to(torch.int32))
+        if bits == 4 and qt.codes.shape[-1] % 2 == 0:
+            qt = dataclasses.replace(qt, codes=pack_codes(qt.codes, 4), packed=True)
+        return qt
 
     def qt_of(name, leaf):
         if isinstance(leaf, QuantizedTensor):
             w = dequantize_tensor(leaf)
+        elif name in _MOE_NAMES:  # (n_periods, E, d_in, d_out) → (n_periods, E, out, d_in)
+            w = leaf.to(torch.float32).transpose(-1, -2)
         else:  # (n_periods, d_in, *out_dims) → (n_periods, out, d_in)
             d_in = _d_in(plan, name)
             w = leaf.to(torch.float32).reshape(leaf.shape[0], d_in, -1).transpose(1, 2)
-        qts = []
-        for wi in w:
-            qt = quantize_tensor(wi, spec)
-            if outlier_frac:
-                resid = (wi - dequantize_tensor(qt)).reshape(-1)
-                s = max(1, int(outlier_frac * resid.numel()))
-                idx = torch.sort(resid.abs(), stable=True).indices[-s:]
-                qt = dataclasses.replace(qt, outlier_values=resid[idx].to(torch.float16),
-                                         outlier_idx=idx.to(torch.int32))
-            if bits == 4 and qt.codes.shape[-1] % 2 == 0:
-                qt = dataclasses.replace(qt, codes=pack_codes(qt.codes, 4), packed=True)
-            qts.append(qt)
-        return _stack_qts(qts)
+        if name in _MOE_NAMES:
+            return _stack_qts([_stack_experts([qt_one(we) for we in wi]) for wi in w])
+        return _stack_qts([qt_one(wi) for wi in w])
 
     out = dict(params)
     out["dec"] = {key: {name: qt_of(name, leaf) if name in QUANTIZABLE else leaf

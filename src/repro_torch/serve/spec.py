@@ -46,7 +46,7 @@ from repro_torch.models import (
     paged_draft_tokens,
     paged_prefill_chunk,
 )
-from repro_torch.models.model import ModelPlan, period_slice
+from repro_torch.models.model import ModelPlan, check_positions, period_slice
 from repro_torch.serve.kv_cache import NULL_PAGE, PagePool
 
 __all__ = [
@@ -192,6 +192,7 @@ class DraftManager:
     def __init__(self, cfg: SpecConfig, *, pool: PagePool, n_pages: int, max_batch: int,
                  max_seq: int, page_size: int, prefill_chunk: int, device):
         paged_cache_shapes(cfg.draft_plan, n_pages, page_size)  # the arch gate, at init
+        check_positions(cfg.draft_plan.cfg, max_seq, "engine max_seq")
         self.cfg = cfg
         self.pool = pool
         self.device = device

@@ -18,10 +18,13 @@ budget attached.
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 
 __all__ = ["LayerStat", "probe_layer_stats"]
+
+_EXPERT_RE = re.compile(r"\.e\d+$")
 
 
 @dataclasses.dataclass
@@ -29,15 +32,22 @@ class LayerStat:
     """Probe summary of one quantizable leaf (a solver layer path)."""
 
     key: str  # "dec.p0.b0/wq": PTQConfig.layer_specs granularity
-    n_weights: int  # q·p
-    lambda_max: float  # λ_max(Σ), power iteration
+    n_weights: int  # q·p (×E for an MoE leaf: the budget counts every expert)
+    lambda_max: float  # λ_max(Σ), power iteration; MoE: mean over the experts
     err: dict = dataclasses.field(default_factory=dict)
     # err[bits]          -> relative reconstruction error at that width
     # err[(bits, frac)]  -> with an outlier budget attached (optional probes)
 
 
+def _leaf_key(report_key: str) -> str:
+    """A report key's leaf path: per-expert keys (``…/w_gate.e3``) collapse
+    onto their leaf."""
+    return _EXPERT_RE.sub("", report_key)
+
+
 def _leaf_sizes(plan, params) -> dict:
-    """Weights per quantizable leaf path, from the dense stacked params."""
+    """Weights per quantizable leaf path, from the dense stacked params (an
+    MoE leaf counts all its experts)."""
     from repro_torch.core.solver import QUANTIZABLE
 
     n_periods = plan.cfg.n_periods
@@ -69,9 +79,9 @@ def probe_layer_stats(plan, params, calib: list, *, bits_candidates: tuple = (2,
         lams: dict[str, list] = {}
         for rec in records:
             for k, v in rec.get("layer_errors", {}).items():
-                errs.setdefault(k, []).append(v)
+                errs.setdefault(_leaf_key(k), []).append(v)
             for k, v in rec.get("lambda_max", {}).items():
-                lams.setdefault(k, []).append(v)
+                lams.setdefault(_leaf_key(k), []).append(v)
         for k, vs in errs.items():
             if k not in stats:
                 stats[k] = LayerStat(key=k, n_weights=sizes.get(k, 0), lambda_max=0.0)

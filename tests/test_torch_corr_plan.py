@@ -27,6 +27,7 @@ from repro.quant import GridSpec, compute_grid, quantize_dequantize
 from repro_torch.kernels import quantease_cd as qcd
 from repro_torch.kernels import ref as tref
 from tests._hypothesis_compat import given, settings, st
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 N_SM = 132  # the H100's SMs
 # (G, q, p) of Phi-3-mini's solver groups: attention, MLP up, MLP down.

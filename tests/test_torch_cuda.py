@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro_torch.core import quantease as qe
+from repro_torch.core.calib import damp_sigma
 from repro_torch.kernels import ops, ref
 from repro_torch.quant import GridSpec, compute_grid, pack_codes, quantize_dequantize
 
@@ -314,6 +315,30 @@ def test_dequant_matmul(cuda, p, gsz, packed4, x_dtype):
             assert float((y.float() - y_ref).abs().max()) <= 1e-2 * float(y_ref.abs().max())
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed4", [False, True])
+@pytest.mark.parametrize("gsz", [None, 128])
+def test_dequant_matmul_experts(cuda, gsz, packed4, x_dtype):
+    """The MoE layer's expert GEMMs on an expert-stacked QuantizedTensor
+    (codes ``(E, q, p)``, packed 4-bit or uint8): one dequant-GEMM launch
+    per expert, each expert against the plain version."""
+    E, C, q, p = 4, 24, 130, 384
+    n_groups = 1 if gsz is None else p // gsz
+    per = [_gemm(e + 17 * n_groups, C, q, p, n_groups, cuda, x_dtype) for e in range(E)]
+    xs, codes, scale, zero = (torch.stack([t[i] for t in per]) for i in range(4))
+    kc = pack_codes(codes, 4) if packed4 else codes
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = ops.launch_counts()["dequant_matmul"]
+        y = ops.dequant_matmul_experts(xs, kc, scale, zero, packed4=packed4, out_dtype=out_dtype,
+                                       group_size=gsz)
+        assert ops.launch_counts()["dequant_matmul"] == before + E
+        assert y.dtype == out_dtype and y.shape == (E, C, q)
+        for e in range(E):
+            _dq_check(y[e], ref.dequant_matmul_ref(xs[e], codes[e], scale[e], zero[e],
+                                                   out_dtype=torch.float32, group_size=gsz),
+                      out_dtype)
+
+
 GEMM_MS = (1, 8, 13, 64, 65, 128, 300)
 
 
@@ -520,6 +545,173 @@ def test_slice_on_card_matches_cpu(cuda):
         assert reps["cuda"][k] == pytest.approx(v, rel=1e-3), k
 
 
+# Verified rounding ties of a QuantEase solve compared across two runs (here
+# the card and the CPU; tests/test_torch_moe.py uses it for the two packages).
+# Rows are independent in the CD, and each snapped value depends on every
+# earlier one of its row, so a tie resolved the other way makes the rest of
+# the row differ.  Where a row first parts (iteration it, column j; the runs
+# agree on the columns before j in this iteration and on those after it in
+# the previous one), the CD update's beta is recomputed in float64 and must
+# lie within the fp32 rounding bound of a midpoint of the grid.
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def midpoint_gap(w_row, sigma, scale, zero, cur, prev, j, sig_rel=0.0, percdamp=0.01):
+    """``(gap, tol)`` in grid steps for column ``j`` of one row: ``w_row``
+    (p,) the original weights, ``sigma`` (p, p) the undamped Σ, ``scale``
+    and ``zero`` the row's per-channel grid, ``cur`` the row after the
+    iteration where it parts, ``prev`` before it.  ``sig_rel`` widens the
+    bound by the measured relative difference of the two runs' Σ."""
+    sig_d = damp_sigma(torch.as_tensor(np.asarray(sigma), dtype=torch.float64), percdamp).numpy()
+    sig_norm = sig_d / np.diagonal(sig_d)[None, :]
+    st = sig_norm[:, j].copy()
+    st[j] -= 1.0
+    pmat = float(np.asarray(w_row, np.float64) @ sig_norm[:, j])
+    terms = np.concatenate([np.asarray(cur, np.float64)[:j] * st[:j],
+                            np.asarray(prev, np.float64)[j + 1:] * st[j + 1:]])
+    v = (pmat - terms.sum()) / scale + zero
+    mag = abs(pmat) + np.abs(terms).sum()
+    tol = (4 * len(st) * EPS32 + 2 * sig_rel) * mag / scale + 1e-6
+    return abs(v - (np.floor(v) + 0.5)), tol
+
+
+def _recording_solves(records):
+    """Patch ``core.quantease`` so each ``quantease_quantize`` call appends
+    ``(w3, Σ3, scale, zero, [Ŵ after each iteration])`` to ``records``."""
+    import contextlib
+
+    solve, step_of = qe.quantease_quantize, qe._iteration_step
+
+    def quantize(w, sigma, spec, **kw):
+        grid = kw.get("grid")
+        records.append((w.detach().cpu(), sigma.detach().cpu(), grid.scale.cpu(), grid.zero.cpu(),
+                        []))
+        return solve(w, sigma, spec, **kw)
+
+    def iteration_step(*a, **kw):
+        step = step_of(*a, **kw)
+
+        def recorded(*args, **kwargs):
+            out = step(*args, **kwargs)
+            records[-1][4].append((kwargs["quantize"], out[0].transpose(-1, -2).cpu()))
+            return out
+        return recorded
+
+    @contextlib.contextmanager
+    def patched():
+        qe.quantease_quantize, qe._iteration_step = quantize, iteration_step
+        try:
+            yield
+        finally:
+            qe.quantease_quantize, qe._iteration_step = solve, step_of
+    return patched()
+
+
+def _verified_tie_rows(rec_card, rec_cpu, w, atol=1e-5):
+    """The rows of weight matrix ``w`` (q, p) whose solves part between the
+    card's and the CPU's records; each must start at a verified rounding
+    tie (:func:`midpoint_gap`), its bound widened by the
+    measured difference of the two runs' Σ."""
+    def find(records):
+        for i, (w3, *_rest) in enumerate(records):
+            for g in range(w3.shape[0]):
+                if torch.equal(w3[g, :, : w.shape[1]], w):
+                    return i, g
+        raise AssertionError("no recorded solve of this matrix")
+
+    (ik, g), (ip, gp) = find(rec_card), find(rec_cpu)
+    assert g == gp
+    wk3, sk3, _, _, its_k = rec_card[ik]
+    w3, s3, scale, zero, its_p = rec_cpu[ip]
+    sig_rel = float((sk3[g] - s3[g]).abs().max() / s3[g].abs().max())
+    rows = set()
+    for r in range(w.shape[0]):
+        parted = [i for i, ((qz, a), (_, b)) in enumerate(zip(its_k, its_p))
+                  if not torch.allclose(a[g, r], b[g, r], rtol=0, atol=atol)]
+        if not parted:
+            continue
+        it = parted[0]
+        assert its_p[it][0], f"row {r} parts first in an unquantized iteration"
+        p = w3.shape[-1]  # the iterates carry the engine's padded columns
+        cur, other = its_p[it][1][g, r, :p], its_k[it][1][g, r, :p]
+        prev = its_p[it - 1][1][g, r, :p] if it else w3[g, r]
+        j = int(torch.nonzero((cur - other).abs() > atol)[0])
+        gap, tol = midpoint_gap(w3[g, r].numpy(), s3[g].numpy(), float(scale[g, r, 0]),
+                                float(zero[g, r, 0]), cur.numpy(), prev.numpy(), j, sig_rel)
+        assert gap <= tol, (r, it, j, gap, tol)
+        rows.add(r)
+    return rows
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "opt_125m"])
+def test_moe_and_opt_on_card_match_cpu(cuda, arch):
+    """A reduced OLMoE (4 experts, top-2) and a reduced OPT (learned
+    positions, LayerNorm, GELU, tied head) through PTQ (QuantEase, emit="qt")
+    and perplexity on the card (kernels; the experts' GEMMs one kernel-3
+    launch per expert) and on the CPU (plain versions).  In the first
+    period each expert's and layer's Σ within 1e-5 relative (the same
+    routing), its codes equal outside rows that start at a verified
+    rounding tie (at most 1 % of rows), and its error within 1e-3 relative
+    where the codes agree; the perplexity within 1e-3 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import solver
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.eval.scorer import perplexity_on_stream
+    from repro_torch.models import model as M
+    from repro_torch.serve.qparams import quantize_params_for_serving
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(
+        base, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32, d_ff=384, vocab=300,
+        n_periods=2, max_seq=256, n_experts=4 if base.n_experts else 0,
+        top_k=min(base.top_k, 2), moe_d_ff=256 if base.n_experts else 0, dtype=torch.float32,
+    )
+    plan = M.make_plan(cfg)
+    params_cpu = M.init_params(plan, 5, device="cpu")
+    calib_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, 2, 64, split="calib")
+    eval_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, 2, 64, split="eval")
+    calib = [calib_fn(0), calib_fn(1)]
+    pcfg = solver.PTQConfig(iterations=5, emit="qt")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = M.tree_map(lambda a: a.to(dev), params_cpu)
+        records = []
+        with _recording_solves(records):
+            q, rep = solver.ptq_quantize_model(plan, params, calib, pcfg, device=dev)
+        served = quantize_params_for_serving(plan, params, q["dec"], device=dev)
+        before = ops.launch_counts()["dequant_matmul"]
+        ppl = perplexity_on_stream(plan, served, eval_fn, n_batches=2, device=dev)["ppl"]
+        out[dev.type] = (rep, ppl, ops.launch_counts()["dequant_matmul"] - before, q, records)
+    (rk, pk, nk, qk, reck), (rp, pp, np_, qp, recp) = out["cuda"], out["cpu"]
+    assert nk > 0 and np_ == 0
+    assert list(rk) == list(rp)
+    if cfg.n_experts:
+        assert sum(".e" in k for k in rp) == 2 * 3 * 4
+    p0 = params_cpu["dec"]["b0"]
+    keys = [k for k in rp if k.startswith("dec.p0.")]
+    n_agree = n_rows = 0
+    ties = []
+    for k in keys:
+        name = k.split("/")[1]
+        leaf, e = name.split(".e") if ".e" in name else (name, None)
+        w = p0[leaf][0] if e is None else p0[leaf][0, int(e)]
+        w = w.reshape(w.shape[0], -1).T.contiguous()  # (q, p)
+        ck, cp = (qd["dec"][0]["b0"][leaf].unpacked_codes().cpu() for qd in (qk, qp))
+        if e is not None:
+            ck, cp = ck[int(e)], cp[int(e)]
+        n_rows += cp.shape[0]
+        if torch.equal(ck, cp):
+            assert rk[k] == pytest.approx(rp[k], rel=1e-3), k
+            n_agree += 1
+            continue
+        differ = set(torch.nonzero((ck != cp).any(-1)).flatten().tolist())
+        assert differ <= _verified_tie_rows(reck, recp, w), k
+        ties += [(k, r) for r in differ]
+    assert len(ties) <= max(1, 0.01 * n_rows) and n_agree >= len(keys) - 2, ties
+    assert pk == pytest.approx(pp, rel=1e-3)
+
+
 @pytest.mark.parametrize("method", ["qe_outlier", "qe_outlier_struct"])
 def test_outlier_slice_on_card_matches_cpu(cuda, method):
     """Reduced Phi-3 through Algorithm 3 (3 bits, 2 % outliers, emit="qt"),
@@ -637,6 +829,21 @@ def test_paged_attention(cuda, kind, G, hd, window, cap):
             out = _pa(paged_attention_cuda, d, window=window, attn_softcap=cap, plan=plan)
             assert ops.launch_counts()["paged_attention"] == before + 1
             torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol, msg=str(plan))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int4"])
+def test_paged_attention_hd160_gqa4(cuda, kind):
+    """Kernel 5 at StableLM-2-12B's head shape (hd 160, G = 4; int4 pages
+    of width 80) against its plain version, under each plan."""
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    d = _paged(160 + len(kind), cuda, kind=kind, KVp=2, G=4, hd=160)
+    want = _pa(ref.paged_attention_ref, d)
+    for plan in _paged_plans(d["page_table"].shape[1]):
+        before = ops.launch_counts()["paged_attention"]
+        out = _pa(paged_attention_cuda, d, plan=plan)
+        assert ops.launch_counts()["paged_attention"] == before + 1
+        torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=2e-2, msg=str(plan))
 
 
 @pytest.mark.parametrize("window", [None, 21])
@@ -975,6 +1182,27 @@ def test_kernel_dispatch_deny_on_the_card_raises_uncounted(cuda):
     assert plan.fired == [("kernel.dispatch", 0, "deny")]
     plain = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32)
     torch.testing.assert_close(launched, plain, rtol=1e-2, atol=1e-2 * float(plain.abs().max()))
+
+
+def test_kernel_dispatch_deny_on_expert_gemms_raises(cuda):
+    """The MoE expert GEMMs pass the same fault site: a ``deny`` at the
+    third expert raises :class:`ops.DispatchDenied` after the first two
+    experts' launches, and no launch of its own."""
+    from repro_torch.faults import FaultPlan, FaultSpec, fault_plan
+
+    r = np.random.default_rng(0)
+    E = 4
+    xs = torch.from_numpy(r.standard_normal((E, 8, 256)).astype(np.float32)).to(cuda, torch.bfloat16)
+    codes = torch.from_numpy(r.integers(0, 16, (E, 64, 256)).astype(np.uint8)).to(cuda)
+    scale = torch.full((E, 64, 1), 0.01, device=cuda)
+    zero = torch.full((E, 64, 1), 8.0, device=cuda)
+    plan = FaultPlan([FaultSpec(site="kernel.dispatch", kind="deny", at=(2,))])
+    before = ops.launch_counts()["dequant_matmul"]
+    with fault_plan(plan):
+        with pytest.raises(ops.DispatchDenied):
+            ops.dequant_matmul_experts(xs, codes, scale, zero, out_dtype=torch.float32)
+    assert ops.launch_counts()["dequant_matmul"] == before + 2
+    assert plan.fired == [("kernel.dispatch", 2, "deny")]
 
 
 def test_quantize_and_serve_clis_on_card(cuda, tmp_path, capsys):

@@ -36,6 +36,7 @@ from repro_torch.quant import (
 )
 from repro_torch.serve.qparams import quantize_params_for_serving
 from tests._hypothesis_compat import given, settings, st
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 N_SM = 132  # the H100's SMs
 PATH_SHAPES = ((3072, 3072), (8192, 3072), (3072, 8192))  # (q, p) of Phi-3-mini's linears

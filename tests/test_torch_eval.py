@@ -40,6 +40,7 @@ from repro_torch.eval import tasks as ttasks
 from repro_torch.eval.harness import EvalBudget, validate_doc
 from repro_torch.models import model as tmodel
 from tests.conftest import reduce_cfg
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CPU = "cpu"

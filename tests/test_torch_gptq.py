@@ -44,6 +44,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.common import capture_gram_stats
 from repro_torch.quant import Grid, GridSpec, compute_grid, quantize_codes, quantize_dequantize
 from tests.conftest import reduce_cfg
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 TIE_RTOL = 1e-5
 VAL_ATOL = 1e-5  # × max |W|

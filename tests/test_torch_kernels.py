@@ -23,6 +23,7 @@ from repro.kernels.quantease_cd import (
 from repro.quant import GridSpec, compute_grid, pack_codes, quantize_dequantize
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 ATOL_CD = 2e-4
 

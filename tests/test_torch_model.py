@@ -25,6 +25,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.models import model as tmodel
 from repro_torch.models.common import apply_linear as tapply
 from tests.conftest import reduce_cfg
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _pair(dtype_j=jnp.float32, dtype_t=torch.float32, **over):

@@ -68,6 +68,7 @@ from repro_torch.quant import compute_grid_excluding_outliers as tgrid_excl
 from repro_torch.quant import dequantize_tensor as tdequant
 from repro_torch.serve import qparams as tqparams
 from tests.conftest import reduce_cfg
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _problem(seed, q, p, n, G=None):
@@ -340,20 +341,26 @@ def test_column_planes_dequantize_and_apply_like_jax():
 SLICE_METHODS = ("quantease", "qe_outlier", "qe_outlier_struct")
 
 
-@pytest.fixture(scope="module")
-def outlier_runs():
-    jcfg = dataclasses.replace(reduce_cfg(jget("phi3_mini_3_8b")), dtype=jnp.float32)
-    tcfg = dataclasses.replace(reduce_cfg(tget("phi3_mini_3_8b")), dtype=torch.float32)
-    jp, tp = jplan(jcfg, 1), tmodel.make_plan(tcfg)
-    params = jinit(jp, jax.random.PRNGKey(2))
-    tparams = interop.params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
-    data = tpipe.DataConfig(vocab=tcfg.vocab, seed=0)
-    calib_fn, _ = tpipe.make_batch_fn(data, tcfg, 2, 64, split="calib")
-    calib = [calib_fn(i) for i in range(2)]
-    jeval, _ = jpipe.make_batch_fn(jpipe.DataConfig(vocab=jcfg.vocab, seed=0), jcfg, 2, 64, split="eval")
-    teval, _ = tpipe.make_batch_fn(data, tcfg, 2, 64, split="eval")
-    runs = {}
-    for method in SLICE_METHODS:
+class _SliceRuns(dict):
+    """Each method's slice run in both packages, computed on first use (once
+    per module), so the first test of a method pays for its runs alone."""
+
+    def __init__(self):
+        super().__init__()
+        jcfg = dataclasses.replace(reduce_cfg(jget("phi3_mini_3_8b")), dtype=jnp.float32)
+        tcfg = dataclasses.replace(reduce_cfg(tget("phi3_mini_3_8b")), dtype=torch.float32)
+        jp, tp = jplan(jcfg, 1), tmodel.make_plan(tcfg)
+        params = jinit(jp, jax.random.PRNGKey(2))
+        tparams = interop.params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+        data = tpipe.DataConfig(vocab=tcfg.vocab, seed=0)
+        calib_fn, _ = tpipe.make_batch_fn(data, tcfg, 2, 64, split="calib")
+        jeval, _ = jpipe.make_batch_fn(jpipe.DataConfig(vocab=jcfg.vocab, seed=0), jcfg, 2, 64, split="eval")
+        teval, _ = tpipe.make_batch_fn(data, tcfg, 2, 64, split="eval")
+        self._setup = (jp, tp, params, tparams, [calib_fn(i) for i in range(2)], jeval, teval)
+        self["plans"] = (jp, tp, teval)
+
+    def __missing__(self, method):
+        jp, tp, params, tparams, calib, jeval, teval = self._setup
         kw = dict(method=method, iterations=5, emit="qt", outlier_frac=0.02)
         jq, jrep = jsolver.ptq_quantize_model(
             jp, params, [{"tokens": jnp.asarray(b["tokens"])} for b in calib],
@@ -362,13 +369,17 @@ def outlier_runs():
                                               tsolver.PTQConfig(spec=TSpec(bits=3), **kw), device="cpu")
         jserve = jqparams.quantize_params_for_serving(jp, params, jq["dec"])
         tserve = tqparams.quantize_params_for_serving(tp, tparams, tq["dec"], device="cpu")
-        runs[method] = dict(
+        self[method] = dict(
             jq=jq, tq=tq, jrep=jrep, trep=trep, jserve=jserve, tserve=tserve,
             jppl=jscorer.perplexity_on_stream(jp, jserve, jeval, n_batches=2),
             tppl=tscorer.perplexity_on_stream(tp, tserve, teval, n_batches=2, device="cpu"),
         )
-    runs["plans"] = (jp, tp, teval)
-    return runs
+        return self[method]
+
+
+@pytest.fixture(scope="module")
+def outlier_runs():
+    return _SliceRuns()
 
 
 @pytest.mark.parametrize("method", SLICE_METHODS)

@@ -39,6 +39,7 @@ from repro_torch.models import model as tm
 from repro_torch.serve import PagedServingEngine, Request, ServingEngine
 from repro_torch.serve.kv_cache import page_nbytes
 from tests.conftest import reduce_cfg
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
 

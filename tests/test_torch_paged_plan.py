@@ -34,6 +34,7 @@ from repro.quant.pack import kv_pack_int4 as jpack4
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.quant import kv_unpack_int4
 from tests._hypothesis_compat import given, settings, st
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 N_SM = 132  # the H100's SMs
 PAGE = 16

@@ -17,6 +17,7 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.quant import grid as tgrid
 from repro_torch.quant import pack as tpack
 from repro_torch.quant.qtensor import QuantizedTensor, dequantize_tensor
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 CASES = [
     (4, False, None, 16, 96),

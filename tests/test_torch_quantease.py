@@ -19,6 +19,7 @@ from repro_torch.core import quantease as tqe
 from repro_torch.core.calib import CalibStats, damp_sigma, gram
 from repro_torch.quant import GridSpec as TSpec
 from repro_torch.quant import compute_grid as tgrid
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 ATOL = 2e-4
 

@@ -40,6 +40,7 @@ from repro_torch.models.common import decode_attention, flash_attention
 from repro_torch.quant import kv_pack_int4, kv_unpack_int4
 from repro_torch.serve.kv_cache import NULL_PAGE, PagePool, page_nbytes
 from tests.conftest import reduce_cfg
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _t(a):

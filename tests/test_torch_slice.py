@@ -37,6 +37,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.quant import GridSpec as TSpec
 from repro_torch.serve import qparams as tqparams
 from tests.conftest import reduce_cfg
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -126,8 +127,8 @@ def test_port_imports_no_jax_and_no_reference():
     """Importing every module of the port (Algorithm 3's ``core.outlier``,
     the serving engines, the fault plans, the eval tasks and harness, GPTQ,
     the trainer and the checkpoints, AWQ, SpQR, the launchers, speculative
-    serving and the tuner among them), and chip_smoke, loads neither jax nor
-    the reference package."""
+    serving, the tuner, the MoE layer and the new configs among them), and
+    chip_smoke, loads neither jax nor the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -146,7 +147,10 @@ def test_port_imports_no_jax_and_no_reference():
         "        'repro_torch.launch.quantize', 'repro_torch.launch.eval',\n"
         "        'repro_torch.launch.serve', 'repro_torch.serve.spec', 'repro_torch.serve.qparams',\n"
         "        'repro_torch.tune', 'repro_torch.tune.sensitivity', 'repro_torch.tune.allocate',\n"
-        "        'repro_torch.tune.search', 'repro_torch.launch.tune']\n"
+        "        'repro_torch.tune.search', 'repro_torch.launch.tune', 'repro_torch.models.moe',\n"
+        "        'repro_torch.configs.opt_paper', 'repro_torch.configs.qwen15_32b',\n"
+        "        'repro_torch.configs.stablelm_12b', 'repro_torch.configs.gemma2_27b',\n"
+        "        'repro_torch.configs.olmoe_1b_7b', 'repro_torch.configs.mixtral_8x22b']\n"
         "bad += [m + ' not loaded' for m in need if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
     )
@@ -155,7 +159,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 44 and bad == "[]", out.stdout
+    assert int(n) >= 69 and bad == "[]", out.stdout
 
 
 def test_entry_points_refuse_cuda_without_a_card():

@@ -25,6 +25,7 @@ from repro.kernels.quantease_cd import quantease_block_sweep_pallas
 from repro.quant import GridSpec, compute_grid, quantize_dequantize
 from repro_torch.kernels import quantease_cd as qcd
 from tests._hypothesis_compat import given, settings, st
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 N_SM = 132  # the H100's SMs
 # CTAs of the 32- and 64-row sweep resident per H100 SM at B = 256 and 128

@@ -44,6 +44,7 @@ from repro_torch.train.train_step import loss_and_grads, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import tree_leaves
 from tests.conftest import reduce_cfg
+from tests._torch_cpu import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 
