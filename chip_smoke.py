@@ -93,8 +93,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
 8. the command-line path at full width: ``repro_torch.launch.train``,
    ``quantize``, ``eval`` and ``serve`` called in process on Phi-3-mini cut
    to 2 of 32 decoder layers (registered as ``phi3_mini_3_8b_2l``), in a
-   temporary directory checked for free space first: 4 training steps at 4
-   x 512 (every loss finite, 4 checkpoints); QuantEase at 4 bits, then SpQR
+   temporary directory checked for free space first: 2 training steps at 4
+   x 512 (every loss finite, 2 checkpoints); QuantEase at 4 bits, then SpQR
    at 3 bits with ``--resume`` (14 layers, finite errors, one
    ``progress.jsonl`` record a block, the QuantEase report within 1e-3 per
    layer of ``ptq_quantize_model`` on the same params and batches); the
@@ -153,7 +153,32 @@ Phases (any failed check exits non-zero; no phase is skipped):
    decode step and attention layer, and each config's kernel 3 and 5
    calls are held against their plain versions (one kept call per
    signature; kernel 5 within ``PAGED_ATOL`` scaled by max |out| above 1),
-   with kernel 5's plan printed per head shape.
+   with kernel 5's plan printed per head shape; OLMoE's and OPT-66B's CD
+   calls too (kernels 2 and 4, kernel 1 on each of their blocks), one
+   signature at a time right after each group solve;
+11. Mamba-2 and the hybrid Jamba at full width, seeded random bf16 weights:
+   (a) Mamba-2-2.7B (4 of 64 layers; d 2560, 80 SSD heads of 64, state
+   128, vocab 50,280 tied): RTN and QuantEase at 4 bits, QuantEase and
+   qe_outlier (1 %) at 3 bits on one calibration batch of 16 x 512 tokens,
+   each restacked and scored by ``eval_model`` on 2 batches of 2 x 512;
+   the solver's groups must be 2 x (5120, 2560), 1 x (256, 2560) and 1 x
+   (2560, 5120), the report keys wz, wx, wbc, out_proj (never wdt), mean
+   error quantease < rtn at 4 bits and qe_outlier < quantease at 3; then
+   the ``quantease@4`` artifact serves 8 of phase 6's prompts x 32 new
+   tokens on the contiguous engine (tc_small at decode, no simt); (b)
+   Jamba-1.5-Large, its period cut to two blocks: (i) blocks 0 and 2
+   (attention and Mamba, dense MLPs; 64 heads of 128, kv 8, 256 SSD heads,
+   d_ff 24,576): QuantEase at 4 bits on wz, wx, wbc and out_proj through
+   ``layer_specs``, RTN on the other leaves, on 4 x 512 calibration tokens
+   (QuantEase groups 2 x (16384, 8192), 1 x (256, 8192), 1 x (8192,
+   16384)), then ``eval_model`` on 2 x 2 x 512; (ii) blocks 0 and 1 (the
+   Mamba block with 16 experts of d_ff 24,576, top-2): a 4-bit RTN artifact
+   serves 4 requests of 16-512 tokens x 16 new on the contiguous engine.
+   Seconds per decoder layer per method, ms per decode step, kernel 3's
+   launches by variant and peak device memory are printed; every kernel
+   call is held against its plain version as in phase 10 (kernels 1, 2 and
+   4 right after each group solve, kernel 3 at the end, one call a
+   signature).
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -264,15 +289,15 @@ SERVED_RUN = "quantease@4"  # the artifact phase 6 serves
 # cut to 2 of 32 decoder layers (registered under this name; the CLIs take
 # a registered config and have no depth flag).
 CLI_ARCH = "phi3_mini_3_8b_2l"
-CLI_TRAIN = ("--steps", "4", "--batch", "4", "--seq", "512")
+CLI_TRAIN = ("--steps", "2", "--batch", "4", "--seq", "512")
 CLI_SEQ, CLI_ITERATIONS, CLI_CALIB = 512, 25, 4  # the quantize CLI's: 4 calibration batches of 4
 CLI_EVAL = ("--methods", "rtn", "awq", "spqr", "quantease", "--bits", "3", "--outlier-bits", "3",
             "--iterations", "25", "--calib-batches", "4", "--eval-batches", "4", "--seq", "512")
 CLI_SERVE = ("--requests", "6", "--max-new", "12")
 CLI_REPORT_REL = 1e-3  # the quantize CLI's report against ptq_quantize_model, per layer
-# Four training checkpoints of 3.94 GiB (bf16 params, fp32 moments), the
+# Two training checkpoints of 3.94 GiB (bf16 params, fp32 moments), the
 # quantize output (0.85 GiB) and headroom.
-CLI_DISK_GIB = 20
+CLI_DISK_GIB = 12
 # validate_doc's problems phase 8 records and does not fail on: its grid has
 # no GPTQ and no 4-bit rows, so the ordering checks cannot hold; random
 # weights order no perplexity; and the parity's absolute tol (0.05, set for
@@ -366,9 +391,43 @@ FAM_DENSE = (("qwen15_32b", ("bf16",)), ("stablelm_12b", ("bf16", "int4")),
              ("gemma2_27b", ("bf16",)), ("opt_66b", ("bf16",)))
 FAM_DENSE_CALIB, FAM_DENSE_EVAL = (4, 512), (2, 512)
 FAM_REQUESTS, FAM_PROMPT_LO, FAM_PROMPT_HI, FAM_NEW = 4, 16, 512, 16
+# The configs of (a) and (b) whose CD calls (kernels 1, 2 and 4) are held
+# against their plain versions after each group solve: OLMoE's three groups
+# and OPT-66B's p = 36,864 group.  Qwen1.5's, StableLM-2's and Gemma 2's
+# (48.5 s of plain column loops, PR 22) were cut to keep the whole run within
+# 1,000 s once phase 11 came; their kernel-3 and kernel-5 calls are still
+# held.
+FAM_CD_CHECKED = ("olmoe_1b_7b", "opt_66b")
 # (c) Mixtral-8x22B, one layer: a 4-bit RTN artifact serves 4 requests.
 FAM_MIXTRAL = "mixtral_8x22b"
 FAM_PAGED = dict(max_batch=8, max_seq=1536, page_size=PAGE, prefill_chunk=128)
+# Phase 11: Mamba-2 and the hybrid Jamba at full width, seeded random bf16
+# weights, depth cut.  (a) Mamba-2-2.7B, 4 of 64 layers (d 2560, 80 SSD
+# heads of 64, state 128, vocab 50,280 tied): one calibration batch of 16 x
+# 512 tokens, fed 4 sequences at a time (stream_chunk: the intra-chunk
+# temporaries are (B, 4, 128, 128, 80) fp32), OLMoE's four runs, each
+# scored by eval_model on 2 batches of 2 x 512; then the quantease@4
+# artifact serves 8 of phase 6's prompts x 32 new tokens on the contiguous
+# engine (Mamba state does not page, as in the reference).
+SSM_MAMBA = ("mamba2_2_7b", 4)
+SSM_CALIB, SSM_EVAL, SSM_STREAM = (16, 512), (2, 512), 4
+SSM_RUNS = FAM_MOE_RUNS
+SSM_SERVED = "quantease@4"
+SSM_REQUESTS, SSM_NEW = 8, 32
+SSM_CONTIG = dict(max_batch=8, max_seq=1536)
+# (b) Jamba-1.5-Large, its period of 8 blocks cut to two: (i) blocks 0 and 2
+# (attention with a dense MLP, Mamba with a dense MLP; d 8192, 64 heads of
+# 128, kv 8, 256 SSD heads, d_ff 24,576), QuantEase at 4 bits on the Mamba
+# linears through layer_specs and RTN on the rest, 4 x 512 calibration
+# tokens, eval_model on 2 batches of 2 x 512; (ii) blocks 0 and 1 (the Mamba
+# block with the MoE: 16 experts of d_ff 24,576, top-2, 19.3 GB of bf16
+# experts): a 4-bit RTN artifact (rtn_quantize_for_serving) serves 4
+# requests of 16-512 tokens x 16 new.  No calibration pass runs over the MoE
+# block: its w_down's per-expert Σ alone would be 16 x 24,576² x 4 B.
+SSM_JAMBA = "jamba_1_5_large"
+SSM_JAMBA_PTQ, SSM_JAMBA_SERVE = (0, 2), (0, 1)
+SSM_JAMBA_QE = ("wz", "wx", "wbc", "out_proj")
+SSM_JAMBA_CALIB, SSM_JAMBA_STREAM = (4, 512), 2
 
 
 def fail(msg: str) -> None:
@@ -2329,7 +2388,7 @@ def cli_path(dev, detail, root):
     (``main([...])``, stdout captured into ``chiprun_out/chip_smoke_cli.txt``)
     on Phi-3-mini at full width, 2 of 32 decoder layers, in the temporary
     directory ``root`` (phase 9 reads its training checkpoints; the caller
-    removes it): train 4 steps (4 checkpoints); quantize with QuantEase at 4
+    removes it): train 2 steps (2 checkpoints); quantize with QuantEase at 4
     bits, then SpQR at 3 bits with ``--resume``; the eval grid (RTN, AWQ,
     SpQR, QuantEase and qe_outlier at 3 bits, 25 iterations) with the
     parity check; serve the quantize output on the paged engine (bf16, a
@@ -2387,7 +2446,7 @@ def cli_path(dev, detail, root):
         print(f"[cli] train: losses " + ", ".join(f"{m['step']}:{m['loss']:.4f}" for m in log)
               + f"; checkpoints {steps} ({seconds['train']:.1f}s)", flush=True)
         check(log and all(math.isfinite(m["loss"]) for m in log), f"train CLI losses {log}")
-        check(steps == [1, 2, 3, 4], f"train CLI wrote checkpoints {steps}, expected 4")
+        check(steps == [1, 2], f"train CLI wrote checkpoints {steps}, expected 2")
 
         reports = {}
         for label, extra in (("quantease@4", ("--method", "quantease", "--bits", "4")),
@@ -2959,8 +3018,8 @@ def family_serve(label, plan, artifact, prompts, new_tokens, dev):
     return stats
 
 
-def family_checks(label, calls, variants):
-    """Phase 10's kernel calls of one config, one per signature, against
+def family_checks(label, calls, variants, phase="phase 10"):
+    """Phase 10's (or ``phase``'s) kernel calls of one config, one per signature, against
     their plain versions (:func:`check_path_calls`: the CD iterations with
     kernel 1 on each of their blocks, kernels 3 and 5); prints kernel 5's
     plan for each head shape it ran."""
@@ -2983,7 +3042,7 @@ def family_checks(label, calls, variants):
         print(f"[family] {label} kernel 5 plan: B,KVp,G,hd={(B, KVp, G, hd)} {kind} pages, table "
               f"{table.shape[1]} pages, window {kw.get('window')}: {planned} pages a partition, "
               f"{cps} CTAs per SM", flush=True)
-    return check_path_calls(calls, variants, phase=f"phase 10 {label}", paged_tol=family_paged_tol)
+    return check_path_calls(calls, variants, phase=f"{phase} {label}", paged_tol=family_paged_tol)
 
 
 def family_paged_tol(want) -> float:
@@ -3007,11 +3066,12 @@ def merge_checked(into: dict, more: dict) -> dict:
 
 
 @contextlib.contextmanager
-def checked_solves(label, calls, on_solve=None):
+def checked_solves(label, calls, on_solve=None, replay=True, phase="phase 10"):
     """While open, each group solve of the PTQ path is followed by the check
     of the CD calls it recorded in ``calls`` (kernels 2 and 4, kernel 1 on
     each of their blocks), each signature once over the whole run, against
-    the plain versions; ``on_solve(w3, gcfg)`` sees each group.  Checking
+    the plain versions (with ``replay`` False they are dropped unchecked);
+    ``on_solve(w3, gcfg)`` sees each group.  Checking
     as the solves go keeps one group's clones on the card at a time (Σ̃ alone
     is 5.4 GB at p = 36,864).  Yields a dict: ``checked``, the merged
     results; ``replayed``, the launches the replays made, which
@@ -3035,10 +3095,10 @@ def checked_solves(label, calls, on_solve=None):
         t0 = time.monotonic()
         for key in [k for k in calls if k[0] in PATH_WRAPPERS[:2]]:
             one = {key: calls.pop(key)}  # one signature's clones on the card at a time
-            if key not in done:
+            if replay and key not in done:
                 done.add(key)
                 before = ops.launch_counts()
-                merge_checked(st["checked"], check_path_calls(one, {}, phase=f"phase 10 {label}"))
+                merge_checked(st["checked"], check_path_calls(one, {}, phase=f"{phase} {label}"))
                 for k, v in ops.launch_counts().items():
                     st["replayed"][k] += v - before[k]
             del one
@@ -3200,7 +3260,7 @@ def family_dense(dev, detail, name, kv_dtypes):
         pcfg = solver.PTQConfig(method="quantease", spec=GridSpec(bits=4), iterations=PTQ_ITERATIONS,
                                 emit="qt")
         t1 = time.monotonic()
-        with checked_solves(name, calls) as st:
+        with checked_solves(name, calls, replay=name in FAM_CD_CHECKED) as st:
             net, t_net = less_checks(st), less_checks(st)
             q, report = solver.ptq_quantize_model(plan, params, calib, pcfg, device=dev,
                                                   progress_cb=lambda r: blocks.append(net(r["seconds"])))
@@ -3296,6 +3356,257 @@ def families(dev, detail):
     return counts, checked
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: Mamba-2 and Jamba-1.5-Large at full width
+# ---------------------------------------------------------------------------
+
+
+def ssm_serve(label, plan, artifact, prompts, new_tokens, dev):
+    """One contiguous run (every request completes with ``new_tokens``);
+    returns its stats and kernel 3's launches by variant in the run."""
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.serve import ServingEngine
+
+    before = dict(dequant_matmul_cuda.launches_by_variant)
+    stats, outputs, eng = serve_run(label, lambda: ServingEngine(
+        plan, artifact, **SSM_CONTIG, device=dev), prompts, new_tokens)
+    by_variant = {v: c - before[v] for v, c in dequant_matmul_cuda.launches_by_variant.items()}
+    check(stats["statuses"] == ["completed"] and all(len(o) == new_tokens for o in outputs.values()),
+          f"{label}: statuses {stats['statuses']}")
+    check(by_variant["tc_small"] > 0 and by_variant["simt"] == 0,
+          f"{label}: kernel 3 launches by variant {by_variant}")
+    del eng
+    return stats, by_variant
+
+
+def ssm_mamba(dev, detail):
+    """Phase 11 (a): Mamba-2-2.7B at full width, 4 of 64 layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import solver
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.eval.harness import EvalBudget, eval_model
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.models import model as M
+    from repro_torch.quant import GridSpec
+    from repro_torch.serve.qparams import quantize_params_for_serving
+
+    name, periods = SSM_MAMBA
+    cfg = dataclasses.replace(get_config(name), n_periods=periods)
+    plan = M.make_plan(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(plan, 0, device=dev)
+    data = DataConfig(vocab=cfg.vocab, seed=0)
+    calib = [make_batch_fn(data, cfg, *SSM_CALIB, split="calib")[0](0)]
+    eval_fn, _ = make_batch_fn(data, cfg, *SSM_EVAL, split="eval")
+    groups, blocks, results = [], [], {}
+
+    def seen(w3, gcfg):
+        groups.append((gcfg.method, gcfg.spec.bits, *w3.shape))
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    with recording_calls() as calls:
+        with checked_solves(name, calls, seen, phase="phase 11") as st:
+            net, net_all = less_checks(st), less_checks(st)
+            for method, bits in SSM_RUNS:
+                label = f"{method}@{bits}"
+                pcfg = solver.PTQConfig(method=method, spec=GridSpec(bits=bits),
+                                        iterations=PTQ_ITERATIONS, emit="qt", outlier_frac=OUTLIER_FRAC,
+                                        stream_chunk=SSM_STREAM)
+                t_net = less_checks(st)
+                t1 = time.monotonic()
+                q, report = solver.ptq_quantize_model(
+                    plan, params, calib, pcfg, device=dev,
+                    progress_cb=lambda r, label=label: blocks.append((label, r["period"],
+                                                                      net(r["seconds"]))))
+                served = quantize_params_for_serving(plan, params, q["dec"], device=dev)
+                t_ptq = t_net(time.monotonic() - t1)
+                metrics = eval_model(plan, served, eval_fn, budget=EvalBudget(n_ppl_batches=2),
+                                     device=dev)
+                results[label] = (report, metrics, t_ptq)
+                if label == SSM_SERVED:
+                    artifact = served
+                del q, served
+                _free()
+        ptq_counts = path_counts(st)
+        t_ptq_all = net_all(time.monotonic() - t0)
+        del params
+        _free()
+        prompts = serve_traffic(cfg.vocab)[:SSM_REQUESTS]
+        stats, by_variant = ssm_serve(f"{name} {SSM_SERVED} contiguous", plan, artifact, prompts,
+                                      SSM_NEW, dev)
+    torch.cuda.synchronize()
+    counts = path_counts(st)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    variants = dict(dequant_matmul_cuda.launches_by_variant)
+    seen_groups = sorted({g[2:] for g in groups}, key=lambda g: (-g[0], -g[1]))
+    print(f"[ssm] {name}: solver groups (G, q, p) {seen_groups}; seconds per decoder layer "
+          + "; ".join(f"{lb} " + ", ".join(f"{s:.2f}" for l2, _, s in blocks if l2 == lb)
+                      for lb in results), flush=True)
+    mean = {}
+    for label, (report, m, t_ptq) in results.items():
+        vals = np.array(list(report.values()))
+        check(np.all(np.isfinite(vals)) and math.isfinite(m["ppl"]), f"{name} {label}: {m}")
+        for p in range(periods):
+            keys = sorted(k.split("/")[1] for k in report if k.startswith(f"dec.p{p}.b0/"))
+            check(keys == ["out_proj", "wbc", "wx", "wz"], f"{name} {label}: p{p} report keys {keys}")
+        mean[label] = float(vals.mean())
+        print(f"[ssm] {name} {label}: {len(vals)} report keys, mean rel error {mean[label]:.6f}; "
+              f"ppl {m['ppl']:.4f} top1 {m['top1']:.4f} choice_acc {m['choice_acc']:.4f} "
+              f"(PTQ + restack {t_ptq:.1f}s)", flush=True)
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+    check(set(seen_groups) == {(2, cfg.d_inner, cfg.d_model), (1, 2 * G * N, cfg.d_model),
+                               (1, cfg.d_model, cfg.d_inner)}, f"{name}: solver groups {seen_groups}")
+    check(mean["quantease@4"] < mean["rtn@4"] and mean["qe_outlier@3"] < mean["quantease@3"],
+          f"{name}: mean errors {mean}")
+    for k in ("quantease_block_sweep", "quantease_fused_iteration", "dequant_matmul",
+              "quantease_outlier_iteration"):
+        check(ptq_counts[k] > 0, f"{name}: kernel {k} not launched by PTQ and eval: {ptq_counts}")
+    print(f"[ssm] {name}: launches {counts}; dequant_matmul by variant {variants} (serving "
+          f"{by_variant}); PTQ and eval {t_ptq_all:.1f}s, the CD checks' {st['seconds']:.1f}s "
+          f"apart; served {SSM_SERVED}: decode {stats['decode_tok_s']:.1f} tok/s, "
+          f"{stats['ms_per_step']:.2f} ms per decode step; peak device memory {peak:.2f} GiB",
+          flush=True)
+    del artifact
+    _free()
+    checked = merge_checked(family_checks(name, calls, variants, "phase 11"), st["checked"])
+    detail.setdefault("families", {})[name] = dict(
+        groups=seen_groups, blocks=blocks, mean_rel_error=mean, serve=stats, launches=counts,
+        serve_variants=by_variant, eval={k: r[1] for k, r in results.items()},
+        ptq_seconds={k: r[2] for k, r in results.items()}, peak_gib=peak, checked=checked)
+    return counts, checked
+
+
+def ssm_jamba(dev, detail):
+    """Phase 11 (b): Jamba-1.5-Large at full width, its period cut to two
+    blocks: (i) PTQ and eval on blocks 0 and 2, (ii) an RTN artifact of
+    blocks 0 and 1 served."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import solver
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.eval.harness import EvalBudget, eval_model
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.models import model as M
+    from repro_torch.quant import GridSpec
+    from repro_torch.serve.qparams import quantize_params_for_serving, rtn_quantize_for_serving
+
+    name, base = SSM_JAMBA, get_config(SSM_JAMBA)
+    cut = lambda idx: dataclasses.replace(base, n_periods=1,
+                                          pattern=tuple(base.pattern[i] for i in idx))
+    # (i) PTQ and eval.
+    cfg = cut(SSM_JAMBA_PTQ)
+    plan = M.make_plan(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    params = M.init_params(plan, 0, device=dev)
+    data = DataConfig(vocab=cfg.vocab, seed=0)
+    calib = [make_batch_fn(data, cfg, *SSM_JAMBA_CALIB, split="calib")[0](0)]
+    eval_fn, _ = make_batch_fn(data, cfg, *SSM_EVAL, split="eval")
+    groups, blocks = [], []
+
+    def seen(w3, gcfg):
+        groups.append((gcfg.method, gcfg.spec.bits, *w3.shape))
+
+    with recording_calls() as calls:
+        pcfg = solver.PTQConfig(method="rtn", spec=GridSpec(bits=4), iterations=PTQ_ITERATIONS,
+                                emit="qt", stream_chunk=SSM_JAMBA_STREAM,
+                                layer_specs={n: solver.LayerSpec(method="quantease")
+                                             for n in SSM_JAMBA_QE})
+        t1 = time.monotonic()
+        with checked_solves(name, calls, seen, phase="phase 11") as st:
+            net, t_net = less_checks(st), less_checks(st)
+            q, report = solver.ptq_quantize_model(plan, params, calib, pcfg, device=dev,
+                                                  progress_cb=lambda r: blocks.append(net(r["seconds"])))
+        artifact = quantize_params_for_serving(plan, params, q["dec"], device=dev)
+        del q, params
+        _free()
+        t_ptq = t_net(time.monotonic() - t1)
+        m = eval_model(plan, artifact, eval_fn, budget=EvalBudget(n_ppl_batches=2), device=dev)
+        del artifact
+        _free()
+        torch.cuda.synchronize()
+        counts_ptq = path_counts(st)
+        variants_ptq = dict(dequant_matmul_cuda.launches_by_variant)
+        peak_ptq = torch.cuda.max_memory_allocated() / 2**30
+        # (ii) the MoE block, served from an RTN artifact.
+        cfg2 = cut(SSM_JAMBA_SERVE)
+        plan2 = M.make_plan(cfg2)
+        torch.cuda.reset_peak_memory_stats()
+        t2 = time.monotonic()
+        params = M.init_params(plan2, 0, device=dev)
+        served, layout = rtn_quantize_for_serving(plan2, params, bits=4)
+        del params
+        _free()
+        t_rtn = time.monotonic() - t2
+        w_up = served["dec"]["b1"]["w_up"]
+        prompts = family_prompts(cfg2.vocab, FAM_REQUESTS, FAM_PROMPT_LO, FAM_PROMPT_HI)
+        stats, by_variant = ssm_serve(f"{name} blocks 0+1 rtn@4 contiguous", plan2, served,
+                                      prompts, FAM_NEW, dev)
+        torch.cuda.synchronize()
+        peak_serve = torch.cuda.max_memory_allocated() / 2**30
+    counts = path_counts(st)
+    variants = dict(dequant_matmul_cuda.launches_by_variant)
+    qe_groups = sorted({g[2:] for g in groups if g[0] == "quantease"}, key=lambda g: (-g[0], -g[1]))
+    rtn_groups = sorted({g[2:] for g in groups if g[0] == "rtn"}, key=lambda g: (-g[0], -g[1]))
+    vals = np.array(list(report.values()))
+    mamba_keys = sorted(k.split("/")[1] for k in report if k.startswith("dec.p0.b1/"))
+    check(np.all(np.isfinite(vals)) and math.isfinite(m["ppl"]), f"{name}: report {report}, eval {m}")
+    check(mamba_keys == ["out_proj", "wbc", "wd", "wg", "wu", "wx", "wz"],
+          f"{name}: the Mamba block's report keys {mamba_keys}")
+    check(set(qe_groups) == {(2, cfg.d_inner, cfg.d_model), (1, 2 * cfg.ssm_ngroups * cfg.ssm_state,
+                                                               cfg.d_model), (1, cfg.d_model, cfg.d_inner)},
+          f"{name}: QuantEase groups {qe_groups}")
+    for k in ("quantease_block_sweep", "quantease_fused_iteration", "dequant_matmul"):
+        check(counts_ptq[k] > 0, f"{name}: kernel {k} not launched by PTQ and eval: {counts_ptq}")
+    check(counts["dequant_matmul"] - counts_ptq["dequant_matmul"] >= cfg2.n_experts * 3,
+          f"{name}: launches {counts}")
+    qe = {k: v for k, v in report.items() if k.rsplit("/", 1)[1] in SSM_JAMBA_QE}
+    print(f"[ssm] {name} blocks 0+2: QuantEase groups (G, q, p) {qe_groups}, RTN groups {rtn_groups}; "
+          f"seconds per decoder layer {', '.join(f'{x:.2f}' for x in blocks)} (PTQ + restack "
+          f"{t_ptq:.1f}s, the CD checks' {st['seconds']:.1f}s apart); QuantEase leaves' mean rel "
+          f"error {np.mean(list(qe.values())):.6f}, all {len(vals)} linears {vals.mean():.6f}; ppl "
+          f"{m['ppl']:.4f}; dequant_matmul by variant {variants_ptq}; peak device memory "
+          f"{peak_ptq:.2f} GiB", flush=True)
+    print(f"[ssm] {name} blocks 0+1: RTN 4-bit artifact [{layout}], expert codes "
+          f"{tuple(w_up.codes.shape)} ({t_rtn:.1f}s); decode {stats['decode_tok_s']:.1f} tok/s, "
+          f"{stats['ms_per_step']:.2f} ms per decode step; dequant_matmul by variant (serving) "
+          f"{by_variant}; peak device memory {peak_serve:.2f} GiB; launches {counts} "
+          f"({time.monotonic() - t0:.1f}s)", flush=True)
+    del served, w_up
+    _free()
+    checked = merge_checked(family_checks(name, calls, variants, "phase 11"), st["checked"])
+    detail.setdefault("families", {})[name] = dict(
+        qe_groups=qe_groups, blocks=blocks, mean_rel_error=float(vals.mean()), eval=m,
+        ptq_seconds=t_ptq, serve=stats, serve_variants=by_variant, rtn_seconds=t_rtn,
+        peak_gib=dict(ptq=peak_ptq, serve=peak_serve), launches=counts, checked=checked)
+    return counts, checked
+
+
+def ssm_families(dev, detail):
+    """Phase 11: (a) Mamba-2-2.7B, (b) Jamba-1.5-Large, at full width with
+    their depth cut, seeded random bf16 weights, what the previous one left
+    freed first.  Returns the kernels' launch counts summed over the two
+    (each read just after its path ran, from 0) and the checked calls per
+    config."""
+    per, checked = {}, {}
+    for name, fn in ((SSM_MAMBA[0], ssm_mamba), (SSM_JAMBA, ssm_jamba)):
+        _free()
+        t0 = time.monotonic()
+        per[name], checked[name] = fn(dev, detail)
+        print(f"[phase] 11 {name}: {time.monotonic() - t0:.1f}s", flush=True)
+    counts = {k: sum(c[k] for c in per.values()) for k in next(iter(per.values()))}
+    return counts, checked
+
+
 def main() -> None:
     try:
         import torch
@@ -3380,9 +3691,15 @@ def main() -> None:
     counts_fam, at_fam = families(dev, detail)
     print(f"[phase] 10, the OPT family, the dense configs and MoE at full width: "
           f"{time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
+    counts_ssm, at_ssm = ssm_families(dev, detail)
+    print(f"[phase] 11, Mamba-2 and Jamba-1.5-Large at full width: {time.monotonic() - t0:.1f}s",
+          flush=True)
+    at_fam.update(at_ssm)
     # Each path's counts were read just after it ran, from 0.
     paths = dict(ptq=counts_ptq, train=counts_train, serving=counts_serve, quality=counts_quality,
-                 cli=counts_cli, speculation=counts_spec, tune=counts_tune, families=counts_fam)
+                 cli=counts_cli, speculation=counts_spec, tune=counts_tune, families=counts_fam,
+                 ssm=counts_ssm)
     counts = {k: sum(c[k] for c in paths.values()) for k in counts_ptq}
     detail["launches"] = paths
 

@@ -4,9 +4,10 @@
 A model is ``n_periods`` repetitions of a period pattern, a tuple of
 :class:`BlockDef`.  The schema keeps every field of the reference so the
 same config transforms apply to both packages.  The port runs the token-only
-decoders: attention blocks with dense or mixture-of-experts MLPs, rotary or
-learned positions.  Mamba-2, Jamba, Whisper and LLaVA are not ported yet
-(``ROADMAP.md`` §1 item 7): :func:`get_config` refuses them.
+decoders: attention and Mamba-2 (SSD) blocks with dense or
+mixture-of-experts MLPs, rotary, learned or no positions.  Whisper and
+LLaVA are not ported yet (``ROADMAP.md`` §1 item 7): :func:`get_config`
+refuses them.
 """
 
 from __future__ import annotations
@@ -78,8 +79,78 @@ class ModelConfig:
         return self.n_periods * len(self.pattern)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.ssm_ngroups * self.ssm_state
+
+    @property
     def moe_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
+
+    def param_count(self) -> int:
+        """Total parameter count, the reference's ``ModelConfig.param_count``."""
+        return _count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token meets (MoE: only its top-k experts counted)."""
+        return _count_params(self, active_only=True)
+
+
+def _attn_params(cfg: ModelConfig, cross: bool = False) -> int:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    n = d * h * hd + 2 * d * kv * hd + h * hd * d  # q, k, v, o
+    if cfg.qkv_bias and not cross:
+        n += (h + 2 * kv) * hd
+    return n
+
+
+def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
+    d = cfg.d_model
+    return (2 * d * d_ff if cfg.gated_mlp else d * d_ff) + d_ff * d
+
+
+def _mamba_params(cfg: ModelConfig) -> int:
+    d = cfg.d_model
+    d_in_proj = 2 * cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state + cfg.ssm_nheads
+    n = d * d_in_proj + cfg.conv_dim * cfg.ssm_conv + cfg.conv_dim
+    n += 3 * cfg.ssm_nheads + cfg.d_inner  # A_log, D, dt_bias, gate norm
+    n += cfg.d_inner * d
+    return n
+
+
+def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    n = cfg.vocab * cfg.d_model  # embed
+    if not cfg.tie_embeddings:
+        n += cfg.d_model * cfg.vocab
+    if cfg.pos == "learned":
+        n += cfg.max_seq * cfg.d_model
+
+    def block_count(b: BlockDef) -> int:
+        c = 0
+        if b.kind == "attn":
+            c += _attn_params(cfg) + cfg.d_model  # + ln
+            if b.cross:
+                c += _attn_params(cfg, cross=True) + cfg.d_model
+        else:
+            c += _mamba_params(cfg) + cfg.d_model
+        if b.mlp == "dense":
+            c += _mlp_params(cfg, cfg.d_ff) + cfg.d_model
+        elif b.mlp == "moe":
+            e = cfg.top_k if active_only else cfg.n_experts
+            c += cfg.d_model * cfg.n_experts  # router
+            c += e * _mlp_params(cfg, cfg.moe_ff) + cfg.d_model
+        return c
+
+    n += cfg.n_periods * sum(block_count(b) for b in cfg.pattern)
+    n += cfg.n_enc_periods * sum(block_count(b) for b in cfg.enc_pattern)
+    return n
 
 
 # The reference's architectures the port runs (the paper's OPT family, in
@@ -90,11 +161,13 @@ ARCH_IDS = (
     "gemma2_27b",
     "qwen15_32b",
     "phi3_mini_3_8b",
+    "jamba_1_5_large",
     "olmoe_1b_7b",
     "mixtral_8x22b",
+    "mamba2_2_7b",
 )
 # The reference's architectures still to port (ROADMAP.md §1 item 7).
-NOT_PORTED = ("whisper_large_v3", "jamba_1_5_large", "mamba2_2_7b", "llava_next_34b")
+NOT_PORTED = ("whisper_large_v3", "llava_next_34b")
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -108,8 +181,8 @@ def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_").replace(".", "_")
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"{name} is not ported yet (Mamba-2, Jamba and the encoder-decoder and prefix "
-            "families: ROADMAP.md §1 item 7)")
+            f"{name} is not ported yet (the encoder-decoder and prefix families: "
+            "ROADMAP.md §1 item 7)")
     if name not in _REGISTRY:
         try:
             importlib.import_module(f"repro_torch.configs.{name}")

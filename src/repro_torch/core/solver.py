@@ -4,8 +4,9 @@
   inputs are the outputs of the already-quantized prefix.
 * Streaming Σ capture: every linear folds each batch into its fp32
   Σ = XXᵀ the moment it is computed (:func:`capture_gram_stats`).
-* Batched solves: same-shape linears of a block (wq/wk/wv/wo; wg/wu; wd)
-  are stacked and solved by one ``quantease_quantize`` call.  An MoE
+* Batched solves: same-shape linears of a block (wq/wk/wv/wo; wg/wu; wd;
+  a Mamba block's wz/wx, which share their input) are stacked and solved
+  by one ``quantease_quantize`` call.  An MoE
   matrix adds its E experts to the group (each expert's own Σ, from the
   dispatch table), so OLMoE's w_gate and w_up form one group of 2E; its
   report has one key per expert, ``…/w_gate.e{i}``.
@@ -61,7 +62,11 @@ from repro_torch.quant import (
 
 __all__ = ["LayerSpec", "PTQConfig", "ptq_quantize_model", "QUANTIZABLE"]
 
-QUANTIZABLE = {"wq", "wk", "wv", "wo", "wg", "wu", "wd", "w_gate", "w_up", "w_down"}
+# Every linear the model routes through ``apply_linear`` but the Mamba
+# block's Δ projection ``wdt`` (numerically critical, as in the reference),
+# the MoE router, norms and biases.
+QUANTIZABLE = {"wq", "wk", "wv", "wo", "wg", "wu", "wd", "wz", "wx", "wbc", "out_proj",
+               "w_gate", "w_up", "w_down"}
 _MOE_NAMES = {"w_gate", "w_up", "w_down"}
 _METHODS = ("rtn", "gptq", "awq", "quantease", "awq_qe", "spqr", "qe_outlier",
             "qe_outlier_struct")

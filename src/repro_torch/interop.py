@@ -56,12 +56,19 @@ def qtensor_from_jax(qt, device="cuda") -> QuantizedTensor:
     return as_linear_layout(out)
 
 
+_MAMBA_CACHE_FIELDS = ("conv_x", "conv_bc", "ssm")
+
+
 def params_from_jax(tree, device="cuda"):
-    """A reference param tree (dicts, lists, arrays, QuantizedTensors) → the
-    port's tree of tensors and QuantizedTensors on ``device``."""
+    """A reference param or cache tree (dicts, lists, arrays,
+    QuantizedTensors, a Mamba block's ``MambaCache``) → the port's tree of
+    tensors and QuantizedTensors on ``device``; a ``MambaCache`` (read by
+    attribute) becomes the port's dict of its three leaves."""
     device = resolve_device(device)
     if _is_qtensor(tree):
         return qtensor_from_jax(tree, device)
+    if all(hasattr(tree, f) for f in _MAMBA_CACHE_FIELDS):
+        return {f: tensor_from_numpy(getattr(tree, f), device) for f in _MAMBA_CACHE_FIELDS}
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -8,22 +8,30 @@ Param tree (leaves in ``cfg.dtype``), the reference's layout:
   final_norm   {scale}
   dec          {"b0": {...}, ...}: every leaf has a leading n_periods dim
 
-Attention blocks with dense or mixture-of-experts MLPs (:mod:`.moe`:
+Attention blocks and Mamba-2 (SSD) blocks (:mod:`.mamba2`: ``wz``/``wx``
+(d, nh, hd), ``wbc`` (d, 2GN), ``wdt`` (d, nh), ``out_proj`` (nh, hd, d),
+the convolution weights, and ``a_log``/``dt_bias`` (nh,) in fp32 whatever
+the model's dtype), with dense or mixture-of-experts MLPs (:mod:`.moe`:
 ``router`` (d, E), ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d)),
-rotary or learned positions, are ported; Mamba blocks, cross-attention and
-the encoder-decoder and prefix families raise ``NotImplementedError``
+rotary, learned or no positions, are ported; cross-attention and the
+encoder-decoder and prefix families raise ``NotImplementedError``
 (``ROADMAP.md`` §1 item 7).  The stack is a Python loop over periods (the
 reference scans them).
 
 Serving: :func:`prefill` / :func:`decode_step` run on a contiguous per-slot
-KV cache (:func:`init_cache`), :func:`paged_prefill_chunk` /
-:func:`paged_decode_step` on a block-paged one (:func:`init_paged_cache`),
+KV cache (:func:`init_cache`; a Mamba block keeps its recurrent state
+there), :func:`paged_prefill_chunk` /
+:func:`paged_decode_step` on a block-paged one (:func:`init_paged_cache`,
+attention-only stacks),
 whose decode attention goes through ``kernels.ops.paged_attention``;
 speculative serving adds :func:`paged_verify_tokens` and
 :func:`paged_draft_tokens`, both built on :func:`paged_decode_step`.  Cache
 leaves carry a leading period axis, as the reference's.  The reference
 returns a new cache from each call; here the cache tensors are updated in
 place and the same dict is returned, so callers keep the reference's form.
+A Mamba block's new state takes the dtype it was computed in, as the
+reference's returned cache does: in an fp32 model the bf16 convolution
+buffers become fp32 leaves at the first prefill or decode.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from repro_torch.models.common import (
     softcap,
     _record_linear,
 )
+from repro_torch.models.mamba2 import mamba_apply, mamba_decode
 from repro_torch.models.moe import moe_apply, router_aux_loss
 from repro_torch.quant import QuantizedTensor, kv_pack_int4, kv_unpack_int4
 
@@ -91,18 +100,20 @@ class ModelPlan:
         return self.cfg.dtype
 
 
-_NOT_PORTED = ("Mamba-2, Jamba and the encoder-decoder and prefix families are not ported "
+_NOT_PORTED = ("cross-attention and the encoder-decoder and prefix families are not ported "
                "yet (ROADMAP.md §1 item 7)")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "lm" or cfg.n_prefix:
         raise NotImplementedError(f"{cfg.name}: the port runs token-only decoders; {_NOT_PORTED}")
-    if cfg.pos not in ("rope", "learned"):
+    if cfg.pos not in ("rope", "learned", "none"):
         raise ValueError(f"{cfg.name}: unknown positions {cfg.pos!r}")
     for b in cfg.pattern:
-        if b.kind != "attn" or b.cross or b.mlp not in ("dense", "moe", "none"):
+        if b.cross:
             raise NotImplementedError(f"{cfg.name}: block {b} is not ported; {_NOT_PORTED}")
+        if b.kind not in ("attn", "mamba") or b.mlp not in ("dense", "moe", "none"):
+            raise ValueError(f"{cfg.name}: unknown block {b}")
 
 
 def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16") -> ModelPlan:
@@ -123,7 +134,12 @@ def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16") -> ModelPlan:
 @dataclasses.dataclass(frozen=True)
 class _P:
     shape: tuple
-    init: str = "normal"  # normal | zeros | ones | small_normal
+    init: str = "normal"  # normal | zeros | ones | small_normal | conv | dt | alog
+
+    @property
+    def dtype_override(self):
+        """The SSM dynamics (``a_log``, ``dt_bias``) are fp32 in any model."""
+        return torch.float32 if self.init in ("dt", "alog") else None
 
 
 def _norm_def(cfg, d) -> dict:
@@ -132,10 +148,9 @@ def _norm_def(cfg, d) -> dict:
     return {"scale": _P((d,), "zeros")}  # (1 + scale) convention
 
 
-def _block_defs(cfg: ModelConfig, hp: HeadPlan, b: BlockDef) -> dict:
+def _attn_defs(cfg: ModelConfig, hp: HeadPlan) -> dict:
     d, hd = cfg.d_model, cfg.hd
     defs = {
-        "ln": _norm_def(cfg, d),
         "wq": _P((d, hp.kv_pad, hp.g_pad, hd)),
         "wk": _P((d, hp.n_kv, hd)),
         "wv": _P((d, hp.n_kv, hd)),
@@ -147,6 +162,35 @@ def _block_defs(cfg: ModelConfig, hp: HeadPlan, b: BlockDef) -> dict:
         defs["bv"] = _P((hp.n_kv, hd), "zeros")
     if cfg.post_norms:
         defs["post_ln"] = _norm_def(cfg, d)
+    return defs
+
+
+def _mamba_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
+    gn2 = 2 * cfg.ssm_ngroups * cfg.ssm_state
+    k = cfg.ssm_conv
+    return {
+        "wz": _P((d, nh, hd)),
+        "wx": _P((d, nh, hd)),
+        "wbc": _P((d, gn2)),
+        "wdt": _P((d, nh), "small_normal"),
+        "conv_x_w": _P((nh, hd, k), "conv"),
+        "conv_x_b": _P((nh, hd), "zeros"),
+        "conv_bc_w": _P((gn2, k), "conv"),
+        "conv_bc_b": _P((gn2,), "zeros"),
+        "a_log": _P((nh,), "alog"),
+        "d_skip": _P((nh,), "ones"),
+        "dt_bias": _P((nh,), "dt"),
+        "norm_scale": _P((nh, hd), "zeros"),
+        "out_proj": _P((nh, hd, d), "small_normal"),
+    }
+
+
+def _block_defs(cfg: ModelConfig, hp: HeadPlan, b: BlockDef) -> dict:
+    d = cfg.d_model
+    defs = {"ln": _norm_def(cfg, d)}
+    defs.update(_attn_defs(cfg, hp) if b.kind == "attn" else _mamba_defs(cfg))
     if b.mlp != "none":
         defs["ln2"] = _norm_def(cfg, d)
         defs.update(_moe_defs(cfg) if b.mlp == "moe" else _mlp_defs(cfg))
@@ -206,13 +250,17 @@ def empty_params(plan: ModelPlan, *, device="cuda") -> dict:
     """Uninitialized params of the model's shapes and dtype: the template a
     checkpoint is loaded into (the reference's ``param_shapes``)."""
     dev = torch.device(device) if device == "meta" else resolve_device(device)
-    return tree_map(lambda pd: torch.empty(pd.shape, dtype=plan.dtype, device=dev),
+    return tree_map(lambda pd: torch.empty(pd.shape, dtype=pd.dtype_override or plan.dtype,
+                                           device=dev),
                     model_defs(plan), is_leaf=lambda x: isinstance(x, _P))
 
 
 def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
     """Seeded init with the reference's distributions (``_init_leaf``):
-    N(0, 0.02²) for "normal", N(0, (0.02/√(2L))²) for "small_normal".
+    N(0, 0.02²) for "normal", N(0, (0.02/√(2L))²) for "small_normal",
+    U(−1, 1)/√k for the convolution weights ("conv", k taps), and in fp32
+    ``log(expm1(u))``, u ~ U(1e-3, 0.1), for ``dt_bias`` ("dt") and
+    ``log(u)``, u ~ U(1, 16), for ``a_log`` ("alog").
 
     ``seed`` is an int or a ``torch.Generator`` on ``device``.  The numbers
     differ from the reference's (another generator); tests that compare the
@@ -227,14 +275,24 @@ def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
         gen.manual_seed(int(seed))
     n_layers = plan.cfg.n_layers
 
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, dtype=torch.float32, device=dev) * (hi - lo) + lo
+
     def leaf(pd: _P):
+        dtype = pd.dtype_override or plan.dtype
         if pd.init == "zeros":
-            return torch.zeros(pd.shape, dtype=plan.dtype, device=dev)
+            return torch.zeros(pd.shape, dtype=dtype, device=dev)
         if pd.init == "ones":
-            return torch.ones(pd.shape, dtype=plan.dtype, device=dev)
+            return torch.ones(pd.shape, dtype=dtype, device=dev)
+        if pd.init == "conv":
+            return (uniform(pd.shape, -1.0, 1.0) / math.sqrt(pd.shape[-1])).to(dtype)
+        if pd.init == "dt":
+            return torch.log(torch.expm1(uniform(pd.shape, 1e-3, 0.1)))
+        if pd.init == "alog":
+            return torch.log(uniform(pd.shape, 1.0, 16.0))
         std = 0.02 if pd.init == "normal" else 0.02 / math.sqrt(max(2 * n_layers, 1))
         z = torch.randn(pd.shape, generator=gen, dtype=torch.float32, device=dev)
-        return (z * std).to(plan.dtype)
+        return (z * std).to(dtype)
 
     return tree_map(leaf, model_defs(plan), is_leaf=lambda x: isinstance(x, _P))
 
@@ -410,8 +468,26 @@ def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None):
     return x + y
 
 
+def _mamba_sublayer(cfg, p, x, *, mode="train", cache=None):
+    """The SSD block on the normed input.  In ``prefill`` and ``decode``
+    mode the new state replaces ``cache``'s entries (:func:`_run_stack`
+    writes them into the stacked cache)."""
+    h = apply_norm(p["ln"], x, cfg.norm)
+    if mode == "decode":
+        y, state = mamba_decode(p, h, cfg, cache)
+    else:
+        y, state = mamba_apply(p, h, cfg, return_cache=mode == "prefill")
+    if state is not None:
+        cache.update(state)
+    return x + y
+
+
 def _block_apply(cfg, hp, b, p, x, *, pos_ids, aux: Optional[list] = None, **attn_kw):
-    x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids, **attn_kw)
+    if b.kind == "mamba":
+        x = _mamba_sublayer(cfg, p, x, mode=attn_kw.get("mode", "train"),
+                            cache=attn_kw.get("cache"))
+    else:
+        x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids, **attn_kw)
     return _mlp_sublayer(cfg, b, p, x, aux)
 
 
@@ -429,8 +505,9 @@ def period_slice(stack, i):
 def _run_stack(plan: ModelPlan, stack_params: dict, pattern, x, *, mode: str, pos_ids,
                caches=None, **attn_kw):
     """Loop over periods.  ``caches`` (leaves with a leading period axis) are
-    written in place through each period's views; ``aux`` (a list) collects
-    the MoE blocks' router losses."""
+    written in place through each period's views, a Mamba block's state
+    after the block (:func:`_store_state`); ``aux`` (a list) collects the
+    MoE blocks' router losses."""
     cfg, hp = plan.cfg, plan.heads
     for period in range(cfg.n_periods):
         p_period = period_slice(stack_params, period)
@@ -438,7 +515,20 @@ def _run_stack(plan: ModelPlan, stack_params: dict, pattern, x, *, mode: str, po
             cache = None if caches is None else {k: t[period] for k, t in caches[f"b{i}"].items()}
             x = _block_apply(cfg, hp, b, p_period[f"b{i}"], x, mode=mode, pos_ids=pos_ids,
                              cache=cache, kv_dtype=plan.kv_cache_dtype, **attn_kw)
+            if b.kind == "mamba" and cache is not None:
+                _store_state(caches[f"b{i}"], period, cache)
     return x
+
+
+def _store_state(stack: dict, period: int, state: dict) -> None:
+    """Write one period's new Mamba state into its stacked cache leaves.  A
+    leaf whose stack has another dtype than the state is replaced by one of
+    the state's dtype first (the reference's scan returns the state's
+    dtype), so an fp32 model's bf16 convolution buffers turn fp32."""
+    for k, v in state.items():
+        if stack[k].dtype != v.dtype:
+            stack[k] = stack[k].to(v.dtype)
+        stack[k][period].copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -555,7 +645,12 @@ def train_loss(plan: ModelPlan, params, batch: dict) -> torch.Tensor:
 
 
 def _block_cache_shape(plan: ModelPlan, b: BlockDef, B: int, cap: int) -> dict:
-    hp = plan.heads
+    cfg, hp = plan.cfg, plan.heads
+    if b.kind == "mamba":  # the recurrent state: no sequence axis
+        k, nh = cfg.ssm_conv, cfg.ssm_nheads
+        return {"conv_x": ((B, k - 1, nh, cfg.ssm_headdim), torch.bfloat16),
+                "conv_bc": ((B, k - 1, 2 * cfg.ssm_ngroups * cfg.ssm_state), torch.bfloat16),
+                "ssm": ((B, nh, cfg.ssm_headdim, cfg.ssm_state), torch.float32)}
     c = min(cap, b.window) if b.window is not None else cap
     if plan.kv_cache_dtype == "int4":
         raise ValueError(
@@ -590,7 +685,8 @@ def paged_cache_shapes(plan: ModelPlan, n_pages: int, page_size: int) -> dict:
     pages of width ``hd/2`` with the same scale planes), stacked over
     periods: page id ``p`` addresses slot ``p`` of every layer's array.  No
     batch axis: ownership lives in the page tables.  Only self-attention
-    decoder stacks page.
+    decoder stacks page: a Mamba block's state stays on the contiguous
+    engine, as in the reference (``ValueError``).
     """
     cfg, hp = plan.cfg, plan.heads
     if any(b.kind != "attn" or b.cross for b in cfg.pattern):

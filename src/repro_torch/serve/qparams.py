@@ -4,6 +4,11 @@ serving artifacts straight from dense weights (:func:`rtn_quantize_for_serving`,
 the speculative engine's cheap drafts), and the weight-layout prepack of a
 serving artifact.
 
+Every leaf of ``core.solver.QUANTIZABLE`` is quantized; the rest stay
+dense in their own dtype: norms, biases, embeddings, the MoE router, and a
+Mamba block's dynamics (``wdt``, ``a_log`` and ``dt_bias`` in fp32,
+``d_skip``, the convolution weights, ``norm_scale``).
+
 The port's dequant-GEMM reads packed 4-bit codes in the linear layout, so
 on the port's own backends (``"cuda"``, ``"cpu"``) every leaf stays linear.
 ``backend="tpu"`` reproduces the reference's tile-native prepack and its
@@ -130,7 +135,8 @@ def quantize_params_for_serving(plan, params: dict, solver_qt_dec: list, *, devi
 def _d_in(plan, name: str) -> int:
     """The input width of a quantizable linear (its matrix is (out, d_in))."""
     cfg, hp = plan.cfg, plan.heads
-    return {"wo": hp.kv_pad * hp.g_pad * hp.head_dim, "wd": cfg.d_ff}.get(name, cfg.d_model)
+    return {"wo": hp.kv_pad * hp.g_pad * hp.head_dim, "wd": cfg.d_ff,
+            "out_proj": cfg.ssm_nheads * cfg.ssm_headdim}.get(name, cfg.d_model)
 
 
 def rtn_quantize_for_serving(plan, params: dict, *, bits: int, outlier_frac: float = 0.0):

@@ -3,7 +3,7 @@ the reference.
 
 * Every config the port registers equals the reference's field for field
   (``dtype`` aside), ``list_configs`` agrees, and the architectures still
-  to port are refused.
+  to port (Whisper, LLaVA) and cross-attention are refused.
 * Reduced (``reduce_cfg``) fp32 models of each new architecture, the
   reference's params carried across with ``repro_torch.interop``: the
   train loss (MoE router loss included) and hidden states within 1e-5
@@ -82,11 +82,14 @@ def test_list_configs_agrees_and_the_rest_is_refused():
     for name in tbase.NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
             tbase.get_config(name)
-    # A config of a block kind still to port is refused by the model too.
-    mamba = dataclasses.replace(tbase.get_config("phi3_mini_3_8b"),
-                                pattern=(tbase.BlockDef(kind="mamba"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        tm.make_plan(mamba)
+    # Cross-attention and the encoder-decoder and prefix families, still to
+    # port, are refused by the model too.
+    phi3 = tbase.get_config("phi3_mini_3_8b")
+    for still in (dataclasses.replace(phi3, pattern=(tbase.BlockDef(cross=True),)),
+                  dataclasses.replace(phi3, family="encdec"),
+                  dataclasses.replace(phi3, n_prefix=16)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
+            tm.make_plan(still)
 
 
 # ---------------------------------------------------------------------------

@@ -1393,3 +1393,125 @@ def test_harmonized_mixed_stack_through_kernel3(cuda):
             torch.testing.assert_close(got, want, rtol=0, atol=tol)
             y = apply_linear(l, x)
             assert y.shape == (m, q) and bool(torch.isfinite(y.float()).all())
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 and Jamba: PTQ, eval and the contiguous engine, card against CPU
+# ---------------------------------------------------------------------------
+
+SIG_AGREE = 1e-5  # one solve's Σ, card against CPU, relative to max |Σ|
+
+
+def _solver_matrix(w, name):
+    """A dense leaf of one period → the solver's (q, p) matrix; ``wo``
+    (KVp, Gp, hd, d) and ``out_proj`` (nh, hd, d) take their input over
+    their leading axes."""
+    return (w.reshape(-1, w.shape[-1]) if name in ("wo", "out_proj")
+            else w.reshape(w.shape[0], -1)).T
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "jamba_1_5_large"])
+def test_ssm_archs_on_card_match_cpu(cuda, arch):
+    """A reduced fp32 Mamba-2 (2 layers) and Jamba (one period: attention,
+    Mamba and MoE blocks) through QuantEase PTQ (``emit="qt"``) on the card
+    (kernels 1, 2 and 3) and on the CPU (plain versions).  Every layer whose
+    solve saw the same Σ (within 1e-5 relative) has its codes equal
+    outside rows that start at a verified rounding tie and its error within
+    1e-3 relative where they agree; a solve's Σ may part only downstream of
+    such a tie and an MoE router (a token crosses a top-k boundary).  The
+    CPU's artifact then scores on the card and on the CPU (perplexity
+    within 1e-3 relative, kernel 3 launched on the card only) and serves
+    three requests on the contiguous engine (first-decode logits within
+    1e-3 of max |logit|, kernel 3 launched at every decode step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import solver
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.eval.scorer import perplexity_on_stream
+    from repro_torch.models import model as M
+    from repro_torch.quant import QuantizedTensor
+    from repro_torch.serve import Request, ServingEngine
+    from repro_torch.serve.qparams import quantize_params_for_serving
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(
+        base, d_model=128, n_heads=4 if base.n_heads else 0, n_kv_heads=2 if base.n_heads else 0,
+        head_dim=32, d_ff=256 if base.d_ff else 0, vocab=300,
+        n_periods=1 if base.n_experts else 2, n_experts=4 if base.n_experts else 0,
+        top_k=min(base.top_k, 2), moe_d_ff=256 if base.n_experts else 0, ssm_state=16,
+        ssm_headdim=16, dtype=torch.float32,
+    )
+    plan = M.make_plan(cfg)
+    params_cpu = M.init_params(plan, 5, device="cpu")
+    calib_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, 2, 64, split="calib")
+    eval_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, 2, 64, split="eval")
+    calib = [calib_fn(0), calib_fn(1)]
+    pcfg = solver.PTQConfig(iterations=5, emit="qt")
+    out = []  # the card's run, then the CPU's
+    for dev in (cuda, torch.device("cpu")):
+        params = M.tree_map(lambda a: a.to(dev), params_cpu)
+        records = []
+        with _recording_solves(records):
+            q, rep = solver.ptq_quantize_model(plan, params, calib, pcfg, device=dev)
+        out.append((rep, q, records))
+    (rk, qk, reck), (rp, qp, recp) = out
+    assert list(rk) == list(rp) and not any(k.endswith("/wdt") for k in rp)
+
+    def sig_rel(records_k, records_p, w):
+        for (wk3, sk3, *_), (wp3, sp3, *_) in zip(records_k, records_p):
+            for g in range(wp3.shape[0]):
+                if torch.equal(wp3[g, :, : w.shape[1]], w):
+                    return float((sk3[g] - sp3[g]).abs().max() / sp3[g].abs().max())
+        raise AssertionError("no recorded solve of this matrix")
+
+    ties, n_rows, parted, moe_seen = [], 0, [], False
+    for period in range(cfg.n_periods):
+        for bi, b in enumerate(cfg.pattern):
+            scope = f"dec.p{period}.b{bi}"
+            dense = params_cpu["dec"][f"b{bi}"]
+            for k in [k for k in rp if k.startswith(scope + "/")]:
+                leaf, e = k.split("/")[1].split(".e") if ".e" in k else (k.split("/")[1], None)
+                w = dense[leaf][period] if e is None else dense[leaf][period, int(e)]
+                w = _solver_matrix(w, leaf).contiguous()
+                ck, cp = (qd["dec"][period][f"b{bi}"][leaf].unpacked_codes().cpu() for qd in (qk, qp))
+                if e is not None:
+                    ck, cp = ck[int(e)], cp[int(e)]
+                n_rows += cp.shape[0]
+                if sig_rel(reck, recp, w) > SIG_AGREE:
+                    assert ties and moe_seen, (k, "Σ parted without a tie and a router before it")
+                    parted.append(k)
+                    continue
+                if torch.equal(ck, cp):
+                    assert rk[k] == pytest.approx(rp[k], rel=1e-3), k
+                    continue
+                differ = set(torch.nonzero((ck != cp).any(-1)).flatten().tolist())
+                assert differ <= _verified_tie_rows(reck, recp, w), k
+                ties += [(k, r) for r in differ]
+            moe_seen |= b.mlp == "moe"
+    assert len(ties) <= max(1, 0.01 * n_rows), ties
+    assert not parted or cfg.n_experts, parted
+
+    served_cpu = quantize_params_for_serving(plan, params_cpu, qp["dec"], device="cpu")
+    r = np.random.default_rng(3)
+    prompts = [r.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 17, 26)]
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        served = M.tree_map(lambda a: a.to(dev) if isinstance(a, torch.Tensor) else
+                            a.map_arrays(lambda t: t.to(dev)), served_cpu,
+                            is_leaf=lambda a: hasattr(a, "map_arrays"))
+        before = ops.launch_counts()["dequant_matmul"]
+        ppl = perplexity_on_stream(plan, served, eval_fn, n_batches=2, device=dev)["ppl"]
+        eng = ServingEngine(plan, served, max_batch=2, max_seq=64, prefill_pad=16,
+                            record_logits=True, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=4))
+        eng.run()
+        assert all(len(q.output) == 4 for q in eng.finished)
+        res.append((ppl, ops.launch_counts()["dequant_matmul"] - before, eng))
+    (pk, nk, ek), (pp, np_, ep) = res
+    n_linears = sum(isinstance(v, QuantizedTensor) for per in qp["dec"] for blk in per.values()
+                    for v in blk.values())
+    assert np_ == 0 and nk >= ek.n_decode_steps * n_linears
+    assert pk == pytest.approx(pp, rel=1e-3)
+    for i, tr in ep.logit_trace.items():
+        scale = float(np.abs(tr[0]).max())
+        np.testing.assert_allclose(ek.logit_trace[i][0], tr[0], rtol=0, atol=1e-3 * scale)
