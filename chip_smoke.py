@@ -14,7 +14,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
    and timed, the bytes bound, the launches of the shape on the PTQ path,
    and an A/B line against the earlier kernel's time per call; the fused and the
    outlier-aware iteration (Algorithm 3) at the three solver-group shapes,
-   each with a 25-iteration solve of kernel path against plain path and its
+   each with a 25-iteration solve of kernel path against plain path (the
+   plain engine's iterations replayed from CUDA graphs) and its
    device time split by kernel, and their SGEMMs alone (the block
    corrections of one iteration at the planned split and at two others, the
    outlier iteration's suffix product) against fp32 ``torch.matmul`` for
@@ -132,7 +133,7 @@ Phases (any failed check exits non-zero; no phase is skipped):
    ``--speculate --draft-layers 1``, held to the plain tokens by the same
    rule (output in ``chiprun_out/chip_smoke_tune_cli.txt``);
 10. the other architectures at full width, seeded random bf16 weights,
-   what the previous config left freed first: (a) OLMoE-1B-7B (2 of 16
+   what the previous config left freed first: (a) OLMoE-1B-7B (1 of 16
    decoder layers, 64 experts of d_ff 1024, top-8): RTN and QuantEase at
    4 bits, QuantEase and qe_outlier (1 %) at 3 bits on one calibration
    batch of 16 x 512 tokens, each restacked and scored by ``eval_model``;
@@ -179,6 +180,28 @@ Phases (any failed check exits non-zero; no phase is skipped):
    call is held against its plain version as in phase 10 (kernels 1, 2 and
    4 right after each group solve, kernel 3 at the end, one call a
    signature).
+12. the encoder-decoder and prefix families at full width, seeded random
+   bf16 weights: (a) Whisper-large-v3 (4 of 32 encoder and 4 of 32 decoder
+   periods; d 1,280, 20 heads of 64, d_ff 5,120, 1,500 frames): RTN and
+   QuantEase at 4 bits, QuantEase and qe_outlier (1 %) at 3 bits on 4
+   calibration batches of 4 x 448 tokens with their frames, the encoder
+   first, both stacks restacked (``solver_qt_enc``); then the
+   ``quantease@4`` artifact prefills 4 sequences (a 4-token prompt and
+   their frames) and takes 32 greedy decode steps; (b) LLaVA-NeXT-34B (2
+   of 60 layers; d 7,168, 56 heads in 8 KV groups, d_ff 20,480): RTN and
+   QuantEase at 4 bits on 4 batches of 4 x 512 tokens after their 2,880
+   patches, then 2 sequences (2,880 patches and 32 tokens) prefill and
+   take 16 greedy decode steps.  Seconds per layer per stack and method,
+   mean error per stack and leaf kind (self-attention, cross-attention,
+   MLP), ms per decode step, kernel 3's launches by variant and peak
+   device memory are printed; QuantEase@4 must lie below RTN@4 in each
+   stack and qe_outlier@3 below QuantEase@3, every logit must be finite,
+   and the first decode step's logits must lie within 0.05 of max |logit|
+   of a prefill over the prompt and that token (the reference's own bound
+   in ``tests/test_models.py``); every kernel call is held against its
+   plain version as in phase 10 (kernels 1, 2 and 4 right after each group
+   solve, kernel 3 at the end, one call a signature).  Kernel 5 does not
+   run: paged serving refuses both families, as in the reference.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -374,12 +397,13 @@ TUNE_CLI = ("--budget-avg-bits", "3", "--bits-candidates", "2,3,4,8", "--iterati
 TUNE_SERVE_GAMMA = 4
 CLI_PERIODS = 2  # phi3_mini_3_8b_2l: 2 periods of one attention block
 # Phase 10: the other architectures at full width, seeded random bf16
-# weights, depth cut.  (a) OLMoE-1B-7B, 2 of 16 decoder layers: one
+# weights, depth cut.  (a) OLMoE-1B-7B, 1 of 16 decoder layers (2 until
+# phase 12 came): one
 # calibration batch of 16 x 512 tokens (8,192 tokens, top-8 of 64 experts:
 # capacity 1,280 slots an expert), these artifacts, eval_model at
 # EvalBudget's defaults on batches of 4 x 512, then the quantease@4
 # artifact serves 8 of phase 6's prompts.
-FAM_MOE = ("olmoe_1b_7b", 2)
+FAM_MOE = ("olmoe_1b_7b", 1)
 FAM_MOE_CALIB = (16, 512)
 FAM_MOE_RUNS = (("rtn", 4), ("quantease", 4), ("quantease", 3), ("qe_outlier", 3))
 FAM_MOE_SERVED = "quantease@4"
@@ -428,6 +452,33 @@ SSM_JAMBA = "jamba_1_5_large"
 SSM_JAMBA_PTQ, SSM_JAMBA_SERVE = (0, 2), (0, 1)
 SSM_JAMBA_QE = ("wz", "wx", "wbc", "out_proj")
 SSM_JAMBA_CALIB, SSM_JAMBA_STREAM = (4, 512), 2
+# Phase 12: the encoder-decoder and prefix families at full width, seeded
+# random bf16 weights, depth cut.  (a) Whisper-large-v3, 4 of 32 encoder and
+# 4 of 32 decoder periods (kept equal, so the same cut also runs in the
+# reference, whose encoder scan takes the decoder's period count): 4
+# calibration batches of 4 x 448 tokens (the published decoder context),
+# each with its (4, 1,500, 1,280) frames; RTN and QuantEase at 4 bits,
+# QuantEase and qe_outlier (1 %) at 3 bits, encoder first, both stacks
+# restacked; then 4 sequences (a 4-token prompt and their frames) prefill
+# and take 32 greedy decode steps.  (b) LLaVA-NeXT-34B, 2 of 60 layers: 4
+# calibration batches of 4 x 512 tokens, each sequence after its 2,880
+# patches (3,392 positions); RTN and QuantEase at 4 bits; then 2 sequences
+# (2,880 patches and 32 tokens) prefill and take 16 greedy decode steps.
+ENC_WHISPER = ("whisper_large_v3", 4)
+ENC_CALIB, ENC_CALIB_BATCHES = (4, 448), 4
+ENC_RUNS = FAM_MOE_RUNS
+ENC_SERVE = (4, 4, 32)  # sequences, prompt tokens, greedy decode steps
+PFX_LLAVA = ("llava_next_34b", 2)
+PFX_CALIB, PFX_CALIB_BATCHES, PFX_STREAM = (4, 512), 4, 2
+PFX_RUNS = (("rtn", 4), ("quantease", 4))
+PFX_SERVE = (2, 32, 16)
+# The first decode step's logits against a prefill over the prompt and that
+# token, of max |logit|: the reference's own bound
+# (tests/test_models.py::test_decode_matches_prefill).
+DECODE_PREFILL_TOL = 0.05
+# Report keys by the leaf kinds of phase 12's mean errors.
+LEAF_KINDS = {"self-attention": ("wq", "wk", "wv", "wo"),
+              "cross-attention": ("wq_c", "wk_c", "wv_c", "wo_c"), "MLP": ("wg", "wu", "wd")}
 
 
 def fail(msg: str) -> None:
@@ -876,6 +927,66 @@ def corr_yardsticks(label, s, sig_corr, bsz, dh=None, reps=5):
     return row
 
 
+class GraphedIteration:
+    """A plain CD iteration (``fn``) replayed from CUDA graphs.  Per
+    signature (operand shapes and dtypes, which operands are one tensor,
+    options) the first call runs eagerly, the second is captured and
+    replayed, and later calls copy their operands into the captured inputs
+    and replay.  The kernels and their order are the plain version's: the
+    graph only takes the host's launch of each off the time (a plain
+    iteration is ~12 launches a column)."""
+
+    def __init__(self, fn):
+        self.fn, self.seen, self.graphs = fn, set(), {}
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        first = {}
+        aliases = tuple(first.setdefault(id(a), i) for i, a in enumerate(args))
+        key = (_signature("plain", args, kw), aliases)
+        if key not in self.seen:
+            self.seen.add(key)
+            return self.fn(*args, **kw)
+        if key not in self.graphs:
+            check(not any(isinstance(v, torch.Tensor) for v in kw.values()),
+                  "GraphedIteration copies positional tensors only")
+            static = [a.clone() if isinstance(a, torch.Tensor) and j == i else a
+                      for i, (a, j) in enumerate(zip(args, aliases))]
+            static = [static[j] for j in aliases]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = self.fn(*static, **kw)
+            self.graphs[key] = (graph, static, out)
+        graph, static, out = self.graphs[key]
+        for i, (s_, a) in enumerate(zip(static, args)):
+            if isinstance(a, torch.Tensor) and aliases[i] == i:
+                s_.copy_(a)
+        graph.replay()
+        return tuple(o.clone() for o in out)
+
+
+@contextlib.contextmanager
+def graphed_plain_iterations():
+    """While open, a CD engine that asks for the plain iteration
+    (``use_kernel="torch"``) on the card gets it through
+    :class:`GraphedIteration`: phase 3's 25-iteration plain solves at the
+    solver groups took ~160 s of host launches on the H100's host."""
+    from repro_torch.core import quantease as qe
+
+    iteration_step = qe._iteration_step
+
+    def step(use_kernel, device, **kw):
+        fn = iteration_step(use_kernel, device, **kw)
+        return GraphedIteration(fn) if use_kernel == "torch" and device.type == "cuda" else fn
+
+    qe._iteration_step = step
+    try:
+        yield
+    finally:
+        qe._iteration_step = iteration_step
+
+
 def check_fused_iteration(gen, dev, detail):
     import torch
 
@@ -919,7 +1030,10 @@ def check_fused_iteration(gen, dev, detail):
         t_kernel = time.monotonic() - t0
         solve_split = device_profile(
             lambda: qe.quantease_quantize(w, sigma, spec, use_kernel="auto", **kw25))
-        wp, _ = qe.quantease_quantize(w, sigma, spec, use_kernel="torch", **kw25)
+        t0 = time.monotonic()
+        with graphed_plain_iterations():
+            wp, _ = qe.quantease_quantize(w, sigma, spec, use_kernel="torch", **kw25)
+        t_plain = time.monotonic() - t0
         ek = qe.relative_error(w, wk, sigma)
         ep = qe.relative_error(w, wp, sigma)
         rel = float(((ek - ep).abs() / ep).max())
@@ -928,13 +1042,14 @@ def check_fused_iteration(gen, dev, detail):
         row = dict(G=G, q=q, p=p, dtype=dt, rows_ok=min(fracs), rows_differing=n_diff,
                    rows_unexplained=n_unexplained, tie_rows=ties, max_abs_err=max(errs), ms=ms,
                    plain_ms=plain, bound_ms=b_ms, bound_by=b_by, rel_err_kernel=ek.tolist(),
-                   rel_err_plain=ep.tolist(), solve25_s=t_kernel, sgemm=sgemm,
-                   solve25_profile=solve_split)
+                   rel_err_plain=ep.tolist(), solve25_s=t_kernel, plain_solve25_s=t_plain,
+                   sgemm=sgemm, solve25_profile=solve_split)
         detail["fused_iteration"].append(row)
         print(f"[kernel] fused_iteration G={G} ({q},{p}) {dt}: rows_ok={min(fracs):.6f} "
               f"(rows differing {n_diff}, not starting with a tie flip {n_unexplained}) "
               f"max_abs_err={max(errs):.3g} ms={ms:.3f} plain_ms={plain:.1f} bound_ms={b_ms:.3f} "
-              f"({b_by}) 25-iter solve {t_kernel:.2f}s rel_err {ek.mean():.6f} vs plain {ep.mean():.6f}")
+              f"({b_by}) 25-iter solve {t_kernel:.2f}s (plain, graphed, {t_plain:.2f}s) rel_err "
+              f"{ek.mean():.6f} vs plain {ep.mean():.6f}")
         print_profile(f"fused 25-iter solve G={G} ({q},{p}) {dt}", solve_split)
         if dt == "float32":  # one decoder layer's fp32 iteration: the three path groups
             totals["ms"] += ms
@@ -1022,7 +1137,10 @@ def check_outlier_iteration(gen, dev, detail):
         t_kernel = time.monotonic() - t0
         solve_split = device_profile(
             lambda: outlier.outlier_quantease(w, sigma, GridSpec(bits=3), use_kernel="auto", **kw25))
-        rp = outlier.outlier_quantease(w, sigma, GridSpec(bits=3), use_kernel="torch", **kw25)
+        t0 = time.monotonic()
+        with graphed_plain_iterations():
+            rp = outlier.outlier_quantease(w, sigma, GridSpec(bits=3), use_kernel="torch", **kw25)
+        t_plain = time.monotonic() - t0
         ek = qe.relative_error(w, rk.w_eff, sigma)
         ep = qe.relative_error(w, rp.w_eff, sigma)
         rel = float(((ek - ep).abs() / ep).max())
@@ -1033,14 +1151,16 @@ def check_outlier_iteration(gen, dev, detail):
                    rows_unexplained=n_unexplained, tie_rows=ties, max_abs_err=max(errs),
                    r_rel_err=r_err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                    topk_ms=topk_ms, rel_err_kernel=ek.tolist(), rel_err_plain=ep.tolist(),
-                   solve25_s=t_kernel, iteration_profile=split, solve25_profile=solve_split,
+                   solve25_s=t_kernel, plain_solve25_s=t_plain, iteration_profile=split,
+                   solve25_profile=solve_split,
                    sgemm=sgemm)
         detail["outlier_iteration"].append(row)
         print(f"[kernel] outlier_iteration G={G} ({q},{p}) B={bsz} {dt}: rows_ok={min(fracs):.6f} "
               f"(rows differing {n_diff}, not starting with a tie flip {n_unexplained}) "
               f"max_abs_err={max(errs):.3g} R rel err={r_err:.3g} ms={ms:.3f} plain_ms={plain:.1f} "
               f"bound_ms={b_ms:.3f} ({b_by}) topk_ms={topk_ms:.3f} 25-iter solve {t_kernel:.2f}s "
-              f"rel_err {ek.mean():.6f} vs plain {ep.mean():.6f}", flush=True)
+              f"(plain, graphed, {t_plain:.2f}s) rel_err {ek.mean():.6f} vs plain {ep.mean():.6f}",
+              flush=True)
         for what, prof in (("iteration", split), ("25-iter solve", solve_split)):
             print_profile(f"outlier {what} G={G} ({q},{p}) {dt}", prof)
         if (G, q, p, dt) == OLD_TILE_SHAPE:
@@ -3101,8 +3221,12 @@ def checked_solves(label, calls, on_solve=None, replay=True, phase="phase 10"):
                 merge_checked(st["checked"], check_path_calls(one, {}, phase=f"{phase} {label}"))
                 for k, v in ops.launch_counts().items():
                     st["replayed"][k] += v - before[k]
-            del one
-            _free()
+                del one
+                # After a replay only: a collection per solve (every group of
+                # every block) cost ~15 s of phase 11 and ~20 s of phase 12.
+                _free()
+            else:
+                del one
         st["seconds"] += time.monotonic() - t0
         return out
 
@@ -3133,7 +3257,7 @@ def less_checks(st: dict):
 
 
 def family_moe(dev, detail):
-    """Phase 10 (a): OLMoE-1B-7B at full width, 2 of 16 layers."""
+    """Phase 10 (a): OLMoE-1B-7B at full width, FAM_MOE's layers of 16."""
     import numpy as np
     import torch
 
@@ -3607,6 +3731,220 @@ def ssm_families(dev, detail):
     return counts, checked
 
 
+def greedy_decode(label, plan, params, batch, n_new, cap, dev) -> tuple:
+    """Prefill ``batch`` (tokens with their frames or patches), then
+    ``n_new`` greedy decode steps at the positions after the prompt (after
+    the patches for a prefix model).  Every logit must be finite.  Returns
+    the run's numbers and a function that holds the first step's logits
+    within DECODE_PREFILL_TOL of max |logit| of a prefill over the prompt
+    and that step's token: it launches kernels of its own, so the caller
+    reads the path's launch counts before it calls it."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    B, S = tokens.shape
+    pos0 = S + plan.cfg.n_prefix
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = M.prefill(plan, params, batch, M.init_cache(plan, B, cap, device=dev))
+    torch.cuda.synchronize()
+    t_prefill = time.monotonic() - t0
+    finite = torch.isfinite(logits).all()
+    tok = logits.argmax(-1)
+    first_tok, first = tok, None
+    t1 = time.monotonic()
+    for step in range(n_new):
+        logits, cache = M.decode_step(plan, params, tok[:, None], cache, pos0 + step)
+        first = logits.float().clone() if first is None else first
+        finite &= torch.isfinite(logits).all()
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t_decode = time.monotonic() - t1
+    del cache
+    check(bool(finite), f"{label}: a logit is not finite")
+    out = dict(sequences=B, prompt_positions=pos0, decode_steps=n_new, prefill_s=t_prefill,
+               ms_per_step=t_decode / n_new * 1e3)
+    print(f"[encdec] {label}: prefill {B} x {pos0} positions {t_prefill:.2f}s; {n_new} greedy "
+          f"decode steps {out['ms_per_step']:.2f} ms per step", flush=True)
+
+    def against_prefill():
+        ref, _ = M.prefill(plan, params, dict(batch, tokens=torch.cat([tokens, first_tok[:, None]], 1)),
+                           M.init_cache(plan, B, cap, device=dev))
+        rel = float((first - ref.float()).abs().max()) / float(ref.float().abs().max())
+        check(rel <= DECODE_PREFILL_TOL, f"{label}: the first decode step's logits part from a "
+              f"prefill over the prompt and its token by {rel:.4f} of max |logit|")
+        out["decode_vs_prefill"] = rel
+        print(f"[encdec] {label}: the first decode step against a prefill over the prompt and its "
+              f"token {rel:.5f} of max |logit| (tol {DECODE_PREFILL_TOL})", flush=True)
+
+    return out, against_prefill
+
+
+def leaf_kind_means(report: dict, stack: str) -> dict:
+    """Mean relative error of ``stack``'s report keys by leaf kind."""
+    import numpy as np
+
+    out = {}
+    for kind, names in LEAF_KINDS.items():
+        vals = [v for k, v in report.items()
+                if k.startswith(f"{stack}.") and k.rsplit("/", 1)[1] in names]
+        if vals:
+            out[kind] = float(np.mean(vals))
+    return out
+
+
+def encdec_config(dev, detail, name, cfg, runs, calib_shape, n_calib, stream, serve, served):
+    """Phase 12, one config: each of ``runs`` (``emit="qt"``, the encoder
+    first where there is one), both stacks restacked; then the ``served``
+    artifact prefills and decodes greedily (:func:`greedy_decode`).  Every
+    kernel call is held against its plain version, the CD calls right
+    after each group solve, kernel 3 at the end.  Returns the launch counts
+    and the checked calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import solver
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.models import model as M
+    from repro_torch.quant import GridSpec
+    from repro_torch.serve.qparams import quantize_params_for_serving
+
+    plan = M.make_plan(cfg)
+    stacks = ("enc", "dec") if cfg.family == "encdec" else ("dec",)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    params = M.init_params(plan, 0, device=dev)
+    data = DataConfig(vocab=cfg.vocab, seed=0)
+    calib_fn, _ = make_batch_fn(data, cfg, *calib_shape, split="calib")
+    calib = [calib_fn(i) for i in range(n_calib)]
+    t_data = time.monotonic() - t0
+    groups, blocks, results = [], [], {}
+
+    def seen(w3, gcfg):
+        groups.append((gcfg.method, gcfg.spec.bits, *w3.shape))
+
+    with recording_calls() as calls:
+        with checked_solves(name, calls, seen, phase="phase 12") as st:
+            net, net_all = less_checks(st), less_checks(st)
+            t_all = time.monotonic()
+            for method, bits in runs:
+                label = f"{method}@{bits}"
+                pcfg = solver.PTQConfig(method=method, spec=GridSpec(bits=bits),
+                                        iterations=PTQ_ITERATIONS, emit="qt",
+                                        outlier_frac=OUTLIER_FRAC, stream_chunk=stream)
+                t_net = less_checks(st)
+                t1 = time.monotonic()
+                q, report = solver.ptq_quantize_model(
+                    plan, params, calib, pcfg, device=dev,
+                    progress_cb=lambda r, label=label: blocks.append(
+                        (label, r["stack"], r["period"], net(r["seconds"]))))
+                artifact = quantize_params_for_serving(plan, params, q["dec"],
+                                                       solver_qt_enc=q.get("enc"), device=dev)
+                results[label] = (report, t_net(time.monotonic() - t1))
+                if label == served:
+                    kept = artifact
+                del q, artifact
+                _free()
+        ptq_counts = path_counts(st)
+        t_ptq_all = net_all(time.monotonic() - t_all)
+        variants_ptq = dict(dequant_matmul_cuda.launches_by_variant)
+        peak_ptq = torch.cuda.max_memory_allocated() / 2**30
+        del params, calib
+        _free()
+        B, S, n_new = serve
+        batch = make_batch_fn(data, cfg, B, S, split="eval")[0](0)
+        cap = -(-(S + cfg.n_prefix + n_new + 1) // 64) * 64
+        stats, against_prefill = greedy_decode(f"{name} {served}", plan, kept, batch, n_new, cap,
+                                               dev)
+        torch.cuda.synchronize()
+        counts = path_counts(st)
+        variants = dict(dequant_matmul_cuda.launches_by_variant)
+    # Outside the recording, after the counts: the check's own prefill.
+    against_prefill()
+    del batch
+    by_variant = {v: c - variants_ptq[v] for v, c in variants.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    seen_groups = sorted({g[2:] for g in groups}, key=lambda g: (-g[0], -g[1], -g[2]))
+    for label in results:
+        for stack in stacks:
+            secs = [s_ for l2, st_, _, s_ in blocks if l2 == label and st_ == stack]
+            print(f"[encdec] {name} {label} {stack}: seconds per layer "
+                  f"{', '.join(f'{x:.2f}' for x in secs)}", flush=True)
+    mean = {}
+    for label, (report, t_ptq) in results.items():
+        vals = np.array(list(report.values()))
+        check(np.all(np.isfinite(vals)), f"{name} {label}: report {report}")
+        for stack in stacks:
+            svals = [v for k, v in report.items() if k.startswith(f"{stack}.")]
+            check(len(svals) > 0, f"{name} {label}: no {stack} report keys")
+            mean[label, stack] = float(np.mean(svals))
+            kinds = leaf_kind_means(report, stack)
+            print(f"[encdec] {name} {label} {stack}: {len(svals)} linears, mean rel error "
+                  f"{mean[label, stack]:.6f}; by kind " + ", ".join(
+                      f"{k} {v:.6f}" for k, v in kinds.items()) + f" (PTQ + restack {t_ptq:.1f}s)",
+                  flush=True)
+        mean[label] = float(vals.mean())
+    for stack in stacks:
+        check(mean["quantease@4", stack] < mean["rtn@4", stack],
+              f"{name} {stack}: QuantEase@4 not below RTN@4: {mean}")
+    if "qe_outlier@3" in mean:
+        check(mean["qe_outlier@3"] < mean["quantease@3"],
+              f"{name}: qe_outlier@3 not below QuantEase@3: {mean}")
+    need = ["quantease_block_sweep", "quantease_fused_iteration", "dequant_matmul"]
+    need += ["quantease_outlier_iteration"] if "qe_outlier@3" in mean else []
+    for k in need:
+        check(ptq_counts[k] > 0, f"{name}: kernel {k} not launched by PTQ: {ptq_counts}")
+    check(by_variant["tc_small"] > 0 and by_variant["tc_large"] > 0 and variants["simt"] == 0,
+          f"{name}: kernel 3 launches by variant: PTQ {variants_ptq}, serving {by_variant}")
+    print(f"[encdec] {name}: solver groups (G, q, p) {seen_groups}; launches {counts}; kernel 3 by "
+          f"variant in PTQ {variants_ptq}, in prefill and decode {by_variant}; PTQ and restack "
+          f"{t_ptq_all:.1f}s, the CD checks' {st['seconds']:.1f}s apart, calibration data "
+          f"{t_data:.1f}s; peak device memory {peak_ptq:.2f} GiB in PTQ, {peak:.2f} GiB in all",
+          flush=True)
+    del kept
+    _free()
+    checked = merge_checked(family_checks(name, calls, variants, "phase 12"), st["checked"])
+    detail.setdefault("families", {})[name] = dict(
+        groups=seen_groups, blocks=blocks, mean_rel_error={f"{k[0]} {k[1]}" if isinstance(k, tuple)
+                                                           else k: v for k, v in mean.items()},
+        by_kind={label: {stack: leaf_kind_means(r[0], stack) for stack in stacks}
+                 for label, r in results.items()},
+        ptq_seconds={k: r[1] for k, r in results.items()}, serve=stats, launches=counts,
+        variants_ptq=variants_ptq, variants_serve=by_variant,
+        peak_gib=dict(ptq=peak_ptq, all=peak), checked=checked)
+    return counts, checked
+
+
+def encdec_families(dev, detail):
+    """Phase 12: (a) Whisper-large-v3, (b) LLaVA-NeXT-34B, at full width
+    with their depth cut, seeded random bf16 weights, what the previous
+    one left freed first.  Returns the kernels' launch counts summed over
+    the two (each read just after its path ran, from 0) and the checked
+    calls per config."""
+    from repro_torch.configs import get_config
+
+    name, periods = ENC_WHISPER
+    whisper = dataclasses.replace(get_config(name), n_periods=periods, n_enc_periods=periods)
+    name_p, periods_p = PFX_LLAVA
+    llava = dataclasses.replace(get_config(name_p), n_periods=periods_p)
+    per, checked = {}, {}
+    for n, cfg, args in ((name, whisper, (ENC_RUNS, ENC_CALIB, ENC_CALIB_BATCHES, 0, ENC_SERVE,
+                                          "quantease@4")),
+                         (name_p, llava, (PFX_RUNS, PFX_CALIB, PFX_CALIB_BATCHES, PFX_STREAM,
+                                          PFX_SERVE, "quantease@4"))):
+        _free()
+        t0 = time.monotonic()
+        per[n], checked[n] = encdec_config(dev, detail, n, cfg, *args)
+        print(f"[phase] 12 {n}: {time.monotonic() - t0:.1f}s", flush=True)
+    counts = {k: sum(c[k] for c in per.values()) for k in next(iter(per.values()))}
+    return counts, checked
+
+
 def main() -> None:
     try:
         import torch
@@ -3617,6 +3955,7 @@ def main() -> None:
         fail(f"cannot import the port ({e}); run from the repository root")
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    t_start = time.monotonic()
     dev = resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3639,6 +3978,7 @@ def main() -> None:
     detail = {"card": card}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    t0 = time.monotonic()
     measured = {
         "quantease_block_sweep": check_block_sweep(gen, dev, detail),
         "quantease_fused_iteration": check_fused_iteration(gen, dev, detail),
@@ -3646,6 +3986,7 @@ def main() -> None:
         "dequant_matmul": check_dequant_matmul(gen, dev, detail),
         "paged_attention": check_paged_attention(gen, dev, detail),
     }
+    print(f"[phase] 3, the kernels: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.monotonic()
     check_legacy_engines(gen, dev, detail)
@@ -3653,7 +3994,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     card_tests()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
     counts_ptq, plan, artifact, dense = main_path(dev, detail)
+    print(f"[phase] 5, the main path: {time.monotonic() - t0:.1f}s", flush=True)
     expected = sum(x["launches_on_path"] for x in detail["block_sweep"])
     check(counts_ptq["quantease_block_sweep"] == expected,
           f"kernel 1 launched {counts_ptq['quantease_block_sweep']} times on the PTQ path, "
@@ -3665,7 +4008,9 @@ def main() -> None:
     counts_train = train_full_width(dev, detail)
     print(f"[phase] 5b, training at full width: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
     counts_serve = serving(dev, detail, plan, artifact)
+    print(f"[phase] 6, serving: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.monotonic()
     counts_quality, at_path, quality_model = quality_table(dev, detail, card)
@@ -3695,11 +4040,16 @@ def main() -> None:
     counts_ssm, at_ssm = ssm_families(dev, detail)
     print(f"[phase] 11, Mamba-2 and Jamba-1.5-Large at full width: {time.monotonic() - t0:.1f}s",
           flush=True)
+    t0 = time.monotonic()
+    counts_enc, at_enc = encdec_families(dev, detail)
+    print(f"[phase] 12, Whisper-large-v3 and LLaVA-NeXT-34B at full width: "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
     at_fam.update(at_ssm)
+    at_fam.update(at_enc)
     # Each path's counts were read just after it ran, from 0.
     paths = dict(ptq=counts_ptq, train=counts_train, serving=counts_serve, quality=counts_quality,
                  cli=counts_cli, speculation=counts_spec, tune=counts_tune, families=counts_fam,
-                 ssm=counts_ssm)
+                 ssm=counts_ssm, encdec=counts_enc)
     counts = {k: sum(c[k] for c in paths.values()) for k in counts_ptq}
     detail["launches"] = paths
 
@@ -3722,6 +4072,8 @@ def main() -> None:
                       for cfg, c in at_fam.items()},
         ))
     detail["kernels"] = kernels
+    detail["seconds"] = time.monotonic() - t_start
+    print(f"[phase] all: {detail['seconds']:.1f}s", flush=True)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_detail.json"), "w") as fh:

@@ -4,10 +4,11 @@
 A model is ``n_periods`` repetitions of a period pattern, a tuple of
 :class:`BlockDef`.  The schema keeps every field of the reference so the
 same config transforms apply to both packages.  The port runs the token-only
-decoders: attention and Mamba-2 (SSD) blocks with dense or
-mixture-of-experts MLPs, rotary, learned or no positions.  Whisper and
-LLaVA are not ported yet (``ROADMAP.md`` §1 item 7): :func:`get_config`
-refuses them.
+decoders (attention and Mamba-2 (SSD) blocks with dense or
+mixture-of-experts MLPs, rotary, learned or no positions), the
+encoder-decoder family (Whisper: an encoder stack over precomputed frames,
+cross-attention in the decoder) and the prefix family (LLaVA: projected
+patch embeddings prepended to the text).
 """
 
 from __future__ import annotations
@@ -153,7 +154,7 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     return n
 
 
-# The reference's architectures the port runs (the paper's OPT family, in
+# The reference's architectures, all ported (the paper's OPT family, in
 # ``opt_paper``, and ``bench_opt_s``, the benchmarks' trained model, are
 # registered too).
 ARCH_IDS = (
@@ -161,13 +162,15 @@ ARCH_IDS = (
     "gemma2_27b",
     "qwen15_32b",
     "phi3_mini_3_8b",
+    "whisper_large_v3",
     "jamba_1_5_large",
     "olmoe_1b_7b",
     "mixtral_8x22b",
     "mamba2_2_7b",
+    "llava_next_34b",
 )
-# The reference's architectures still to port (ROADMAP.md §1 item 7).
-NOT_PORTED = ("whisper_large_v3", "llava_next_34b")
+# The reference's architectures still to port: none.
+NOT_PORTED = ()
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -179,10 +182,6 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def get_config(name: str) -> ModelConfig:
     name = name.replace("-", "_").replace(".", "_")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (the encoder-decoder and prefix families: "
-            "ROADMAP.md §1 item 7)")
     if name not in _REGISTRY:
         try:
             importlib.import_module(f"repro_torch.configs.{name}")
@@ -193,7 +192,7 @@ def get_config(name: str) -> ModelConfig:
 
 
 def list_configs() -> list[str]:
-    """Every registered config name, sorted, after importing the ported
+    """Every registered config name, sorted, after importing the
     architectures and the OPT family."""
     for arch in ARCH_IDS:
         importlib.import_module(f"repro_torch.configs.{arch}")

@@ -12,6 +12,10 @@
   report has one key per expert, ``…/w_gate.e{i}``.
 * Grids are computed once from the original weights and threaded through
   the solve and the emit, so emitted codes round-trip the solve exactly.
+* An encoder-decoder model's encoder is quantized first, on the
+  calibration frames; its quantized output, frozen, is what the decoder's
+  cross-attention blocks see while the decoder is quantized.  A prefix
+  model's calibration patches, normed, come before the tokens.
 * Per-layer relative errors (the paper's Fig. 2 metric) are reported, with
   an optional per-block progress callback.  For the outlier-aware methods
   they are errors of the effective weights Ŵ + Ĥ.
@@ -65,8 +69,8 @@ __all__ = ["LayerSpec", "PTQConfig", "ptq_quantize_model", "QUANTIZABLE"]
 # Every linear the model routes through ``apply_linear`` but the Mamba
 # block's Δ projection ``wdt`` (numerically critical, as in the reference),
 # the MoE router, norms and biases.
-QUANTIZABLE = {"wq", "wk", "wv", "wo", "wg", "wu", "wd", "wz", "wx", "wbc", "out_proj",
-               "w_gate", "w_up", "w_down"}
+QUANTIZABLE = {"wq", "wk", "wv", "wo", "wq_c", "wk_c", "wv_c", "wo_c", "wg", "wu", "wd", "wz",
+               "wx", "wbc", "out_proj", "w_gate", "w_up", "w_down"}
 _MOE_NAMES = {"w_gate", "w_up", "w_down"}
 _METHODS = ("rtn", "gptq", "awq", "quantease", "awq_qe", "spqr", "qe_outlier",
             "qe_outlier_struct")
@@ -298,11 +302,15 @@ def _stack_experts(leaves: list):
     return dataclasses.replace(first, **arrays)
 
 
-def _apply_block(plan, b, blk, x, chunk: int = 0) -> torch.Tensor:
+def _apply_block(plan, b, blk, x, chunk: int = 0, enc_out=None) -> torch.Tensor:
+    """One block over ``x`` in slices of at most ``chunk`` sequences (0: the
+    whole batch), ``enc_out`` sliced beside it."""
     pos = torch.arange(x.shape[1], device=x.device)
     parts = x.split(chunk) if chunk else (x,)
-    outs = [M._block_apply(plan.cfg, plan.heads, b, blk, xc, mode="train", pos_ids=pos)
-            for xc in parts]
+    eo = enc_out.split(chunk) if chunk and enc_out is not None else (enc_out,) * len(parts)
+    outs = [M._block_apply(plan.cfg, plan.heads, b, blk, xc, mode="train", pos_ids=pos,
+                           enc_out=ec)
+            for xc, ec in zip(parts, eo)]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -316,58 +324,78 @@ def ptq_quantize_model(
     *,
     device="cuda",
 ):
-    """Quantize the decoder stack.  Returns ``(new_params, report)``, report
-    mapping layer path → relative reconstruction error.
+    """Quantize the decoder stack, and first the encoder's of an
+    encoder-decoder model.  Returns ``(new_params, report)``, report
+    mapping layer path (``dec.p0.b0/wq``, ``enc.p0.b0/wq``) → relative
+    reconstruction error.
+
+    A calibration batch carries ``"tokens"``, and ``"frames"`` or
+    ``"patches"`` for the encoder-decoder and prefix families.  The encoder
+    is quantized block by block on the frames (plus ``enc_pos_emb``); its
+    quantized output, ``enc_final_norm``-ed, is then frozen and the
+    decoder's cross-attention blocks read it, split beside each batch by
+    ``stream_chunk``.
 
     ``emit="fake"`` keeps the stacked layout with dequantized values;
-    ``emit="qt"`` returns ``new_params["dec"]`` as a per-period list of
-    blocks with QuantizedTensor leaves (restack it with
-    :func:`repro_torch.serve.qparams.quantize_params_for_serving`).  The
-    params must live on ``device`` (default ``"cuda"``).
+    ``emit="qt"`` returns ``new_params["dec"]`` (and ``["enc"]``) as a
+    per-period list of blocks with QuantizedTensor leaves (restack them
+    with :func:`repro_torch.serve.qparams.quantize_params_for_serving`).
+    The params must live on ``device`` (default ``"cuda"``).
     """
     if cfg.method not in _METHODS:
         raise ValueError(f"unknown method {cfg.method!r} (have {_METHODS})")
     if cfg.emit not in ("fake", "qt"):
         raise ValueError(f"unknown emit {cfg.emit!r}")
     dev = require_on_device(params["embed"], device)
-    xs = []
-    for b in calib_batches:
-        tokens = M.as_tokens(b["tokens"], dev)
-        xs.append(M._embed(plan, params, tokens, torch.arange(tokens.shape[1], device=dev)))
+    mcfg = plan.cfg
+    xs = [M.decoder_inputs(plan, params, M.as_tokens(b["tokens"], dev), b) for b in calib_batches]
     report: dict[str, float] = {}
     new_params = dict(params)
-    new_params["dec"] = _quantize_stack(plan, params["dec"], xs, cfg, report, progress_cb)
+    enc_outs = [None] * len(xs)
+    if mcfg.family == "encdec":
+        enc_in = [M.encoder_inputs(plan, params, b, dev) for b in calib_batches]
+        new_params["enc"], enc_in = _quantize_stack(plan, params["enc"], enc_in, cfg, report,
+                                                    progress_cb, stack="enc")
+        enc_outs = [M.apply_norm(params["enc_final_norm"], e, mcfg.norm) for e in enc_in]
+        del enc_in
+    new_params["dec"], _ = _quantize_stack(plan, params["dec"], xs, cfg, report, progress_cb,
+                                           enc_outs=enc_outs)
     return new_params, report
 
 
 def _quantize_period(plan, p_period: dict, period: int, xs: list, cfg: PTQConfig,
-                     report: dict, progress_cb=None):
-    """Quantize the blocks of one period in order, each on the outputs of
-    the quantized blocks before it.  Returns ``(new_period, xs_out)``."""
-    pattern = plan.cfg.pattern
+                     report: dict, progress_cb=None, *, stack: str = "dec", enc_outs=None):
+    """Quantize the blocks of one period of ``stack`` (``"dec"`` or
+    ``"enc"``) in order, each on the outputs of the quantized blocks before
+    it (a cross block also on ``enc_outs``, one per batch).  Returns
+    ``(new_period, xs_out)``."""
+    mcfg = plan.cfg
+    pattern, n_periods = M.stack_layout(mcfg, stack)
+    enc_outs = enc_outs or [None] * len(xs)
     new_period = {}
     for i, b in enumerate(pattern):
         t0 = time.monotonic()
-        scope = f"dec.p{period}.b{i}"
+        scope = f"{stack}.p{period}.b{i}"
         stats: dict[str, CalibStats] = {}
         with capture_gram_stats(stats), capture_scope(scope):
-            for x in xs:
-                _apply_block(plan, b, p_period[f"b{i}"], x, cfg.stream_chunk)
+            for x, eo in zip(xs, enc_outs):
+                _apply_block(plan, b, p_period[f"b{i}"], x, cfg.stream_chunk, eo)
         n_before = len(report)
         sens: dict[str, float] = {}
         new_blk = _quantize_block(p_period[f"b{i}"], stats, scope, cfg, report, sens)
         new_period[f"b{i}"] = new_blk
         # Recompute this block's outputs with its quantized weights.
-        xs = [_apply_block(plan, b, new_blk, x, cfg.stream_chunk) for x in xs]
+        xs = [_apply_block(plan, b, new_blk, x, cfg.stream_chunk, eo)
+              for x, eo in zip(xs, enc_outs)]
         if progress_cb is not None:
             new_keys = list(report)[n_before:]
             errs = [report[k] for k in new_keys]
             rec = {
-                "stack": "dec",
+                "stack": stack,
                 "period": period,
                 "block": i,
                 "done_blocks": period * len(pattern) + i + 1,
-                "total_blocks": plan.cfg.n_periods * len(pattern),
+                "total_blocks": n_periods * len(pattern),
                 "n_linears": len(new_keys),
                 "mean_rel_error": float(np.mean(errs)) if errs else 0.0,
                 "layer_errors": {k: float(report[k]) for k in new_keys},
@@ -379,16 +407,21 @@ def _quantize_period(plan, p_period: dict, period: int, xs: list, cfg: PTQConfig
     return new_period, xs
 
 
-def _quantize_stack(plan, stack, xs, cfg: PTQConfig, report: dict, progress_cb):
+def _quantize_stack(plan, params_stack, xs, cfg: PTQConfig, report: dict, progress_cb, *,
+                    stack: str = "dec", enc_outs=None):
+    """Quantize one stack period by period.  Returns ``(stack, xs_out)``:
+    the stacked fake-quantized leaves, or with ``emit="qt"`` the per-period
+    list; and the last block's outputs."""
     quantized_periods = []
-    stack_out = M.tree_map(torch.clone, stack) if cfg.emit == "fake" else None
-    for period in range(plan.cfg.n_periods):
-        p_period = M.period_slice(stack, period)
-        new_period, xs = _quantize_period(plan, p_period, period, xs, cfg, report, progress_cb)
+    stack_out = M.tree_map(torch.clone, params_stack) if cfg.emit == "fake" else None
+    for period in range(M.stack_layout(plan.cfg, stack)[1]):
+        p_period = M.period_slice(params_stack, period)
+        new_period, xs = _quantize_period(plan, p_period, period, xs, cfg, report, progress_cb,
+                                          stack=stack, enc_outs=enc_outs)
         quantized_periods.append(new_period)
         if cfg.emit == "fake":
             for key, blk in new_period.items():
                 for name, leaf in blk.items():
                     if name in QUANTIZABLE:  # the norms (dicts) are unchanged
                         stack_out[key][name][period] = leaf.to(stack_out[key][name].dtype)
-    return quantized_periods if cfg.emit == "qt" else stack_out
+    return (quantized_periods if cfg.emit == "qt" else stack_out), xs

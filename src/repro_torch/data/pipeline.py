@@ -57,13 +57,15 @@ class SyntheticCorpus:
 
 
 def make_batch_fn(data_cfg: DataConfig, model_cfg, batch: int, seq: int, split: str = "train"):
-    """Returns ``(batch(step) → {"tokens": (batch, seq) int32}, corpus)``."""
+    """Returns ``(batch(step) → {"tokens": (batch, seq) int32}, corpus)``.
+
+    An encoder-decoder model's batch also carries ``"frames"`` (batch,
+    n_frames, d) and a prefix model's ``"patches"`` (batch, n_prefix, d),
+    fp32 standard normals drawn from the batch's generator right after the
+    tokens, in that order, as the reference draws them (the stubs of the
+    audio front end and the vision tower)."""
     if split not in SPLITS:
         raise ValueError(f"unknown split {split!r}; expected one of {sorted(SPLITS)}")
-    if model_cfg.family != "lm" or model_cfg.n_prefix:
-        raise NotImplementedError(
-            "the port's pipeline serves token-only decoders; the encoder-decoder and prefix "
-            "families are not ported yet (ROADMAP.md §1 item 7)")
     salt = SPLITS[split]
     corpus = SyntheticCorpus(data_cfg)
 
@@ -74,6 +76,13 @@ def make_batch_fn(data_cfg: DataConfig, model_cfg, batch: int, seq: int, split: 
         fault_point("data.fetch")
         key = (data_cfg.seed, step) if salt is None else (data_cfg.seed, salt, step)
         rng = np.random.default_rng(key)
-        return {"tokens": corpus.sample(rng, batch, seq)}
+        out = {"tokens": corpus.sample(rng, batch, seq)}
+        if model_cfg.family == "encdec":
+            out["frames"] = rng.standard_normal(
+                (batch, model_cfg.n_frames, model_cfg.d_model)).astype(np.float32)
+        if model_cfg.n_prefix:
+            out["patches"] = rng.standard_normal(
+                (batch, model_cfg.n_prefix, model_cfg.d_model)).astype(np.float32)
+        return out
 
     return get, corpus

@@ -63,22 +63,24 @@ def train_template(plan, device) -> dict:
 
 
 def qt_layout(params) -> dict:
-    """``{"<block>/<name>": fields}`` for every QuantizedTensor ``dec`` leaf:
-    its static fields and the names of its array fields that are set (the
-    ``meta["qt_layout"]`` of a quantized checkpoint)."""
+    """``{"<block>/<name>": fields}`` for every QuantizedTensor ``dec`` leaf,
+    ``{"enc/<block>/<name>": fields}`` for an encoder's: its static fields
+    and the names of its array fields that are set (the ``meta["qt_layout"]``
+    of a quantized checkpoint)."""
     import dataclasses
 
     from repro_torch.quant import QuantizedTensor
 
     out = {}
-    for key, blk in params["dec"].items():
-        for name, leaf in blk.items():
-            if isinstance(leaf, QuantizedTensor):
-                static = {f.name: getattr(leaf, f.name) for f in dataclasses.fields(leaf)
-                          if f.metadata.get("static")}
-                out[f"{key}/{name}"] = dict(static, arrays=[
-                    f.name for f in dataclasses.fields(leaf)
-                    if not f.metadata.get("static") and getattr(leaf, f.name) is not None])
+    for stack, prefix in (("dec", ""), ("enc", "enc/")):
+        for key, blk in params.get(stack, {}).items():
+            for name, leaf in blk.items():
+                if isinstance(leaf, QuantizedTensor):
+                    static = {f.name: getattr(leaf, f.name) for f in dataclasses.fields(leaf)
+                              if f.metadata.get("static")}
+                    out[f"{prefix}{key}/{name}"] = dict(static, arrays=[
+                        f.name for f in dataclasses.fields(leaf)
+                        if not f.metadata.get("static") and getattr(leaf, f.name) is not None])
     return out
 
 
@@ -95,9 +97,9 @@ def _quantized_template(plan, device, manifest: dict) -> dict:
     marker = object()
     params = empty_params(plan, device="meta")
     for path, fields in manifest["meta"]["qt_layout"].items():
-        key, name = path.split("/")
+        stack, key, name = path.split("/") if path.count("/") == 2 else ("dec", *path.split("/"))
         static = {k: v for k, v in fields.items() if k != "arrays"}
-        params["dec"][key][name] = QuantizedTensor(
+        params[stack][key][name] = QuantizedTensor(
             codes=marker, scale=marker, zero=marker, **static,
             **{f: marker for f in fields["arrays"] if f not in ("codes", "scale", "zero")})
     leaves, treedef = tree_flatten({"params": params})

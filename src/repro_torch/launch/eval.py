@@ -67,9 +67,14 @@ def main(argv=None) -> dict:
     from repro_torch.eval.harness import EvalBudget
     from repro_torch.launch.common import load_params, model_config
     from repro_torch.models import init_params, make_plan
+    from repro_torch.models.model import check_token_only
 
     cfg = model_config(args.arch, args.reduce)
     plan = make_plan(cfg)
+    try:
+        check_token_only(cfg, "launch.eval")
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     try:
         params, manifest = load_params(args.ckpt_dir, plan, dev)
         print(f"loaded checkpoint step {manifest['step']}")

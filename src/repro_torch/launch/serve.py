@@ -102,11 +102,16 @@ def _run(args, dev) -> dict:
 
     from repro_torch.launch.common import model_config
     from repro_torch.models import init_params, make_plan, paged_cache_shapes
+    from repro_torch.models.model import check_token_only
     from repro_torch.serve.engine import PagedServingEngine, Request, ServingEngine
     from repro_torch.serve.qparams import prepack_params_for_serving
 
     cfg = model_config(args.arch, args.reduce)
     plan = make_plan(cfg, kv_cache_dtype=args.kv_dtype)
+    try:
+        check_token_only(cfg, "launch.serve")
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     try:
         params, manifest = load_params(args.ckpt_dir, plan, dev)
         print(f"loaded step {manifest['step']}")

@@ -1,26 +1,36 @@
-"""Model assembly for token-only decoders: params, forward stack, train loss.
+"""Model assembly for every family: params, forward stack, train loss.
 
 Param tree (leaves in ``cfg.dtype``), the reference's layout:
 
-  embed        (vocab_pad, d)
-  lm_head      (d, vocab_pad)          [unless tied]
-  pos_emb      (max_seq, d)            [pos == "learned"]
-  final_norm   {scale}
-  dec          {"b0": {...}, ...}: every leaf has a leading n_periods dim
+  embed          (vocab_pad, d)
+  lm_head        (d, vocab_pad)          [unless tied]
+  pos_emb        (max_seq, d)            [pos == "learned"]
+  final_norm     {scale}
+  dec            {"b0": {...}, ...}: every leaf has a leading n_periods dim
+  enc            the encoder's stack, leading dim n_enc_periods  [encdec]
+  enc_pos_emb    (n_frames, d)           [encdec]
+  enc_final_norm {scale, bias}           [encdec]
+  prefix_ln      {scale}                 [n_prefix]
 
 Attention blocks and Mamba-2 (SSD) blocks (:mod:`.mamba2`: ``wz``/``wx``
 (d, nh, hd), ``wbc`` (d, 2GN), ``wdt`` (d, nh), ``out_proj`` (nh, hd, d),
 the convolution weights, and ``a_log``/``dt_bias`` (nh,) in fp32 whatever
 the model's dtype), with dense or mixture-of-experts MLPs (:mod:`.moe`:
 ``router`` (d, E), ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d)),
-rotary, learned or no positions, are ported; cross-attention and the
-encoder-decoder and prefix families raise ``NotImplementedError``
-(``ROADMAP.md`` §1 item 7).  The stack is a Python loop over periods (the
-reference scans them).
+rotary, learned or no positions.  The encoder-decoder family (Whisper)
+runs a non-causal encoder stack over precomputed frames (plus
+``enc_pos_emb``, then ``enc_final_norm``), and its decoder blocks add
+cross-attention (``ln_c``, ``wq_c``/``wk_c``/``wv_c``/``wo_c``, no bias)
+over the encoder's output; the prefix family (LLaVA) prepends the normed
+patch embeddings (``prefix_ln``) to the text, masked out of the loss.
+Both stubs take the front end's output from the batch (``"frames"``,
+``"patches"``), as the reference does.  A stack is a Python loop over its
+periods (the reference scans them), however many its leaves hold.
 
 Serving: :func:`prefill` / :func:`decode_step` run on a contiguous per-slot
 KV cache (:func:`init_cache`; a Mamba block keeps its recurrent state
-there), :func:`paged_prefill_chunk` /
+there, a cross-attention block the encoder's keys and values ``ck``/``cv``
+in bf16, written by the prefill), :func:`paged_prefill_chunk` /
 :func:`paged_decode_step` on a block-paged one (:func:`init_paged_cache`,
 attention-only stacks),
 whose decode attention goes through ``kernels.ops.paged_attention``;
@@ -68,6 +78,10 @@ __all__ = [
     "init_params",
     "empty_params",
     "train_loss",
+    "encoder_inputs",
+    "encoder",
+    "decoder_inputs",
+    "check_token_only",
     "tree_map",
     "period_slice",
     "cache_shapes",
@@ -100,20 +114,30 @@ class ModelPlan:
         return self.cfg.dtype
 
 
-_NOT_PORTED = ("cross-attention and the encoder-decoder and prefix families are not ported "
-               "yet (ROADMAP.md §1 item 7)")
-
-
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "lm" or cfg.n_prefix:
-        raise NotImplementedError(f"{cfg.name}: the port runs token-only decoders; {_NOT_PORTED}")
+    if cfg.family not in ("lm", "encdec"):
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.pos not in ("rope", "learned", "none"):
         raise ValueError(f"{cfg.name}: unknown positions {cfg.pos!r}")
-    for b in cfg.pattern:
-        if b.cross:
-            raise NotImplementedError(f"{cfg.name}: block {b} is not ported; {_NOT_PORTED}")
+    if cfg.family == "encdec" and not (cfg.enc_pattern and cfg.n_enc_periods):
+        raise ValueError(f"{cfg.name}: an encoder-decoder model needs an encoder stack")
+    for b in (*cfg.pattern, *cfg.enc_pattern):
         if b.kind not in ("attn", "mamba") or b.mlp not in ("dense", "moe", "none"):
             raise ValueError(f"{cfg.name}: unknown block {b}")
+        if b.cross and (b.kind != "attn" or cfg.family != "encdec"):
+            raise ValueError(f"{cfg.name}: block {b}: cross-attention needs an attention block "
+                             "of an encoder-decoder model")
+
+
+def check_token_only(cfg: ModelConfig, what: str) -> None:
+    """Refuse an encoder-decoder or prefix model where ``what`` runs token
+    ids alone (the reference's scorer and engines take no frames or
+    patches)."""
+    if cfg.family == "encdec" or cfg.n_prefix:
+        family, extra = (("encoder-decoder", "frames") if cfg.family == "encdec"
+                         else ("prefix", "patches"))
+        raise ValueError(f"{what} runs token-only decoder models; {cfg.name} is of the {family} "
+                         f"family, whose inputs carry {extra}")
 
 
 def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16") -> ModelPlan:
@@ -148,14 +172,18 @@ def _norm_def(cfg, d) -> dict:
     return {"scale": _P((d,), "zeros")}  # (1 + scale) convention
 
 
-def _attn_defs(cfg: ModelConfig, hp: HeadPlan) -> dict:
+def _attn_defs(cfg: ModelConfig, hp: HeadPlan, suffix: str = "") -> dict:
+    """The projections of self-attention, or with ``suffix="_c"`` of
+    cross-attention, which has no q/k/v bias and no post-norm."""
     d, hd = cfg.d_model, cfg.hd
     defs = {
-        "wq": _P((d, hp.kv_pad, hp.g_pad, hd)),
-        "wk": _P((d, hp.n_kv, hd)),
-        "wv": _P((d, hp.n_kv, hd)),
-        "wo": _P((hp.kv_pad, hp.g_pad, hd, d)),
+        f"wq{suffix}": _P((d, hp.kv_pad, hp.g_pad, hd)),
+        f"wk{suffix}": _P((d, hp.n_kv, hd)),
+        f"wv{suffix}": _P((d, hp.n_kv, hd)),
+        f"wo{suffix}": _P((hp.kv_pad, hp.g_pad, hd, d)),
     }
+    if suffix:
+        return defs
     if cfg.qkv_bias:
         defs["bq"] = _P((hp.kv_pad, hp.g_pad, hd), "zeros")
         defs["bk"] = _P((hp.n_kv, hd), "zeros")
@@ -191,6 +219,9 @@ def _block_defs(cfg: ModelConfig, hp: HeadPlan, b: BlockDef) -> dict:
     d = cfg.d_model
     defs = {"ln": _norm_def(cfg, d)}
     defs.update(_attn_defs(cfg, hp) if b.kind == "attn" else _mamba_defs(cfg))
+    if b.cross:
+        defs["ln_c"] = _norm_def(cfg, d)
+        defs.update(_attn_defs(cfg, hp, suffix="_c"))
     if b.mlp != "none":
         defs["ln2"] = _norm_def(cfg, d)
         defs.update(_moe_defs(cfg) if b.mlp == "moe" else _mlp_defs(cfg))
@@ -228,21 +259,28 @@ def tree_map(fn, tree, is_leaf=None):
     return fn(tree)
 
 
+def _stack_defs(cfg: ModelConfig, hp: HeadPlan, stack: str) -> dict:
+    pattern, n_periods = stack_layout(cfg, stack)
+    return {f"b{i}": tree_map(lambda pd: _P((n_periods, *pd.shape), pd.init),
+                              _block_defs(cfg, hp, b), is_leaf=lambda x: isinstance(x, _P))
+            for i, b in enumerate(pattern)}
+
+
 def model_defs(plan: ModelPlan) -> dict:
     cfg, hp = plan.cfg, plan.heads
     d = cfg.d_model
-    dec = {}
-    for i, b in enumerate(cfg.pattern):
-        dec[f"b{i}"] = tree_map(
-            lambda pd: _P((cfg.n_periods, *pd.shape), pd.init),
-            _block_defs(cfg, hp, b),
-            is_leaf=lambda x: isinstance(x, _P),
-        )
-    defs = {"embed": _P((plan.vocab_pad, d)), "final_norm": _norm_def(cfg, d), "dec": dec}
+    defs = {"embed": _P((plan.vocab_pad, d)), "final_norm": _norm_def(cfg, d),
+            "dec": _stack_defs(cfg, hp, "dec")}
     if not cfg.tie_embeddings:
         defs["lm_head"] = _P((d, plan.vocab_pad))
     if cfg.pos == "learned":
         defs["pos_emb"] = _P((cfg.max_seq, d), "small_normal")
+    if cfg.family == "encdec":
+        defs["enc"] = _stack_defs(cfg, hp, "enc")
+        defs["enc_pos_emb"] = _P((cfg.n_frames, d), "small_normal")
+        defs["enc_final_norm"] = _norm_def(cfg, d)
+    if cfg.n_prefix:
+        defs["prefix_ln"] = _norm_def(cfg, d)
     return defs
 
 
@@ -257,7 +295,8 @@ def empty_params(plan: ModelPlan, *, device="cuda") -> dict:
 
 def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
     """Seeded init with the reference's distributions (``_init_leaf``):
-    N(0, 0.02²) for "normal", N(0, (0.02/√(2L))²) for "small_normal",
+    N(0, 0.02²) for "normal", N(0, (0.02/√(2L))²) for "small_normal" (L
+    counts the encoder's layers too),
     U(−1, 1)/√k for the convolution weights ("conv", k taps), and in fp32
     ``log(expm1(u))``, u ~ U(1e-3, 0.1), for ``dt_bias`` ("dt") and
     ``log(u)``, u ~ U(1, 16), for ``a_log`` ("alog").
@@ -273,7 +312,7 @@ def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
-    n_layers = plan.cfg.n_layers
+    n_layers = plan.cfg.n_layers + plan.cfg.n_enc_periods * len(plan.cfg.enc_pattern)
 
     def uniform(shape, lo, hi):
         return torch.rand(shape, generator=gen, dtype=torch.float32, device=dev) * (hi - lo) + lo
@@ -304,11 +343,16 @@ def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
 
 def _qkv(cfg, hp: HeadPlan, p, h):
     q = apply_linear(p["wq"], h, out_shape=(hp.kv_pad, hp.g_pad, hp.head_dim), name="wq")
-    k = apply_linear(p["wk"], h, out_shape=(hp.n_kv, hp.head_dim), name="wk")
-    v = apply_linear(p["wv"], h, out_shape=(hp.n_kv, hp.head_dim), name="wv")
+    k, v = _kv(hp, p, h)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
+
+
+def _kv(hp: HeadPlan, p, h, suffix: str = ""):
+    k = apply_linear(p[f"wk{suffix}"], h, out_shape=(hp.n_kv, hp.head_dim), name=f"wk{suffix}")
+    v = apply_linear(p[f"wv{suffix}"], h, out_shape=(hp.n_kv, hp.head_dim), name=f"wv{suffix}")
+    return k, v
 
 
 def _apply_out_proj(w, o, name=None):
@@ -410,9 +454,10 @@ def _fill_cache(cache, k, v, window, kv_dtype="bf16"):
 
 
 def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids, mode="train", cache=None,
-                   kv_dtype="bf16", page_table=None, page_write=None, q_offset=0):
+                   kv_dtype="bf16", page_table=None, page_write=None, q_offset=0, enc_out=None):
     """Self-attention sublayer in ``train``, ``prefill`` or ``decode`` mode;
-    with ``page_table`` set the KV cache is block-paged."""
+    with ``page_table`` set the KV cache is block-paged.  A cross block then
+    attends ``enc_out`` (:func:`_cross_attention`)."""
     h = apply_norm(p["ln"], x, cfg.norm)
     q, k, v = _qkv(cfg, hp, p, h)
     if cfg.pos == "rope":
@@ -443,7 +488,28 @@ def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids, mode="train", cache=N
     out = _apply_out_proj(p["wo"], o, name="wo")
     if cfg.post_norms:
         out = apply_norm(p["post_ln"], out, cfg.norm)
-    return x + out
+    x = x + out
+    return _cross_attention(cfg, hp, p, x, mode=mode, cache=cache, enc_out=enc_out) if b.cross else x
+
+
+def _cross_attention(cfg, hp, p, x, *, mode, cache, enc_out):
+    """Cross-attention over the encoder's output, non-causal.  In ``train``
+    and ``prefill`` mode K/V are projected from ``enc_out`` (a prefill also
+    writes them into the cache's ``ck``/``cv``, in bf16 whatever the
+    model's dtype, as the reference's cache holds them); ``decode`` reads
+    them back and attends all ``n_frames`` keys."""
+    h = apply_norm(p["ln_c"], x, cfg.norm)
+    q = apply_linear(p["wq_c"], h, out_shape=(hp.kv_pad, hp.g_pad, hp.head_dim), name="wq_c")
+    if mode == "decode":
+        kc, vc = cache["ck"], cache["cv"]
+        o = decode_attention(q, kc, vc, kc.shape[1], window=None)
+    else:
+        k, v = _kv(hp, p, enc_out, "_c")
+        if mode == "prefill":
+            cache["ck"].copy_(k)
+            cache["cv"].copy_(v)
+        o = flash_attention(q, k, v, causal=False)
+    return x + _apply_out_proj(p["wo_c"], o, name="wo_c")
 
 
 def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None):
@@ -502,14 +568,22 @@ def period_slice(stack, i):
                     stack, is_leaf=_quantized)
 
 
-def _run_stack(plan: ModelPlan, stack_params: dict, pattern, x, *, mode: str, pos_ids,
+def stack_layout(cfg: ModelConfig, stack: str) -> tuple:
+    """``(pattern, n_periods)`` of stack ``"dec"`` or ``"enc"``: the
+    encoder's period count is its own, ``n_enc_periods``."""
+    return (cfg.enc_pattern, cfg.n_enc_periods) if stack == "enc" else (cfg.pattern, cfg.n_periods)
+
+
+def _run_stack(plan: ModelPlan, stack_params: dict, stack: str, x, *, mode: str, pos_ids,
                caches=None, **attn_kw):
-    """Loop over periods.  ``caches`` (leaves with a leading period axis) are
-    written in place through each period's views, a Mamba block's state
-    after the block (:func:`_store_state`); ``aux`` (a list) collects the
-    MoE blocks' router losses."""
+    """Loop over the periods of ``stack`` (:func:`stack_layout`).
+    ``caches`` (leaves with a leading period axis) are written in place
+    through each period's views, a Mamba block's state after the block
+    (:func:`_store_state`); ``aux`` (a list) collects the MoE blocks'
+    router losses; ``enc_out`` is what a cross block attends."""
     cfg, hp = plan.cfg, plan.heads
-    for period in range(cfg.n_periods):
+    pattern, n_periods = stack_layout(cfg, stack)
+    for period in range(n_periods):
         p_period = period_slice(stack_params, period)
         for i, b in enumerate(pattern):
             cache = None if caches is None else {k: t[period] for k, t in caches[f"b{i}"].items()}
@@ -567,16 +641,60 @@ def check_positions(cfg, n: int, what: str) -> None:
 
 def _embed(plan, params, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Token embeddings plus, for learned positions, ``pos_emb`` at ``pos``
-    (broadcast against ``tokens``).  A position past ``max_seq`` gets no
-    positional term: only pad lanes reach one, since :func:`hidden_states`,
-    :func:`prefill` and both engines refuse longer sequences
-    (:func:`check_positions`)."""
-    x = _embed_tokens(plan, params, tokens)
+    (broadcast against ``tokens``)."""
+    return _add_positions(plan, params, _embed_tokens(plan, params, tokens), pos)
+
+
+def _add_positions(plan, params, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``x`` plus, for learned positions, ``pos_emb`` at ``pos``.  A position
+    past ``max_seq`` gets no positional term: only pad lanes reach one,
+    since :func:`hidden_states`, :func:`prefill` and both engines refuse
+    longer sequences (:func:`check_positions`)."""
     if plan.cfg.pos == "learned":
         pe, pos = params["pos_emb"], pos.long()
         inside = (pos < pe.shape[0])[..., None]
         x = x + torch.where(inside, pe[torch.clamp(pos, max=pe.shape[0] - 1)], 0.0).to(plan.dtype)
     return x
+
+
+def _batch_array(batch: dict, key: str, plan, device) -> torch.Tensor:
+    """A batch's ``frames`` or ``patches`` (numpy or torch, fp32) on
+    ``device`` in the model's dtype."""
+    if key not in batch:
+        raise ValueError(f"{plan.cfg.name}: the batch carries no {key!r}")
+    return torch.as_tensor(batch[key], device=device).to(plan.dtype)
+
+
+def encoder_inputs(plan: ModelPlan, params, batch: dict, device) -> torch.Tensor:
+    """The encoder stack's input: the batch's ``frames`` (B, n_frames, d)
+    plus ``enc_pos_emb``, in the model's dtype."""
+    return _batch_array(batch, "frames", plan, device) + params["enc_pos_emb"][None].to(plan.dtype)
+
+
+def encoder(plan: ModelPlan, params, batch: dict, device):
+    """The encoder's output (:func:`encoder_inputs` through the encoder
+    stack, non-causal, train mode, then ``enc_final_norm``), or None for a
+    model without one."""
+    cfg = plan.cfg
+    if cfg.family != "encdec":
+        return None
+    x = encoder_inputs(plan, params, batch, device)
+    x = _run_stack(plan, params["enc"], "enc", x, mode="train",
+                   pos_ids=torch.arange(x.shape[1], device=x.device))
+    return apply_norm(params["enc_final_norm"], x, cfg.norm)
+
+
+def decoder_inputs(plan: ModelPlan, params, tokens: torch.Tensor, batch: dict) -> torch.Tensor:
+    """The decoder stack's input (B, P + S, d): a prefix model's patches,
+    ``prefix_ln``-normed, before the token embeddings (P = ``n_prefix``,
+    else 0), and learned positions over the whole sequence, as the
+    reference adds them."""
+    cfg, dev = plan.cfg, tokens.device
+    x = _embed_tokens(plan, params, tokens)
+    if cfg.n_prefix:
+        pre = apply_norm(params["prefix_ln"], _batch_array(batch, "patches", plan, dev), cfg.norm)
+        x = torch.cat([pre, x], 1)
+    return _add_positions(plan, params, x, torch.arange(x.shape[1], device=dev))
 
 
 def as_tokens(tokens, device) -> torch.Tensor:
@@ -604,28 +722,45 @@ def chunked_cross_entropy(x, head, labels, mask, *, real_vocab: int, chunk: int 
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def hidden_states(plan: ModelPlan, params, tokens: torch.Tensor,
-                  aux: Optional[list] = None) -> torch.Tensor:
-    """(B, S) ids → (B, S, d) final-norm hidden states, teacher-forced
-    (``aux``: see :func:`_run_stack`)."""
+def _hidden(plan: ModelPlan, params, tokens: torch.Tensor, batch: dict,
+            aux: Optional[list] = None) -> torch.Tensor:
+    """(B, S) ids (and the batch's frames or patches) → (B, P + S, d)
+    final-norm hidden states, teacher-forced."""
     cfg = plan.cfg
-    check_positions(cfg, tokens.shape[1], "sequence length")
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _embed(plan, params, tokens, pos)
-    x = _run_stack(plan, params["dec"], cfg.pattern, x, mode="train", pos_ids=pos, aux=aux)
+    check_positions(cfg, tokens.shape[1] + cfg.n_prefix, "sequence length")
+    x = decoder_inputs(plan, params, tokens, batch)
+    enc_out = encoder(plan, params, batch, tokens.device)
+    x = _run_stack(plan, params["dec"], "dec", x, mode="train",
+                   pos_ids=torch.arange(x.shape[1], device=x.device), aux=aux, enc_out=enc_out)
     return apply_norm(params["final_norm"], x, cfg.norm)
 
 
+def hidden_states(plan: ModelPlan, params, tokens: torch.Tensor,
+                  aux: Optional[list] = None) -> torch.Tensor:
+    """(B, S) ids → (B, S, d) final-norm hidden states, teacher-forced
+    (``aux``: see :func:`_run_stack`).  Token-only models: an
+    encoder-decoder or prefix model raises ``ValueError``, as the
+    reference's scorer does."""
+    check_token_only(plan.cfg, "the eval scorer")
+    return _hidden(plan, params, tokens, {}, aux)
+
+
 def train_loss(plan: ModelPlan, params, batch: dict) -> torch.Tensor:
-    """batch: {"tokens": (B, S)} → scalar next-token loss, plus
-    ``0.01 · Σ router losses / n_layers`` for MoE models."""
+    """batch: {"tokens": (B, S)} (with ``"frames"`` (B, n_frames, d) for an
+    encoder-decoder model, ``"patches"`` (B, n_prefix, d) for a prefix
+    model) → scalar next-token loss, plus ``0.01 · Σ router losses /
+    n_layers`` for MoE models.  The prefix's positions carry no loss."""
     cfg = plan.cfg
     tokens = as_tokens(batch["tokens"], params["embed"].device)
-    B, S = tokens.shape
     aux = [] if any(b.mlp == "moe" for b in cfg.pattern) else None
-    x = hidden_states(plan, params, tokens, aux)
-    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], 1)
+    x = _hidden(plan, params, tokens, batch, aux)
+    B, S = x.shape[:2]
     mask = torch.ones(B, S, dtype=torch.float32, device=x.device)
+    if cfg.n_prefix:
+        # The prefix's labels are token 0, masked out, as the reference pads them.
+        tokens = torch.cat([tokens.new_zeros(B, cfg.n_prefix), tokens], 1)
+        mask[:, : cfg.n_prefix] = 0.0
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], 1)
     mask[:, -1] = 0.0
     loss = chunked_cross_entropy(
         x, _logit_head(plan, params), labels, mask,
@@ -660,8 +795,13 @@ def _block_cache_shape(plan: ModelPlan, b: BlockDef, B: int, cap: int) -> dict:
     kv = (B, c, hp.kv_pad, hp.head_dim)
     if plan.kv_cache_dtype == "int8":
         sc = ((B, c, hp.kv_pad, 1), torch.float32)
-        return {"k": (kv, torch.int8), "v": (kv, torch.int8), "ks": sc, "vs": sc}
-    return {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
+        out = {"k": (kv, torch.int8), "v": (kv, torch.int8), "ks": sc, "vs": sc}
+    else:
+        out = {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
+    if b.cross:  # the encoder's keys and values, bf16 whatever the KV dtype
+        ckv = ((B, cfg.n_frames, hp.kv_pad, hp.head_dim), torch.bfloat16)
+        out.update(ck=ckv, cv=ckv)
+    return out
 
 
 def _stacked(plan: ModelPlan, per_block: dict) -> dict:
@@ -735,14 +875,18 @@ def _positions(pos, B: int, device) -> torch.Tensor:
 
 @torch.no_grad()
 def prefill(plan: ModelPlan, params, batch: dict, cache):
-    """Full-sequence forward filling ``cache``; returns ``(last_logits, cache)``."""
+    """Full-sequence forward filling ``cache``; returns ``(last_logits,
+    cache)``.  An encoder-decoder model's batch carries ``"frames"`` (the
+    encoder runs here and its keys and values fill the cross cache); a
+    prefix model's carries ``"patches"``, which take the first
+    ``n_prefix`` positions, so its decode continues at ``n_prefix + S``."""
     dev = params["embed"].device
     tokens = as_tokens(batch["tokens"], dev)
-    check_positions(plan.cfg, tokens.shape[1], "prefill length")
-    pos = torch.arange(tokens.shape[1], device=dev)
-    x = _embed(plan, params, tokens, pos)
-    x = _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="prefill", pos_ids=pos,
-                   caches=cache)
+    check_positions(plan.cfg, tokens.shape[1] + plan.cfg.n_prefix, "prefill length")
+    x = decoder_inputs(plan, params, tokens, batch)
+    enc_out = encoder(plan, params, batch, dev)
+    x = _run_stack(plan, params["dec"], "dec", x, mode="prefill",
+                   pos_ids=torch.arange(x.shape[1], device=dev), caches=cache, enc_out=enc_out)
     return _final_logits(plan, params, x[:, -1:]), cache
 
 
@@ -754,7 +898,7 @@ def decode_step(plan: ModelPlan, params, tokens, cache, pos):
     tokens = as_tokens(tokens, dev)
     pos_b = _positions(pos, tokens.shape[0], dev)
     x = _embed(plan, params, tokens, pos_b[:, None])
-    x = _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="decode",
+    x = _run_stack(plan, params["dec"], "dec", x, mode="decode",
                    pos_ids=pos_b[:, None], caches=cache)
     return _final_logits(plan, params, x), cache
 
@@ -778,7 +922,7 @@ def paged_prefill_chunk(plan: ModelPlan, params, tokens, cache, page_table, offs
     offset = int(offset)
     pos = offset + torch.arange(tokens.shape[1], device=dev)
     x = _embed(plan, params, tokens, pos)
-    _run_stack(plan, params["dec"], plan.cfg.pattern, x, mode="prefill", pos_ids=pos,
+    _run_stack(plan, params["dec"], "dec", x, mode="prefill", pos_ids=pos,
                caches=cache, page_table=torch.as_tensor(page_table, device=dev),
                q_offset=offset)
     return cache
@@ -799,7 +943,7 @@ def paged_decode_step(plan: ModelPlan, params, tokens, cache, pos, page_table, p
     pos_b = _positions(pos, tokens.shape[0], dev)
     x = _embed(plan, params, tokens, pos_b[:, None])
     x = _run_stack(
-        plan, params["dec"], plan.cfg.pattern, x, mode="decode", pos_ids=pos_b[:, None],
+        plan, params["dec"], "dec", x, mode="decode", pos_ids=pos_b[:, None],
         caches=cache, page_table=torch.as_tensor(page_table, device=dev, dtype=torch.int32),
         page_write=torch.as_tensor(page_write, device=dev).long(),
     )

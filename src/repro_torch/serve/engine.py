@@ -71,7 +71,12 @@ from repro_torch.models import (
     paged_prefill_chunk,
     prefill,
 )
-from repro_torch.models.model import ModelPlan, check_positions, paged_verify_tokens
+from repro_torch.models.model import (
+    ModelPlan,
+    check_positions,
+    check_token_only,
+    paged_verify_tokens,
+)
 from repro_torch.serve.kv_cache import NULL_PAGE, PagePool, page_nbytes
 from repro_torch.serve.spec import DraftManager, SpecConfig, greedy_accept_len, maybe_hoist
 
@@ -143,6 +148,9 @@ class ServingEngine:
         clock: Optional[Callable[[], float]] = None,
         device="cuda",
     ):
+        # Admission prefills token ids alone, as the reference's does: an
+        # encoder-decoder or prefix model's frames or patches have no way in.
+        check_token_only(plan.cfg, "the contiguous serving engine")
         check_positions(plan.cfg, max_seq, "engine max_seq")
         self.device = require_on_device(params["embed"], device)
         self.plan = plan
@@ -295,6 +303,7 @@ class PagedServingEngine:
         clock: Optional[Callable[[], float]] = None,
         device="cuda",
     ):
+        check_token_only(plan.cfg, "the paged serving engine")
         if scheduler not in ("slo", "fifo"):
             raise ValueError(f"unknown scheduler {scheduler!r}; expected slo|fifo")
         if spec is not None and spec.draft_plan.cfg.vocab != plan.cfg.vocab:

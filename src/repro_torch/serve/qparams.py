@@ -116,7 +116,8 @@ def _stack_trees(trees: list):
     return torch.stack(trees)
 
 
-def quantize_params_for_serving(plan, params: dict, solver_qt_dec: list, *, device="cuda") -> dict:
+def quantize_params_for_serving(plan, params: dict, solver_qt_dec: list, *,
+                                solver_qt_enc: Optional[list] = None, device="cuda") -> dict:
     """Restack per-period block lists (``ptq_quantize_model(..., emit="qt")``'s
     ``["dec"]``) into the stacked layout the model runs (lead axes
     ``(layers,)``, and ``(layers, experts)`` for an MoE matrix); outlier
@@ -125,23 +126,35 @@ def quantize_params_for_serving(plan, params: dict, solver_qt_dec: list, *, devi
     (:func:`harmonize_qt_stack`).  The params must live on ``device``
     (default ``"cuda"``).  Raises ``ValueError`` if a zero point is not an
     integer in ``[0, 2^bits − 1]`` of its own period's bits (the
-    dequant-GEMM's precondition, checked here once per artifact)."""
+    dequant-GEMM's precondition, checked here once per artifact).
+
+    ``solver_qt_enc``, an encoder-decoder model's ``["enc"]`` list, is
+    restacked the same way into ``"enc"``.  This departs from the reference
+    on purpose: its ``quantize_params_for_serving`` restacks ``"dec"``
+    alone, so the encoder of a dense ``params`` stays unquantized, and a
+    ``params`` whose ``"enc"`` is the solver's per-period list cannot run
+    (its scan over periods raises).  Without ``solver_qt_enc`` the result is
+    the reference's, leaf for leaf: ``"enc"`` stays as ``params`` has it."""
     require_on_device(params["embed"], device)
     out = dict(params)
     out["dec"] = _stack_trees(solver_qt_dec)
+    if solver_qt_enc is not None:
+        out["enc"] = _stack_trees(solver_qt_enc)
     return out
 
 
 def _d_in(plan, name: str) -> int:
     """The input width of a quantizable linear (its matrix is (out, d_in))."""
     cfg, hp = plan.cfg, plan.heads
-    return {"wo": hp.kv_pad * hp.g_pad * hp.head_dim, "wd": cfg.d_ff,
+    attn_out = hp.kv_pad * hp.g_pad * hp.head_dim
+    return {"wo": attn_out, "wo_c": attn_out, "wd": cfg.d_ff,
             "out_proj": cfg.ssm_nheads * cfg.ssm_headdim}.get(name, cfg.d_model)
 
 
 def rtn_quantize_for_serving(plan, params: dict, *, bits: int, outlier_frac: float = 0.0):
     """Round-to-nearest every quantizable ``dec`` leaf into the serving
-    layout (``repro.serve.qparams.rtn_quantize_for_serving``): per-channel
+    layout (``repro.serve.qparams.rtn_quantize_for_serving``; an
+    encoder-decoder model's encoder stays dense, as there): per-channel
     grids from the weights themselves, no calibration and no solver.  The
     bytes are those the solver's artifact has: uint8 codes (packed two a
     byte at 4 bits), fp32 per-channel scale and zero, and with
@@ -216,8 +229,11 @@ def prepack_params_for_serving(plan, params: dict, *, backend=None):
     gives the tile-native layout are prepacked at its k-tile (an exact
     column permutation) and labelled as the reference labels them.
 
-    Returns ``(params, decisions)``, decisions mapping ``"<block>.<name>"``
-    to the layout label."""
+    Both stacks are walked, ``"dec"`` and an encoder-decoder model's
+    ``"enc"``, as the reference walks them.  Returns ``(params,
+    decisions)``, decisions mapping ``"<block>.<name>"`` to the layout
+    label (one entry per leaf position, shared by the two stacks as in the
+    reference)."""
     if backend not in (None, "cuda", "cpu", "tpu"):
         raise ValueError(f"unknown backend {backend!r}")
     decisions: dict[str, str] = {}
@@ -236,6 +252,8 @@ def prepack_params_for_serving(plan, params: dict, *, backend=None):
         return dataclasses.replace(qt, codes=codes, pack_layout="tile", pack_tile=tk)
 
     out = dict(params)
-    out["dec"] = {key: {name: leaf(f"{key}.{name}", v) for name, v in blk.items()}
-                  for key, blk in params["dec"].items()}
+    for stack in ("dec", "enc"):
+        if stack in params:
+            out[stack] = {key: {name: leaf(f"{key}.{name}", v) for name, v in blk.items()}
+                          for key, blk in params[stack].items()}
     return out, decisions

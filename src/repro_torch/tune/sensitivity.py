@@ -47,16 +47,25 @@ def _leaf_key(report_key: str) -> str:
 
 def _leaf_sizes(plan, params) -> dict:
     """Weights per quantizable leaf path, from the dense stacked params (an
-    MoE leaf counts all its experts)."""
+    MoE leaf counts all its experts), the decoder's and then an
+    encoder-decoder model's encoder's."""
     from repro_torch.core.solver import QUANTIZABLE
+    from repro_torch.models import model as M
 
-    n_periods = plan.cfg.n_periods
+    cfg = plan.cfg
     sizes = {}
-    for i, _ in enumerate(plan.cfg.pattern):
-        for name, leaf in params["dec"][f"b{i}"].items():
-            if name in QUANTIZABLE:
-                for period in range(n_periods):
-                    sizes[f"dec.p{period}.b{i}/{name}"] = leaf.numel() // n_periods
+
+    def walk(stack_name):
+        pattern, n_periods = M.stack_layout(cfg, stack_name)
+        for i, _ in enumerate(pattern):
+            for name, leaf in params[stack_name][f"b{i}"].items():
+                if name in QUANTIZABLE:
+                    for period in range(n_periods):
+                        sizes[f"{stack_name}.p{period}.b{i}/{name}"] = leaf.numel() // n_periods
+
+    walk("dec")
+    if "enc" in params and cfg.n_enc_periods:
+        walk("enc")
     return sizes
 
 

@@ -2,8 +2,9 @@
 the reference.
 
 * Every config the port registers equals the reference's field for field
-  (``dtype`` aside), ``list_configs`` agrees, and the architectures still
-  to port (Whisper, LLaVA) and cross-attention are refused.
+  (``dtype`` aside), ``list_configs`` agrees (every architecture of the
+  reference is ported), and the model takes cross-attention, the
+  encoder-decoder family and a prefix.
 * Reduced (``reduce_cfg``) fp32 models of each new architecture, the
   reference's params carried across with ``repro_torch.interop``: the
   train loss (MoE router loss included) and hidden states within 1e-5
@@ -58,8 +59,9 @@ def _fields(cfg) -> dict:
 
 def _same_fields(tcfg, jcfg) -> bool:
     a, b = _fields(tcfg), _fields(jcfg)
-    a["pattern"] = [dataclasses.asdict(x) for x in a["pattern"]]
-    b["pattern"] = [dataclasses.asdict(x) for x in b["pattern"]]
+    for k in ("pattern", "enc_pattern"):  # each package's own BlockDef
+        a[k] = [dataclasses.asdict(x) for x in a[k]]
+        b[k] = [dataclasses.asdict(x) for x in b[k]]
     return a == b
 
 
@@ -72,24 +74,27 @@ def test_config_equals_reference(name):
 
 
 def test_list_configs_agrees_and_the_rest_is_refused():
+    """Every architecture of the reference is ported: ``ARCH_IDS`` and
+    ``list_configs()`` equal the reference's, nothing is left to refuse
+    (``NOT_PORTED`` is empty), and the model takes cross-attention, the
+    encoder-decoder family and a prefix."""
     jbase.get_config("opt_125m")  # the reference lists the OPT family once imported
     ref = set(jbase.list_configs())
     port = tbase.list_configs()
     assert port == sorted(port)
-    named = lambda names: {n for n in names if n in jbase.ARCH_IDS or n.startswith("opt_")}
-    assert named(port) == named(ref) - set(tbase.NOT_PORTED)
-    assert set(tbase.ARCH_IDS) | set(tbase.NOT_PORTED) == set(jbase.ARCH_IDS)
-    for name in tbase.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-            tbase.get_config(name)
-    # Cross-attention and the encoder-decoder and prefix families, still to
-    # port, are refused by the model too.
+    assert tbase.ARCH_IDS == jbase.ARCH_IDS and tbase.NOT_PORTED == ()
+    assert set(port) == ref
+    whisper = tbase.get_config("whisper_large_v3")
+    assert whisper.family == "encdec" and whisper.pattern[0].cross
+    assert tbase.get_config("llava_next_34b").n_prefix == 2880
     phi3 = tbase.get_config("phi3_mini_3_8b")
-    for still in (dataclasses.replace(phi3, pattern=(tbase.BlockDef(cross=True),)),
-                  dataclasses.replace(phi3, family="encdec"),
-                  dataclasses.replace(phi3, n_prefix=16)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-            tm.make_plan(still)
+    enc = dict(family="encdec", enc_pattern=(tbase.BlockDef(causal=False),), n_enc_periods=1)
+    for cfg in (dataclasses.replace(phi3, pattern=(tbase.BlockDef(cross=True),), **enc),
+                dataclasses.replace(phi3, **enc), dataclasses.replace(phi3, n_prefix=16)):
+        assert tm.make_plan(cfg).cfg == cfg
+    # Cross-attention outside an encoder-decoder model has nothing to attend.
+    with pytest.raises(ValueError, match="cross-attention needs"):
+        tm.make_plan(dataclasses.replace(phi3, pattern=(tbase.BlockDef(cross=True),)))
 
 
 # ---------------------------------------------------------------------------
