@@ -154,9 +154,10 @@ Phases (any failed check exits non-zero; no phase is skipped):
    decode step and attention layer, and each config's kernel 3 and 5
    calls are held against their plain versions (one kept call per
    signature; kernel 5 within ``PAGED_ATOL`` scaled by max |out| above 1),
-   with kernel 5's plan printed per head shape; OLMoE's and OPT-66B's CD
-   calls too (kernels 2 and 4, kernel 1 on each of their blocks), one
-   signature at a time right after each group solve;
+   with kernel 5's plan printed per head shape; OLMoE's CD calls too
+   (kernels 2 and 4, kernel 1 on each of their blocks), one signature at a
+   time right after each group solve, and of OPT-66B one: a quantizing
+   fused iteration at p = 36,864 and its 144 block sweeps;
 11. Mamba-2 and the hybrid Jamba at full width, seeded random bf16 weights:
    (a) Mamba-2-2.7B (4 of 64 layers; d 2560, 80 SSD heads of 64, state
    128, vocab 50,280 tied): RTN and QuantEase at 4 bits, QuantEase and
@@ -202,6 +203,31 @@ Phases (any failed check exits non-zero; no phase is skipped):
    plain version as in phase 10 (kernels 1, 2 and 4 right after each group
    solve, kernel 3 at the end, one call a signature).  Kernel 5 does not
    run: paged serving refuses both families, as in the reference.
+13. the data-parallel mesh (run right after phase 5b, on its model): (a)
+   two ranks on the one card, joined by gloo (NCCL refuses two ranks on
+   one device; gloo takes the CUDA tensors of every collective used here),
+   started with ``spawn`` after the kernels were built, each running
+   ``ptq_quantize_model(mesh=)`` with QuantEase at 4 bits on its 8 of phase
+   5's 16 calibration sequences and its half of every group's rows through
+   kernels 1 and 2 (kernels 1 and 2 held against their plain versions on
+   one of its calls per signature); every rank's params, Σ's and artifact
+   the same bits; each group's Σ within 1e-5 of max |Σ| of a local Σ of
+   the same 16 sequences (period 0's inputs phase 5's, period 1's the
+   sharded artifact's period 0 output); the codes those of the local solve
+   on that Σ (in period 0 phase 5's own ``quantease@4``) outside rows that
+   start at a verified rounding tie (both solves replayed iteration by
+   iteration); the mean error within 1e-4 of phase 5's; the restacked
+   artifact's perplexity within 1e-3 relative of phase 5's beyond the
+   largest move of two local solves whose Σ sums the same sequences in
+   another exact fp32 order (the batches reversed; the ranks' blocks),
+   which tie cascades on a random model reach; seconds per layer against
+   phase 5's and the
+   bytes each collective moved are printed (no speed-up is expected on one
+   card); (b) ``Trainer(mesh=<data mesh of 1>, fsdp=True)`` in a one-rank
+   NCCL group takes 2 steps of phase 5b's batches: losses within 1e-5
+   relative of phase 5b's first two (bit for bit recorded), ms per step,
+   peak memory, and the checkpoint round trip bit for bit.  A failed
+   collective or rank fails the phase.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -284,6 +310,20 @@ MAIN_BATCH, MAIN_SEQ, MAIN_CALIB_BATCHES = 4, 512, 4  # eval: EvalBudget's defau
 # Phase 5b: full-width training (the phase-5 model, fp32 AdamW moments).
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
 TRAIN_OPT = dict(lr=5e-4, warmup_steps=0, total_steps=TRAIN_STEPS)
+# Phase 13: the data-parallel mesh.  (a) Two gloo ranks on the one card run
+# phase 5's QuantEase@4 PTQ, each on its block of the calibration sequences
+# and its rows of each group; (b) the FSDP trainer at world size 1 over NCCL.
+SHARD_RANKS = 2
+SHARD_TIMEOUT_S = 600  # a rank that reports nothing in this long fails the phase
+SHARD_SIGMA_RTOL = 1e-5  # each group's Σ against phase 5's, of max |Σ|
+SHARD_ERR_ATOL = 1e-4  # the mean relative error against phase 5's quantease@4
+# The restacked artifact's perplexity against phase 5's: within this plus
+# the largest deviation of the local solves whose Σ sums the same sequences
+# in another exact order (their tie cascades move a random model's
+# perplexity by 2.8e-3 and 5.3e-3 on the card; PERF.md).
+SHARD_PPL_RTOL = 1e-3
+SHARD_TRAIN_STEPS = 2
+SHARD_LOSS_RTOL = 1e-5  # the FSDP trainer's losses against phase 5b's first steps
 # Phase 7: the reference's quality table (benchmarks/bench_eval.py, its full
 # budget): bench_opt_s trained 1,600 steps at batch 16 x 96, then the grid.
 QUALITY_TRAIN = dict(steps=1600, batch=16, seq=96)
@@ -415,13 +455,15 @@ FAM_DENSE = (("qwen15_32b", ("bf16",)), ("stablelm_12b", ("bf16", "int4")),
              ("gemma2_27b", ("bf16",)), ("opt_66b", ("bf16",)))
 FAM_DENSE_CALIB, FAM_DENSE_EVAL = (4, 512), (2, 512)
 FAM_REQUESTS, FAM_PROMPT_LO, FAM_PROMPT_HI, FAM_NEW = 4, 16, 512, 16
-# The configs of (a) and (b) whose CD calls (kernels 1, 2 and 4) are held
-# against their plain versions after each group solve: OLMoE's three groups
-# and OPT-66B's p = 36,864 group.  Qwen1.5's, StableLM-2's and Gemma 2's
-# (48.5 s of plain column loops, PR 22) were cut to keep the whole run within
-# 1,000 s once phase 11 came; their kernel-3 and kernel-5 calls are still
-# held.
-FAM_CD_CHECKED = ("olmoe_1b_7b", "opt_66b")
+# The CD calls (kernels 1, 2 and 4) of (a) and (b) held against their plain
+# versions after each group solve: every signature of OLMoE's three groups
+# (phase 10 (a)), and of OPT-66B one signature of its p = 36,864 group, a
+# quantizing fused iteration (kernel 2's ``plan_corr`` split at that p) with
+# its 144 block sweeps.  Qwen1.5's, StableLM-2's and Gemma 2's (48.5 s of
+# plain column loops) were cut to keep the whole run within 1,000 s once
+# phase 11 came, and OPT-66B's other five signatures (~17 s) once phase 13
+# came; their kernel-3 and kernel-5 calls are still held.
+FAM_CD_REPLAYED = {"opt_66b": lambda key: key[1][0][0][-2] == 36864 and dict(key[2]).get("quantize")}
 # (c) Mixtral-8x22B, one layer: a 4-bit RTN artifact serves 4 requests.
 FAM_MIXTRAL = "mixtral_8x22b"
 FAM_PAGED = dict(max_batch=8, max_seq=1536, page_size=PAGE, prefill_chunk=128)
@@ -1685,6 +1727,15 @@ def main_path(dev, detail):
                   f"{r['n_linears']} linears mean_err={r['mean_rel_error']:.6f} {r['seconds']}s")
         return cb
 
+    # Phase 13 holds its sharded run against the served run's groups: each
+    # group's (W, Σ) kept as the solver saw them.
+    kept_groups = []
+    solve_group = solver._solve_group
+
+    def keep_group(w3, sig3, gcfg, mesh=None):
+        kept_groups.append((w3.clone(), sig3.clone()))
+        return solve_group(w3, sig3, gcfg, mesh)
+
     ops.reset_launch_counts()
     t_main = time.monotonic()
     results, coo, zero_points = {}, {}, {}
@@ -1693,8 +1744,12 @@ def main_path(dev, detail):
         pcfg = solver.PTQConfig(method=method, spec=GridSpec(bits=bits), iterations=PTQ_ITERATIONS, emit="qt",
                                 outlier_frac=OUTLIER_FRAC)
         t0 = time.monotonic()
-        qparams, report = solver.ptq_quantize_model(
-            plan, params, calib, pcfg, progress_cb=progress(label), device=dev)
+        solver._solve_group = keep_group if label == SERVED_RUN else solve_group
+        try:
+            qparams, report = solver.ptq_quantize_model(
+                plan, params, calib, pcfg, progress_cb=progress(label), device=dev)
+        finally:
+            solver._solve_group = solve_group
         served = quantize_params_for_serving(plan, params, qparams["dec"], device=dev)
         t_ptq = time.monotonic() - t0
         metrics = eval_model(plan, served, eval_fn, budget=budget, device=dev)
@@ -1779,7 +1834,9 @@ def main_path(dev, detail):
         blocks=blocks,
         seconds=t_main,
     )
-    return counts, plan, artifact, params
+    keep = dict(groups=kept_groups, report=results[SERVED_RUN][0], ppl=results[SERVED_RUN][1]["ppl"],
+                seconds_per_layer=per_layer[SERVED_RUN])
+    return counts, plan, artifact, params, keep
 
 
 # ---------------------------------------------------------------------------
@@ -3190,7 +3247,8 @@ def checked_solves(label, calls, on_solve=None, replay=True, phase="phase 10"):
     """While open, each group solve of the PTQ path is followed by the check
     of the CD calls it recorded in ``calls`` (kernels 2 and 4, kernel 1 on
     each of their blocks), each signature once over the whole run, against
-    the plain versions (with ``replay`` False they are dropped unchecked);
+    the plain versions (``replay``: True, False, or a function of the
+    signature that says which; the others are dropped unchecked);
     ``on_solve(w3, gcfg)`` sees each group.  Checking
     as the solves go keeps one group's clones on the card at a time (Σ̃ alone
     is 5.4 GB at p = 36,864).  Yields a dict: ``checked``, the merged
@@ -3206,8 +3264,8 @@ def checked_solves(label, calls, on_solve=None, replay=True, phase="phase 10"):
     st = dict(checked={}, replayed=dict.fromkeys(ops.launch_counts(), 0), seconds=0.0)
     done = set()
 
-    def solve(w3, sig3, gcfg):
-        out = solve_group(w3, sig3, gcfg)
+    def solve(w3, sig3, gcfg, mesh=None):
+        out = solve_group(w3, sig3, gcfg, mesh)
         if on_solve is not None:
             on_solve(w3, gcfg)
         if w3.is_cuda:
@@ -3215,7 +3273,7 @@ def checked_solves(label, calls, on_solve=None, replay=True, phase="phase 10"):
         t0 = time.monotonic()
         for key in [k for k in calls if k[0] in PATH_WRAPPERS[:2]]:
             one = {key: calls.pop(key)}  # one signature's clones on the card at a time
-            if replay and key not in done:
+            if (replay(key) if callable(replay) else replay) and key not in done:
                 done.add(key)
                 before = ops.launch_counts()
                 merge_checked(st["checked"], check_path_calls(one, {}, phase=f"{phase} {label}"))
@@ -3384,7 +3442,7 @@ def family_dense(dev, detail, name, kv_dtypes):
         pcfg = solver.PTQConfig(method="quantease", spec=GridSpec(bits=4), iterations=PTQ_ITERATIONS,
                                 emit="qt")
         t1 = time.monotonic()
-        with checked_solves(name, calls, replay=name in FAM_CD_CHECKED) as st:
+        with checked_solves(name, calls, replay=FAM_CD_REPLAYED.get(name, False)) as st:
             net, t_net = less_checks(st), less_checks(st)
             q, report = solver.ptq_quantize_model(plan, params, calib, pcfg, device=dev,
                                                   progress_cb=lambda r: blocks.append(net(r["seconds"])))
@@ -3401,6 +3459,10 @@ def family_dense(dev, detail, name, kv_dtypes):
     variants = dict(dequant_matmul_cuda.launches_by_variant)
     vals = np.array(list(report.values()))
     check(np.all(np.isfinite(vals)) and math.isfinite(m["ppl"]), f"{name}: report {report}, eval {m}")
+    if name in FAM_CD_REPLAYED:
+        check(st["checked"].get("fused_iteration", {}).get("calls") == 1
+              and st["checked"].get("block_sweep", {}).get("calls", 0) > 0,
+              f"{name}: not one CD signature replayed: {st['checked']}")
     for k in ("quantease_block_sweep", "quantease_fused_iteration", "dequant_matmul", "paged_attention"):
         check(counts[k] > 0, f"{name}: kernel {k} not launched: {counts}")
     print(f"[family] {name}: {len(vals)} linears mean rel error {vals.mean():.6f}, ppl {m['ppl']:.4f}; "
@@ -3945,6 +4007,578 @@ def encdec_families(dev, detail):
     return counts, checked
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the data-parallel mesh (two gloo ranks on the card; FSDP at
+# world size 1 over NCCL)
+# ---------------------------------------------------------------------------
+
+
+def solver_groups(blk_names: list, shapes: dict) -> list:
+    """The solver's same-shape groups of one block, in its order: the
+    quantizable leaves by name, grouped by (q, p) in order of first
+    appearance (``core.solver._quantize_block`` with one config)."""
+    from repro_torch.core.solver import QUANTIZABLE
+
+    groups: dict = {}
+    for name in sorted(blk_names):
+        if name in QUANTIZABLE:
+            groups.setdefault(shapes[name], []).append(name)
+    return list(groups.values())
+
+
+def _tree_bytes(tree) -> bytes:
+    import hashlib
+
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sharded_rank(rank, world, store, out_path, dev_type, queue):
+    """One rank of phase 13 (a): ``ptq_quantize_model(mesh=)`` on its
+    sequences of phase 5's calibration set, QuantEase at 4 bits, its rows of
+    each group through kernels 1 and 2 on the card, kernels 1 and 2 held
+    against their plain versions on one call per signature.  Rank 0 saves
+    its artifact and each group's Σ; every rank reports its launches, its
+    collectives and the digests of its artifact, Σ's and params."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.core import solver
+        from repro_torch.data import DataConfig, make_batch_fn
+        from repro_torch.device import resolve_device
+        from repro_torch.dist.collectives import block_bounds
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_data_mesh
+        from repro_torch.models import model as M
+        from repro_torch.quant import GridSpec
+
+        if dev_type == "cuda":
+            torch.cuda.set_device(0)
+        dev = resolve_device(torch.device("cuda", 0) if dev_type == "cuda" else "cpu")
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+        try:
+            mesh = make_data_mesh(device=dev_type)
+            cfg = dataclasses.replace(get_config("phi3_mini_3_8b"), **MAIN_OVERRIDES)
+            plan = M.make_plan(cfg)
+            params = M.init_params(plan, 0, device=dev)
+            calib_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, MAIN_BATCH,
+                                        MAIN_SEQ, split="calib")
+            calib = [calib_fn(i) for i in range(MAIN_CALIB_BATCHES)]
+            comm = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+
+            def counted(kind, fn, nbytes):
+                def call(*a, **k):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **k)
+                    if dev_type == "cuda":
+                        torch.cuda.synchronize()
+                    row = comm[kind]
+                    row[0], row[1], row[2] = row[0] + 1, row[1] + nbytes(a, out), \
+                        row[2] + time.perf_counter() - t0
+                    return out
+                return call
+
+            size = lambda t: t.numel() * t.element_size()
+            sigmas = []
+            solve_group = solver._solve_group
+
+            def keep_sigma(w3, sig3, gcfg, mesh=None):
+                sigmas.append(sig3.clone())
+                return solve_group(w3, sig3, gcfg, mesh)
+
+            patched = dict(all_reduce=counted("all_reduce", solver.all_reduce,
+                                              lambda a, out: size(a[0])),
+                           gather_dim=counted("all_gather", solver.gather_dim,
+                                              lambda a, out: size(out)),
+                           _solve_group=keep_sigma)
+            originals = {k: getattr(solver, k) for k in patched}
+            blocks = []
+            for k, v in patched.items():
+                setattr(solver, k, v)
+            try:
+                pcfg = solver.PTQConfig(method="quantease", spec=GridSpec(bits=4),
+                                        iterations=PTQ_ITERATIONS, emit="qt", shard=True)
+                ops.reset_launch_counts()
+                with recording_calls() as calls, \
+                        checked_solves("sharded", calls, phase="phase 13") as st:
+                    net = less_checks(st)
+                    t0 = time.monotonic()
+                    qparams, report = solver.ptq_quantize_model(
+                        plan, params, calib, pcfg, mesh=mesh, device=dev,
+                        progress_cb=lambda r: blocks.append(net(r["seconds"])))
+                    if dev_type == "cuda":
+                        torch.cuda.synchronize()
+                    t_ptq = time.monotonic() - t0 - st["seconds"]
+                counts = path_counts(st)
+            finally:
+                for k, v in originals.items():
+                    setattr(solver, k, v)
+            out = dict(counts=counts, checked=st["checked"], blocks=blocks, t_ptq=t_ptq,
+                       comm=comm, report=report, artifact=_tree_bytes(qparams["dec"]),
+                       sigmas=_tree_bytes(sigmas), params=_tree_bytes(params),
+                       n_sequences=[hi - lo for lo, hi in
+                                    (block_bounds(len(b["tokens"]), world, rank) for b in calib)])
+            if rank == 0:
+                cpu = lambda tree: M.tree_map(
+                    lambda a: a.map_arrays(lambda t: t.cpu()) if hasattr(a, "map_arrays")
+                    else a.cpu(), tree, is_leaf=lambda a: hasattr(a, "map_arrays"))
+                torch.save({"dec": cpu(qparams["dec"]), "sigmas": [s.cpu() for s in sigmas]},
+                           out_path)
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, True, out))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def run_ranks(target, world: int, *args) -> list:
+    """``target(rank, world, *args, queue)`` in ``world`` processes started
+    with ``spawn``; their results in rank order.  A rank that fails, or does
+    not report within SHARD_TIMEOUT_S, fails the phase; every process is
+    stopped before this returns."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, world, *args, queue)) for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        got, failed = {}, []
+        for _ in procs:
+            rank, ok, out = queue.get(timeout=SHARD_TIMEOUT_S)
+            if ok:
+                got[rank] = out
+            else:
+                failed.append(f"rank {rank}:\n{out}")
+        check(not failed, "phase 13 rank failed: " + "\n".join(failed))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    check(all(p.exitcode == 0 for p in procs), f"phase 13 ranks exited {[p.exitcode for p in procs]}")
+    return [got[r] for r in range(world)]
+
+
+def replay_solve(w3, sig3, grid3, rows=None):
+    """A QuantEase solve of ``w3`` (the path's config) replayed: ``(final Ŵ,
+    iterates)``, ``iterates`` each iteration's ``(quantize, Ŵ of rows)`` for
+    the ``(n, 2)`` (g, r) index tensor ``rows``, kept in fp32 on the card."""
+    from repro_torch.core import quantease as qe
+    from repro_torch.core.solver import PTQConfig
+
+    p = w3.shape[-1]
+    records, step_of = [], qe._iteration_step
+
+    def iteration_step(*a, **kw):
+        step = step_of(*a, **kw)
+
+        def recorded(*args, **kwargs):
+            out = step(*args, **kwargs)
+            records.append((kwargs["quantize"], out[0][rows[:, 0], :p, rows[:, 1]].clone()))
+            return out
+        return recorded
+
+    if rows is not None:
+        qe._iteration_step = iteration_step
+    try:
+        cfg = PTQConfig(method="quantease", iterations=PTQ_ITERATIONS)
+        final = qe.quantease_quantize(w3, sig3, grid3.spec, grid=grid3,
+                                      **cfg.qe_config().solve_kwargs())[0]
+    finally:
+        qe._iteration_step = step_of
+    return final, records
+
+
+def sharded_path(dev, detail, plan, artifact, dense, keep):
+    """Phase 13 (a): SHARD_RANKS gloo ranks on the one card run
+    ``ptq_quantize_model(mesh=)`` (QuantEase at 4 bits) on phase 5's model
+    and calibration set, each on its block of the sequences and its rows of
+    every group.  Every rank's params, Σ's and artifact must be the same
+    bits; the mean error within SHARD_ERR_ATOL of phase 5's ``quantease@4``
+    and the restacked artifact's perplexity within SHARD_PPL_RTOL of it
+    beyond the largest deviation of two local solves whose Σ sums the same
+    sequences in another exact order;
+    each group's Σ within SHARD_SIGMA_RTOL of a local Σ of the same
+    sequences (in period 0 phase 5's inputs; a later period's come from
+    each run's own quantized periods before it); the codes those of the
+    local solve on that Σ (in period 0 phase 5's artifact) outside rows
+    that start at a verified rounding tie (both solves replayed iteration
+    by iteration, the sharded one on its own rank's rows and Σ).  Returns the kernels' launches (both ranks' PTQ and
+    the scoring) and the calls checked against the plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import solver
+    from repro_torch.data import DataConfig, make_batch_fn
+    from repro_torch.dist.collectives import block_bounds
+    from repro_torch.eval.harness import EvalBudget, eval_model
+    from repro_torch.kernels import ops
+    from repro_torch.quant import GridSpec, compute_grid
+    from repro_torch.serve.qparams import quantize_params_for_serving
+
+    cfg = plan.cfg
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        t0 = time.monotonic()
+        ranks = run_ranks(_sharded_rank, SHARD_RANKS, os.path.join(tmp, "store"),
+                          os.path.join(tmp, "rank0.pt"), dev.type)
+        t_ranks = time.monotonic() - t0
+        saved = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    check(all(r["params"] == _tree_bytes(dense) for r in ranks),
+          "a rank's seeded params differ from phase 5's")
+    for key in ("artifact", "sigmas", "report"):
+        check(all(r[key] == r0[key] for r in ranks), f"the ranks' {key} differ")
+    check(list(r0["report"]) == list(keep["report"]), "report keys differ from phase 5's")
+    print(f"[shard] {SHARD_RANKS} gloo ranks on one card, sequences per rank and batch "
+          f"{[r['n_sequences'] for r in ranks]}: params, Σ's and artifacts the same bits on every "
+          f"rank ({t_ranks:.1f}s with the ranks' start)", flush=True)
+
+    q13 = tree_to(saved["dec"], dev)
+    served = quantize_params_for_serving(plan, dense, q13, device=dev)
+    eval_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, MAIN_BATCH, MAIN_SEQ,
+                               split="eval")
+    ops.reset_launch_counts()
+    metrics = eval_model(plan, served, eval_fn, budget=EvalBudget(), device=dev)
+    torch.cuda.synchronize()
+    counts = {k: v + sum(r["counts"][k] for r in ranks) for k, v in ops.launch_counts().items()}
+
+    mean13 = float(np.mean(list(r0["report"].values())))
+    mean5 = float(np.mean(list(keep["report"].values())))
+    ppl5, layer5 = keep["ppl"], keep["seconds_per_layer"]
+    print(f"[shard] PTQ seconds per layer, rank 0: {', '.join(f'{x:.3f}' for x in r0['blocks'])} "
+          f"against phase 5's {', '.join(f'{x:.3f}' for x in layer5)} (two ranks share one card: "
+          f"no speed-up expected); PTQ {r0['t_ptq']:.2f}s", flush=True)
+    for r, row in enumerate(ranks):
+        print(f"[shard] rank {r}: " + "; ".join(
+            f"{kind} {n} calls {b / 2**20:.1f} MiB {s:.2f}s" for kind, (n, b, s) in row["comm"].items())
+            + f"; launches {row['counts']}; checked {row['checked']}", flush=True)
+    print(f"[shard] mean error {mean13:.6f} against phase 5's {mean5:.6f} "
+          f"(|Δ| {abs(mean13 - mean5):.3g}, bound {SHARD_ERR_ATOL})", flush=True)
+    checked = {}
+    for r in ranks:
+        merge_checked(checked, r["checked"])
+    detail["sharded"] = out = dict(
+        ranks=SHARD_RANKS, seconds_with_start=t_ranks, ptq_seconds=[r["t_ptq"] for r in ranks],
+        seconds_per_layer=r0["blocks"], seconds_per_layer_local=layer5, comm=[r["comm"] for r in ranks],
+        launches=[r["counts"] for r in ranks], eval_launches=counts, checked=checked,
+        mean_error=mean13, mean_error_local=mean5, ppl=metrics["ppl"], ppl_local=ppl5,
+    )
+
+    # Σ of every group against a local Σ of the same sequences (one process,
+    # all 16, each period's inputs the outputs of the sharded artifact's
+    # periods before it); the codes against the local solve on that Σ (in
+    # period 0 phase 5's own solve: its codes must be phase 5's artifact's)
+    # outside rows that start at a verified rounding tie.
+    check(len(saved["sigmas"]) == len(keep["groups"]), "the ranks solved other groups than phase 5")
+    calib_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=0), cfg, MAIN_BATCH, MAIN_SEQ,
+                                split="calib")
+    calib = [calib_fn(i) for i in range(MAIN_CALIB_BATCHES)]
+    local = local_sigmas(plan, dense, q13, calib, dev)
+    spec = GridSpec(bits=4)
+    groups, k = [], 0
+    for period in range(cfg.n_periods):
+        for bkey in sorted(q13[period]):
+            blk = q13[period][bkey]
+            shapes = {n: tuple(leaf.unpacked_codes().shape) for n, leaf in blk.items()
+                      if hasattr(leaf, "codes")}
+            for names in solver_groups(list(shapes), shapes):
+                w3, s5 = keep["groups"][k]
+                s13 = saved["sigmas"][k].to(dev)
+                k += 1
+                s_loc = torch.stack([local[(period, bkey, n)] for n in names])
+                rel = float((s13 - s_loc).abs().max() / s_loc.abs().max())
+                grid = compute_grid(w3, spec)
+                c13 = torch.stack([served["dec"][bkey][n].unpacked_codes()[period] for n in names])
+                c_ref = torch.round(replay_solve(w3, s_loc, grid)[0] / grid.scale + grid.zero)
+                row = dict(period=period, block=bkey, names=names, sigma_rel=rel,
+                           sigma_rel_phase5=float((s13 - s5).abs().max() / s5.abs().max()),
+                           rows=c13.shape[0] * c13.shape[1])
+                if period == 0:
+                    c5 = torch.stack([artifact["dec"][bkey][n].unpacked_codes()[period]
+                                      for n in names])
+                    row["phase5_sigma_bitwise"] = torch.equal(s_loc, s5)
+                    row["phase5_codes_equal"] = torch.equal(c_ref, c5.to(c_ref.dtype))
+                    check(row["phase5_codes_equal"] or not row["phase5_sigma_bitwise"],
+                          f"{bkey}.p0 {names}: the replayed local solve is not phase 5's")
+                rows = (c13.to(c_ref.dtype) != c_ref).any(-1).nonzero()
+                row.update(verify_tie_rows(w3, s_loc, s13, grid, rows, c_ref, c13, rel))
+                groups.append(row)
+                check(rel <= SHARD_SIGMA_RTOL, f"Σ of {bkey}.p{period} {names}: {rel:.3g} of max "
+                      f"|Σ| off the same sequences' local Σ")
+                del s13, s_loc
+                _free()
+    check(k == len(keep["groups"]), "groups left unmatched")
+    out["groups"] = groups
+    n_rows = sum(g["rows"] for g in groups)
+    n_diff = sum(g["differing"] for g in groups)
+    n_ties = sum(g["ties"] for g in groups)
+    bad = [u for g in groups for u in g["unexplained"]]
+    by_period = {}
+    for g in groups:
+        by_period[g["period"]] = max(by_period.get(g["period"], 0.0), g["sigma_rel_phase5"])
+    print(f"[shard] Σ per group against the same sequences' local Σ: max "
+          f"{max(g['sigma_rel'] for g in groups):.3g} of max |Σ| (bound {SHARD_SIGMA_RTOL}); "
+          f"against phase 5's, max per period {by_period} (period 1 reads each run's own "
+          f"quantized period 0); period 0's local Σ phase 5's bit for bit: "
+          f"{all(g.get('phase5_sigma_bitwise', True) for g in groups)}, its local solve phase 5's "
+          f"codes: {all(g.get('phase5_codes_equal', True) for g in groups)}", flush=True)
+    print(f"[shard] codes against the local solve on the same Σ: {n_diff} of {n_rows} rows part "
+          f"({', '.join(f'{g['block']}.p{g['period']} {g['names']} {g['differing']}' for g in groups)}),"
+          f" {n_ties} at verified ties (largest gap / bound {max(g['worst'] for g in groups):.3g}), "
+          f"{len(bad)} unexplained {bad[:4]}", flush=True)
+    check(not bad and n_ties == n_diff,
+          f"sharded codes part from the local solve's outside verified ties: {bad[:8]}")
+    check(abs(mean13 - mean5) <= SHARD_ERR_ATOL, "sharded mean error off phase 5's")
+    # Ties cascade along a row, and a row parting in period 0 changes every
+    # input of period 1: how far that alone moves the perplexity is measured
+    # on local solves whose Σ sums the same sequences in another exact order
+    # (the batches reversed; each batch in the ranks' blocks).
+    pcfg = solver.PTQConfig(method="quantease", spec=GridSpec(bits=4), iterations=PTQ_ITERATIONS,
+                            emit="qt")
+    shares = [block_bounds(MAIN_BATCH, SHARD_RANKS, r) for r in range(SHARD_RANKS)]
+    controls = {"batches reversed": calib[::-1],
+                "ranks' blocks": [{k: v[lo:hi] for k, v in b.items()} for b in calib
+                                  for lo, hi in shares]}
+    spread = {}
+    for label, cal in controls.items():
+        q, _ = solver.ptq_quantize_model(plan, dense, cal, pcfg, device=dev)
+        sv = quantize_params_for_serving(plan, dense, q["dec"], device=dev)
+        spread[label] = eval_model(plan, sv, eval_fn, budget=EvalBudget(), device=dev)["ppl"] / ppl5 - 1
+        del q, sv
+    bound = SHARD_PPL_RTOL + max(abs(x) for x in spread.values())
+    out["ppl_spread"] = spread
+    print(f"[shard] ppl {metrics['ppl']:.4f} against phase 5's {ppl5:.4f}: rel "
+          f"{metrics['ppl'] / ppl5 - 1:.3g}; local solves on Σ summed in other orders: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in spread.items())
+          + f"; bound {bound:.3g}", flush=True)
+    check(abs(metrics["ppl"] / ppl5 - 1) <= bound, "sharded perplexity off phase 5's")
+    for name in ("quantease_block_sweep", "quantease_fused_iteration", "dequant_matmul"):
+        check(all(r["counts"][name] > 0 for r in ranks), f"a rank launched no {name}")
+    return counts, checked
+
+
+def local_sigmas(plan, dense, q13, calib, dev) -> dict:
+    """``{(period, block, name): Σ}`` of every quantizable linear over all of
+    phase 5's calibration sequences in this one process, each period's
+    inputs the outputs of the sharded artifact ``q13``'s periods before it
+    (as ``core.solver`` runs them)."""
+    import torch
+
+    from repro_torch.core import solver
+    from repro_torch.models import model as M
+    from repro_torch.models.common import capture_gram_stats, capture_scope
+
+    cfg = plan.cfg
+    out = {}
+    with torch.no_grad():
+        xs = [M.decoder_inputs(plan, dense, M.as_tokens(b["tokens"], dev), b) for b in calib]
+        for period in range(cfg.n_periods):
+            p_period = M.period_slice(dense["dec"], period)
+            for i, b in enumerate(cfg.pattern):
+                stats, scope = {}, f"dec.p{period}.b{i}"
+                with capture_gram_stats(stats), capture_scope(scope):
+                    for x in xs:
+                        solver._apply_block(plan, b, p_period[f"b{i}"], x)
+                out.update({(period, f"b{i}", k.split("/")[1]): st.sigma for k, st in stats.items()})
+                xs = [solver._apply_block(plan, b, q13[period][f"b{i}"], x) for x in xs]
+    return out
+
+
+def tree_to(tree, dev):
+    from repro_torch.models import model as M
+
+    return M.tree_map(lambda a: a.map_arrays(lambda t: t.to(dev)) if hasattr(a, "map_arrays")
+                      else a.to(dev), tree, is_leaf=lambda a: hasattr(a, "map_arrays"))
+
+
+def verify_tie_rows(w3, s_ref, s13, grid, rows, c_ref, c13, sig_rel) -> dict:
+    """The ``(n, 2)`` (g, r) ``rows`` whose codes part between the local
+    solve (Σ ``s_ref``, codes ``c_ref``) and the sharded run (Σ ``s13``,
+    codes ``c13``, row r solved by rank ``r // per`` among its padded rows):
+    both solves replayed with those rows' iterates kept on the card; the
+    replays must give each run's codes; at the first iteration where a row
+    parts (by more than 1e-5; a quantizing iteration) and its first such
+    column, β from the sharded iterates must lie within the fp32 bound,
+    widened by the Σ's relative difference ``sig_rel``, of a rounding
+    midpoint (as tests/test_torch_cuda.py's ``midpoint_gap``).  Returns the
+    counts, the largest gap over its bound among the ties, and the first
+    unexplained rows."""
+    import torch
+
+    from repro_torch.core.calib import damp_sigma
+
+    n = rows.shape[0]
+    res = dict(differing=n, ties=0, worst=0.0, unexplained=[])
+    if not n:
+        return res
+    q, p = w3.shape[1:]
+    per = -(-q // SHARD_RANKS)
+    pad = per * SHARD_RANKS - q
+    g_i, r_i = rows[:, 0], rows[:, 1]
+    scale, zero = grid.scale[g_i, r_i], grid.zero[g_i, r_i]  # (n, 1): per channel
+    fin_ref, rec = replay_solve(w3, s_ref, grid, rows)
+    flags = torch.tensor([qz for qz, _ in rec], device=w3.device)
+    R = torch.stack([t for _, t in rec])
+    del rec
+    S, fin13 = torch.empty_like(R), torch.empty_like(R[0])
+    wp = torch.nn.functional.pad(w3, (0, 0, 0, pad))
+    sp = torch.nn.functional.pad(grid.scale, (0, 0, 0, pad), value=1.0)
+    zp = torch.nn.functional.pad(grid.zero, (0, 0, 0, pad))
+    for rank in range(SHARD_RANKS):
+        idx = ((r_i // per) == rank).nonzero()[:, 0]
+        if not len(idx):
+            continue
+        mine = rows[idx].clone()
+        mine[:, 1] -= rank * per
+        sl = slice(rank * per, (rank + 1) * per)
+        g_b = dataclasses.replace(grid, scale=sp[:, sl].contiguous(), zero=zp[:, sl].contiguous())
+        fin, rec = replay_solve(wp[:, sl].contiguous(), s13, g_b, mine)
+        S[:, idx] = torch.stack([t for _, t in rec])
+        fin13[idx] = fin[mine[:, 0], mine[:, 1]]
+        del rec, fin
+    codes = lambda w: torch.round(w / scale + zero)
+    check(torch.equal(codes(fin_ref[g_i, r_i]), c_ref[g_i, r_i])
+          and torch.equal(codes(fin13), c13[g_i, r_i].to(fin13.dtype)),
+          "the replays do not give the runs' codes")
+    D = (S - R).abs() > 1e-5  # (iterations, n, p)
+    parted = D.any(-1)
+    check(bool(parted.any(0).all()), "a row whose codes part never parts in the replays")
+    it = parted.int().argmax(0)
+    ar = torch.arange(n, device=w3.device)
+    j = D[it, ar].int().argmax(-1)
+    del D, R
+    cur = S[it, ar].double()
+    prev = torch.where((it > 0)[:, None], S[(it - 1).clamp_min(0), ar].double(),
+                       w3[g_i, r_i].double())
+    del S
+    gap = torch.empty(n, dtype=torch.float64, device=w3.device)
+    tol = torch.empty_like(gap)
+    cols = torch.arange(p, device=w3.device)[None]
+    for g in g_i.unique().tolist():
+        sel = (g_i == g).nonzero()[:, 0]
+        sd = damp_sigma(s13[g].double())
+        sig_norm = sd / torch.diagonal(sd)[None, :]
+        del sd
+        jj = j[sel]
+        col = sig_norm[:, jj].T.contiguous()  # (m, p): column j of each row
+        pmat = (w3[g, r_i[sel]].double() * col).sum(-1)
+        col[torch.arange(len(sel), device=w3.device), jj] -= 1.0
+        terms = torch.where(cols < jj[:, None], cur[sel],
+                            torch.where(cols > jj[:, None], prev[sel], 0.0)) * col
+        sc, ze = scale[sel, 0].double(), zero[sel, 0].double()
+        v = (pmat - terms.sum(-1)) / sc + ze
+        mag = pmat.abs() + terms.abs().sum(-1)
+        gap[sel] = (v - (torch.floor(v) + 0.5)).abs()
+        tol[sel] = (4 * p * 2.0 ** -23 + 2 * sig_rel) * mag / sc + 1e-6
+        del sig_norm, col, terms
+    tie = flags[it] & (gap <= tol)
+    res["ties"] = int(tie.sum())
+    res["worst"] = float((gap / tol)[tie].max()) if res["ties"] else 0.0
+    for k in (~tie).nonzero()[:8, 0].tolist():
+        res["unexplained"].append(dict(g=int(g_i[k]), row=int(r_i[k]), iteration=int(it[k]),
+                                       col=int(j[k]), quantize=bool(flags[it[k]]),
+                                       gap=float(gap[k]), tol=float(tol[k])))
+    return res
+
+
+def fsdp_world_one(dev, detail):
+    """Phase 13 (b): ``Trainer(mesh=<data mesh of 1>, fsdp=True)`` in this
+    process, in a NCCL group of one rank (a ``file://`` store), on phase
+    5b's model and batches for SHARD_TRAIN_STEPS steps: the losses within
+    SHARD_LOSS_RTOL of phase 5b's first steps (bit for bit recorded), ms per
+    step and peak memory, and the checkpoint round trip bit for bit.
+    Returns the kernels' launches (the dense training path runs none)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("phi3_mini_3_8b"), **MAIN_OVERRIDES)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}", rank=0,
+                            world_size=1, device_id=dev if dev.index is not None
+                            else torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("data",))
+        _free()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, AdamWConfig(**TRAIN_OPT),
+                          TrainerConfig(steps=SHARD_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                        ckpt_every=SHARD_TRAIN_STEPS + 1,
+                                        ckpt_dir=os.path.join(tmp, "ckpt"), log_every=1),
+                          mesh=mesh, fsdp=True, device=dev)
+        n_sharded = sum(d is not None for d in trainer.shards.dims)
+        stamps = []
+
+        def stamp(step=None):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        ops.reset_launch_counts()
+        out = trainer.run(fault_hook=stamp)
+        stamp()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        losses = [m["loss"] for m in out["log"]]
+        local = detail["train"]["losses"][:SHARD_TRAIN_STEPS]
+        rel = max(abs(a / b - 1) for a, b in zip(losses, local))
+        ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+        print(f"[fsdp] Trainer(mesh=<data 1>, fsdp=True) over NCCL, {n_sharded} of "
+              f"{len(trainer.shards.dims)} leaves split on their embed dim: losses "
+              + ", ".join(f"{x:.6f}" for x in losses)
+              + f" against phase 5b's {', '.join(f'{x:.6f}' for x in local)} (rel {rel:.3g}, "
+              f"bit for bit: {losses == local}); ms per step {', '.join(f'{x:.1f}' for x in ms)}; "
+              f"peak {peak / 2**30:.3f} GiB above {base / 2**30:.3f} GiB", flush=True)
+        check(len(losses) == SHARD_TRAIN_STEPS and rel <= SHARD_LOSS_RTOL,
+              f"FSDP losses {losses} off phase 5b's {local}")
+        state = [t.clone() for t in tree_leaves({"params": trainer.params, "opt": trainer.opt_state})]
+        t0 = time.monotonic()
+        trainer.save(SHARD_TRAIN_STEPS)
+        t_save = time.monotonic() - t0
+        t0 = time.monotonic()
+        step = trainer.restore()
+        t_restore = time.monotonic() - t0
+        back = tree_leaves({"params": trainer.params, "opt": trainer.opt_state})
+        same = len(back) == len(state) and all(_same_bits(a, b) for a, b in zip(state, back))
+        n_bytes = sum(t.numel() * t.element_size() for t in state)
+        print(f"[fsdp] checkpoint of {len(state)} leaves, {n_bytes / 2**30:.2f} GiB: saved in "
+              f"{t_save:.1f}s, restored in {t_restore:.1f}s, bit for bit: {same}", flush=True)
+        check(step == SHARD_TRAIN_STEPS and same, f"FSDP checkpoint round trip: step {step}, "
+              f"bitwise {same}")
+        del trainer, state, back
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    detail["fsdp"] = dict(losses=losses, losses_local=local, rel=rel, bitwise=losses == local,
+                          ms_per_step=ms, peak_bytes=peak, base_bytes=base, save_s=t_save,
+                          restore_s=t_restore, checkpoint_bytes=n_bytes, leaves_split=n_sharded)
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -3995,7 +4629,7 @@ def main() -> None:
     card_tests()
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    counts_ptq, plan, artifact, dense = main_path(dev, detail)
+    counts_ptq, plan, artifact, dense, keep = main_path(dev, detail)
     print(f"[phase] 5, the main path: {time.monotonic() - t0:.1f}s", flush=True)
     expected = sum(x["launches_on_path"] for x in detail["block_sweep"])
     check(counts_ptq["quantease_block_sweep"] == expected,
@@ -4007,6 +4641,14 @@ def main() -> None:
     t0 = time.monotonic()
     counts_train = train_full_width(dev, detail)
     print(f"[phase] 5b, training at full width: {time.monotonic() - t0:.1f}s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    counts_sharded, at_sharded = sharded_path(dev, detail, plan, artifact, dense, keep)
+    del keep
+    _free()
+    counts_fsdp = fsdp_world_one(dev, detail)
+    print(f"[phase] 13, the data-parallel mesh (two gloo ranks on the card; FSDP over NCCL): "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.monotonic()
     counts_serve = serving(dev, detail, plan, artifact)
@@ -4049,7 +4691,7 @@ def main() -> None:
     # Each path's counts were read just after it ran, from 0.
     paths = dict(ptq=counts_ptq, train=counts_train, serving=counts_serve, quality=counts_quality,
                  cli=counts_cli, speculation=counts_spec, tune=counts_tune, families=counts_fam,
-                 ssm=counts_ssm, encdec=counts_enc)
+                 ssm=counts_ssm, encdec=counts_enc, sharded=counts_sharded, fsdp=counts_fsdp)
     counts = {k: sum(c[k] for c in paths.values()) for k in counts_ptq}
     detail["launches"] = paths
 
@@ -4070,6 +4712,8 @@ def main() -> None:
                                    for c in at_spec.values()),
             families={cfg: c.get(name.replace("quantease_", ""), {}).get("calls", 0)
                       for cfg, c in at_fam.items()},
+            sharded_launches=counts_sharded[name],
+            sharded_calls_checked=at_sharded.get(name.replace("quantease_", ""), {}).get("calls", 0),
         ))
     detail["kernels"] = kernels
     detail["seconds"] = time.monotonic() - t_start

@@ -34,6 +34,31 @@ Mixed precision: :class:`LayerSpec` overrides in ``PTQConfig.layer_specs``
 (keyed by layer path, ``"dec.p0.b1/wq"``, or bare leaf name) resolve per
 layer through :meth:`PTQConfig.for_layer`, and same-shape groups split by
 the effective per-layer config.
+
+Sharded PTQ (``mesh=`` a data mesh, ``cfg.shard``), the reference's
+semantics on one rank per device:
+
+* Data: each calibration batch splits over "data" by whole sequences, in
+  contiguous blocks of ``ceil(B / n)`` (as a batch-sharded JAX array lays
+  them out; the last ranks' blocks may be short, never empty).  Each rank
+  pushes its own sequences through every block, so the next block's inputs
+  never leave the rank.  Each rank folds its rows into local Σ's; at the
+  end of a block's capture pass one ``all_reduce`` per linear (in sorted
+  key order) makes them global, the same bits on every rank.  An MoE
+  block dispatches each rank's own sequences, so where its capacity drops
+  tokens the per-expert Σ can differ from the whole batch's (as
+  ``stream_chunk`` chunks do, in both packages).
+* Rows: ``rtn``, ``gptq`` and ``quantease`` split each group's output rows
+  over "data" (rows are independent in every column sweep): q pads to a
+  multiple of the rank count with zero rows on a unit pad scale, each rank
+  solves its block of rows on its own device (the CUDA kernels at q/n
+  rows), and an all-gather hands every rank the whole group.
+  ``qe_outlier``/``qe_outlier_struct`` (the top-s projection is global),
+  ``awq``, ``awq_qe`` and ``spqr`` run whole on every rank, on the same
+  global Σ.
+* The progress records come out of rank 0 only; every rank returns the
+  same params and report.  With one rank, or ``cfg.shard`` false, the path
+  is the local one.
 """
 
 from __future__ import annotations
@@ -47,12 +72,13 @@ import torch
 
 from repro_torch.core import quantease
 from repro_torch.core.awq import awq_quantize, awq_then_quantease
-from repro_torch.core.calib import CalibStats
+from repro_torch.core.calib import CalibStats, shard_axis
 from repro_torch.core.gptq import gptq_quantize
 from repro_torch.core.outlier import outlier_quantease, power_lambda_max
 from repro_torch.core.spqr import spqr_quantize
 from repro_torch.core.quantease import relative_error
 from repro_torch.device import require_on_device
+from repro_torch.dist.collectives import all_reduce, axis_rank, axis_size, block_bounds, gather_dim
 from repro_torch.models import model as M
 from repro_torch.models.common import capture_gram_stats, capture_scope
 from repro_torch.quant import (
@@ -63,6 +89,7 @@ from repro_torch.quant import (
     quantize_codes,
     quantize_dequantize,
 )
+from repro_torch.quant.grid import Grid
 
 __all__ = ["LayerSpec", "PTQConfig", "ptq_quantize_model", "QUANTIZABLE"]
 
@@ -116,6 +143,9 @@ class PTQConfig:
     # The tuner's sensitivity signal: each progress record also carries the
     # block's per-layer λ_max(Σ) (power iteration) under "lambda_max".
     collect_sensitivity: bool = False
+    # Shard Σ accumulation over the mesh's data dim and the CD solve over
+    # output rows, when a mesh is passed to ptq_quantize_model.
+    shard: bool = False
 
     def qe_config(self) -> quantease.QuantEaseConfig:
         """The CD-solver config this run resolves to.  As in the reference,
@@ -170,9 +200,11 @@ def _solve_one(w, sigma, cfg: PTQConfig):
                          percdamp=cfg.percdamp, block_size=cfg.block_size)[0]
 
 
-def _solve_group(w3, sig3, cfg: PTQConfig):
+def _solve_group(w3, sig3, cfg: PTQConfig, mesh=None):
     """(G, q, p) × (G, p, p) → (Ŵ (G, q, p), Ĥ (G, q, p) or None, batched
-    grid the solve quantized onto, or None for the per-layer methods)."""
+    grid the solve quantized onto, or None for the per-layer methods).
+    ``mesh``: a data mesh the batched methods (``rtn``, ``gptq``,
+    ``quantease``) split the rows over; the others run whole."""
     if cfg.method in _PER_LAYER:
         return torch.stack([_solve_one(w, s, cfg) for w, s in zip(w3, sig3)]), None, None
     if cfg.method in ("qe_outlier", "qe_outlier_struct"):
@@ -183,18 +215,49 @@ def _solve_group(w3, sig3, cfg: PTQConfig):
         )
         return res.w_hat, res.h, res.grid
     grid3 = compute_grid(w3, cfg.spec)
+    if axis_size(mesh, shard_axis(mesh)) > 1:
+        return _shard_rows(w3, sig3, grid3, cfg, mesh), None, grid3
+    return _solve_batched(w3, sig3, grid3, cfg), None, grid3
+
+
+def _solve_batched(w3, sig3, grid3: Grid, cfg: PTQConfig):
+    """Ŵ of a batched method (``rtn``, ``gptq``, ``quantease``) on ``grid3``."""
     if cfg.method == "rtn":
-        return quantize_dequantize(w3, grid3), None, grid3
+        return quantize_dequantize(w3, grid3)
     w_gptq = None
     if cfg.method == "gptq" or cfg.init_from_gptq:
         w_gptq = gptq_quantize(w3, sig3, cfg.spec, percdamp=cfg.percdamp,
                                block_size=cfg.block_size, grid=grid3)
     if cfg.method == "gptq":
-        return w_gptq, None, grid3
+        return w_gptq
     w_hat, _ = quantease.quantease_quantize(
         w3, sig3, cfg.spec, w_init=w_gptq, grid=grid3, **cfg.qe_config().solve_kwargs()
     )
-    return w_hat, None, grid3
+    return w_hat
+
+
+def _shard_rows(w3, sig3, grid3: Grid, cfg: PTQConfig, mesh):
+    """A batched solve split over the output rows q across the mesh's data
+    dim.  Row i's update never reads row j, so the split is exact; each
+    row's grid goes with it.  q pads to a multiple of the rank count with
+    zero rows on a unit pad scale (quantized in isolation and stripped);
+    each rank solves its contiguous block of rows, and an all-gather hands
+    every rank all of them, in rank order."""
+    axis = shard_axis(mesh)
+    n, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+    q = w3.shape[1]
+    per = -(-q // n)
+    pad = per * n - q
+    if pad:
+        w3 = torch.nn.functional.pad(w3, (0, 0, 0, pad))
+        grid3 = dataclasses.replace(
+            grid3, scale=torch.nn.functional.pad(grid3.scale, (0, 0, 0, pad), value=1.0),
+            zero=torch.nn.functional.pad(grid3.zero, (0, 0, 0, pad)))
+    rows = slice(r * per, (r + 1) * per)
+    mine = dataclasses.replace(grid3, scale=grid3.scale[:, rows].contiguous(),
+                               zero=grid3.zero[:, rows].contiguous())
+    w_hat = _solve_batched(w3[:, rows].contiguous(), sig3, mine, cfg)
+    return gather_dim(w_hat, 1, mesh, axis)[:, :q]
 
 
 def _to_2d(w: torch.Tensor, d_in: int) -> torch.Tensor:
@@ -241,7 +304,7 @@ def _expert_keys(name: str, key: str, n: int) -> list:
 
 
 def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report: dict,
-                    sens: Optional[dict] = None) -> dict:
+                    sens: Optional[dict] = None, mesh=None) -> dict:
     """Quantize every captured linear of one block, grouped by shape and
     effective per-layer config (layers given other bits or another method
     never share a solve).  With ``cfg.collect_sensitivity``, ``sens`` gets
@@ -250,7 +313,7 @@ def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report
     Leaves are visited in sorted order, the order of the reference's
     param pytrees, so groups and report keys come out in the same order.
     An MoE matrix ``(E, d_in, d_out)`` with Σ ``(E, p, p)`` enters its group
-    as E rows."""
+    as E rows.  ``mesh``: the data mesh the batched solves split rows over."""
     groups: dict[tuple, tuple] = {}
     for name in sorted(p_blk):
         key = f"{scope}/{name}"
@@ -270,7 +333,7 @@ def _quantize_block(p_blk: dict, stats: dict, scope: str, cfg: PTQConfig, report
     for eff, group in groups.values():
         w3 = torch.cat([it[2] for it in group])
         sig3 = torch.cat([it[3] for it in group])
-        w_hat3, h3, grid3 = _solve_group(w3, sig3, eff)
+        w_hat3, h3, grid3 = _solve_group(w3, sig3, eff, mesh)
         errs = relative_error(w3, w_hat3 if h3 is None else w_hat3 + h3, sig3).tolist()
         lam = None
         if cfg.collect_sensitivity and sens is not None:
@@ -322,6 +385,7 @@ def ptq_quantize_model(
     cfg: PTQConfig,
     progress_cb: Optional[Callable[[dict], None]] = None,
     *,
+    mesh=None,
     device="cuda",
 ):
     """Quantize the decoder stack, and first the encoder's of an
@@ -341,6 +405,11 @@ def ptq_quantize_model(
     per-period list of blocks with QuantizedTensor leaves (restack them
     with :func:`repro_torch.serve.qparams.quantize_params_for_serving`).
     The params must live on ``device`` (default ``"cuda"``).
+
+    ``mesh`` (a data mesh, with ``cfg.shard``): every rank of it calls this
+    with the same params and calibration batches; Σ accumulation splits the
+    sequences and the batched solves split the rows over it (see the module
+    docstring).  Only rank 0 calls ``progress_cb``.
     """
     if cfg.method not in _METHODS:
         raise ValueError(f"unknown method {cfg.method!r} (have {_METHODS})")
@@ -348,6 +417,11 @@ def ptq_quantize_model(
         raise ValueError(f"unknown emit {cfg.emit!r}")
     dev = require_on_device(params["embed"], device)
     mcfg = plan.cfg
+    mesh = mesh if cfg.shard and axis_size(mesh, shard_axis(mesh)) > 1 else None
+    if mesh is not None:
+        calib_batches = [_rank_block(b, mesh) for b in calib_batches]
+        if axis_rank(mesh, shard_axis(mesh)) != 0:
+            progress_cb = None
     xs = [M.decoder_inputs(plan, params, M.as_tokens(b["tokens"], dev), b) for b in calib_batches]
     report: dict[str, float] = {}
     new_params = dict(params)
@@ -355,20 +429,33 @@ def ptq_quantize_model(
     if mcfg.family == "encdec":
         enc_in = [M.encoder_inputs(plan, params, b, dev) for b in calib_batches]
         new_params["enc"], enc_in = _quantize_stack(plan, params["enc"], enc_in, cfg, report,
-                                                    progress_cb, stack="enc")
+                                                    progress_cb, stack="enc", mesh=mesh)
         enc_outs = [M.apply_norm(params["enc_final_norm"], e, mcfg.norm) for e in enc_in]
         del enc_in
     new_params["dec"], _ = _quantize_stack(plan, params["dec"], xs, cfg, report, progress_cb,
-                                           enc_outs=enc_outs)
+                                           enc_outs=enc_outs, mesh=mesh)
     return new_params, report
 
 
+def _rank_block(batch: dict, mesh) -> dict:
+    """This rank's contiguous block of a calibration batch's sequences."""
+    axis = shard_axis(mesh)
+    n_seq = len(batch["tokens"])
+    lo, hi = block_bounds(n_seq, axis_size(mesh, axis), axis_rank(mesh, axis))
+    if hi <= lo:
+        raise ValueError(f"a calibration batch of {n_seq} sequences leaves rank "
+                         f"{axis_rank(mesh, axis)} of {axis_size(mesh, axis)} none")
+    return {k: v[lo:hi] for k, v in batch.items()}
+
+
 def _quantize_period(plan, p_period: dict, period: int, xs: list, cfg: PTQConfig,
-                     report: dict, progress_cb=None, *, stack: str = "dec", enc_outs=None):
+                     report: dict, progress_cb=None, *, stack: str = "dec", enc_outs=None,
+                     mesh=None):
     """Quantize the blocks of one period of ``stack`` (``"dec"`` or
     ``"enc"``) in order, each on the outputs of the quantized blocks before
-    it (a cross block also on ``enc_outs``, one per batch).  Returns
-    ``(new_period, xs_out)``."""
+    it (a cross block also on ``enc_outs``, one per batch).  Under a data
+    ``mesh`` ``xs`` are this rank's sequences and each Σ is reduced over
+    the mesh after the capture pass.  Returns ``(new_period, xs_out)``."""
     mcfg = plan.cfg
     pattern, n_periods = M.stack_layout(mcfg, stack)
     enc_outs = enc_outs or [None] * len(xs)
@@ -380,9 +467,12 @@ def _quantize_period(plan, p_period: dict, period: int, xs: list, cfg: PTQConfig
         with capture_gram_stats(stats), capture_scope(scope):
             for x, eo in zip(xs, enc_outs):
                 _apply_block(plan, b, p_period[f"b{i}"], x, cfg.stream_chunk, eo)
+        if mesh is not None:
+            for key in sorted(stats):
+                all_reduce(stats[key].sigma, mesh, shard_axis(mesh))
         n_before = len(report)
         sens: dict[str, float] = {}
-        new_blk = _quantize_block(p_period[f"b{i}"], stats, scope, cfg, report, sens)
+        new_blk = _quantize_block(p_period[f"b{i}"], stats, scope, cfg, report, sens, mesh)
         new_period[f"b{i}"] = new_blk
         # Recompute this block's outputs with its quantized weights.
         xs = [_apply_block(plan, b, new_blk, x, cfg.stream_chunk, eo)
@@ -408,7 +498,7 @@ def _quantize_period(plan, p_period: dict, period: int, xs: list, cfg: PTQConfig
 
 
 def _quantize_stack(plan, params_stack, xs, cfg: PTQConfig, report: dict, progress_cb, *,
-                    stack: str = "dec", enc_outs=None):
+                    stack: str = "dec", enc_outs=None, mesh=None):
     """Quantize one stack period by period.  Returns ``(stack, xs_out)``:
     the stacked fake-quantized leaves, or with ``emit="qt"`` the per-period
     list; and the last block's outputs."""
@@ -417,7 +507,7 @@ def _quantize_stack(plan, params_stack, xs, cfg: PTQConfig, report: dict, progre
     for period in range(M.stack_layout(plan.cfg, stack)[1]):
         p_period = M.period_slice(params_stack, period)
         new_period, xs = _quantize_period(plan, p_period, period, xs, cfg, report, progress_cb,
-                                          stack=stack, enc_outs=enc_outs)
+                                          stack=stack, enc_outs=enc_outs, mesh=mesh)
         quantized_periods.append(new_period)
         if cfg.emit == "fake":
             for key, blk in new_period.items():

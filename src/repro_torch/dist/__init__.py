@@ -1,8 +1,6 @@
-"""Checkpoints and the retrying runner of the single-host trainer.
-
-The mesh side of the reference's ``dist/`` (sharding rules, ``elastic_mesh``,
-the row-sharded solve) is not ported yet.
-"""
+"""Distribution: sharding rules over a DeviceMesh, the collectives of the
+data-parallel paths, the int8 FSDP gather, checkpoints, and elastic
+execution (the retrying runner and degraded-capacity meshes)."""
 
 from repro_torch.dist.checkpoint import (
     CheckpointCorrupt,
@@ -13,7 +11,17 @@ from repro_torch.dist.checkpoint import (
     load_last_good,
     save_checkpoint,
 )
-from repro_torch.dist.elastic import RetryingRunner
+from repro_torch.dist.elastic import RetryingRunner, elastic_mesh
+from repro_torch.dist.qgather import make_period_transform
+from repro_torch.dist.sharding import (
+    Rules,
+    TreeShards,
+    axis_rules,
+    current_rules,
+    logical_constraint,
+    make_rules,
+    mesh_axis_size,
+)
 
 __all__ = [
     "CheckpointCorrupt",
@@ -24,4 +32,13 @@ __all__ = [
     "load_last_good",
     "save_checkpoint",
     "RetryingRunner",
+    "elastic_mesh",
+    "make_period_transform",
+    "Rules",
+    "TreeShards",
+    "axis_rules",
+    "current_rules",
+    "logical_constraint",
+    "make_rules",
+    "mesh_axis_size",
 ]

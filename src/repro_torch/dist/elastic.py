@@ -1,5 +1,5 @@
-"""Retry-from-checkpoint loop (the port's copy of
-``repro.dist.elastic.RetryingRunner``; the single-host runner only).
+"""Elastic execution: the retry-from-checkpoint loop and degraded-capacity
+meshes (the port's copy of ``repro.dist.elastic``).
 
 :class:`RetryingRunner` rolls any recoverable exception inside a step back
 to the last checkpoint through ``restore_fn`` and keeps going, up to a
@@ -7,6 +7,9 @@ total retry budget, sleeping a seeded, jittered exponential backoff between
 recoveries.  :class:`repro_torch.faults.PermanentFault`, and any
 caller-supplied types, are re-raised at once.  Determinism comes from the
 caller's exact-step data replay (``data_step`` in the checkpoint meta).
+
+:func:`elastic_mesh` builds the largest ("data", "model") mesh the live
+ranks fill.
 """
 
 from __future__ import annotations
@@ -15,10 +18,12 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.faults import PermanentFault
 
-__all__ = ["RetryingRunner"]
+__all__ = ["RetryingRunner", "elastic_mesh"]
 
 
 class RetryingRunner:
@@ -90,3 +95,25 @@ class RetryingRunner:
                 self.recoveries += 1
                 state, step = self.restore_fn()
         return state, step
+
+
+def elastic_mesh(model_axis: int = 1, devices=None, *, device="cuda"):
+    """Largest ("data", "model") mesh the live ranks support.
+
+    ``devices``: the live ranks (default: every rank of the default process
+    group).  After losing hosts the survivors may no longer fill the
+    original mesh; the data axis shrinks to the largest multiple of
+    ``model_axis`` that fits and the remainder is dropped, so training
+    resumes at degraded capacity.  Every rank of the group must call it; a
+    dropped rank gets the mesh without a coordinate on it.
+    """
+    devs = list(devices if devices is not None else range(dist.get_world_size()))
+    if model_axis <= 0 or len(devs) < model_axis:
+        raise ValueError(
+            f"{len(devs)} device(s) cannot host model_axis={model_axis}"
+        )
+    from torch.distributed.device_mesh import DeviceMesh
+
+    data = len(devs) // model_axis
+    keep = torch.tensor(devs[: data * model_axis]).reshape(data, model_axis)
+    return DeviceMesh(torch.device(device).type, keep, mesh_dim_names=("data", "model"))

@@ -14,7 +14,8 @@ on the CPU.  Each mirrors a function of the JAX reference:
   outlier-aware fused engine, ``repro.kernels.ref.quantease_outlier_iteration_ref``
   (and the Pallas ``_outlier_iter_kernel``), in the transposed layout;
 * :func:`dequant_matmul_ref` — ``repro.kernels.ref.dequant_matmul_ref``;
-* :func:`paged_attention_ref` — ``repro.kernels.ref.paged_attention_ref``.
+* :func:`paged_attention_ref` — ``repro.kernels.ref.paged_attention_ref``;
+* :func:`gram_ref` — ``repro.kernels.ref.gram_ref`` (Σ = XXᵀ).
 
 Every function takes optional leading batch dims.
 """
@@ -30,6 +31,7 @@ __all__ = [
     "quantease_outlier_iteration_ref",
     "dequant_matmul_ref",
     "paged_attention_ref",
+    "gram_ref",
 ]
 
 
@@ -239,3 +241,9 @@ def paged_attention_ref(
         q[:, None], k, v, lengths, window=window, attn_softcap=attn_softcap,
         k_scale=ks, v_scale=vs,
     )[:, 0]
+
+
+def gram_ref(x: torch.Tensor) -> torch.Tensor:
+    """Σ = X Xᵀ, fp32 accumulation (X: (p, n), any float dtype)."""
+    x = x.to(torch.float32)
+    return x @ x.T

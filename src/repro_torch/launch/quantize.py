@@ -15,9 +15,16 @@ methods (the port's ``repro.launch.quantize``).
   transient faults in the calibration fetch are retried
   (``RetryingRunner``), a damaged newest source step falls back to the last
   good one with a warning.
-* ``--shard`` — the reference's mesh over local devices.  With one device
-  the reference itself takes the local path, and so does the port; with
-  more, the port refuses (sharded solves: ROADMAP queue 1 item 8).
+* ``--shard`` — shard Σ accumulation and the CD solve over every rank of
+  a launcher (``torchrun``'s ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``): each
+  rank joins the process group (NCCL on ``cuda:LOCAL_RANK``, gloo for
+  ``--device cpu``) and a data mesh over all of them is passed to
+  ``ptq_quantize_model``.  Rank 0 alone prints, writes the checkpoint,
+  ``progress.jsonl`` and the report.  Without a launcher, or with one
+  rank, the path is the local one, as the reference's on one device::
+
+      torchrun --nproc-per-node 2 -m repro_torch.launch.quantize --arch phi3_mini_3_8b \
+          --reduce --ckpt-dir /tmp/rt_train --device cpu --shard --out-dir /tmp/rt_quant
 
 Writes ``{"params": ...}`` (the dequantized weights, ``emit="fake"``) as a
 checkpoint at the source's step with the reference's ``meta``, one
@@ -68,59 +75,75 @@ def main(argv=None) -> dict:
     add_device_flag(ap)
     args = ap.parse_args(argv)
     dev = device_of(args)
-    with fault_plan_of(args.fault_plan):
-        return _run(args, dev)
+    joined = args.shard and int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if joined:
+        dev = _join_group(dev)
+    try:
+        with fault_plan_of(args.fault_plan):
+            return _run(args, dev, joined)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
-def _shard_devices(dev) -> int:
+def _join_group(dev):
+    """Join the launcher's process group (``env://``): NCCL with this rank
+    on ``cuda:LOCAL_RANK``, gloo on the CPU.  Returns the rank's device."""
     import torch
+    import torch.distributed as dist
 
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://")
+    return dev
 
 
-def _run(args, dev) -> dict:
+def _run(args, dev, joined: bool) -> dict:
     import numpy as np
+    import torch.distributed as dist
 
     from repro_torch.core.solver import PTQConfig, ptq_quantize_model
     from repro_torch.data.pipeline import DataConfig, make_batch_fn
     from repro_torch.dist import checkpoint as ckpt
     from repro_torch.dist.elastic import RetryingRunner
     from repro_torch.launch.common import model_config, train_template
+    from repro_torch.launch.mesh import make_data_mesh
     from repro_torch.models import make_plan
     from repro_torch.quant import GridSpec
 
     cfg = model_config(args.arch, args.reduce)
     plan = make_plan(cfg)
+    mesh = make_data_mesh(device=dev.type) if joined else None
+    lead = not joined or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     progress_path = os.path.join(args.out_dir, "progress.jsonl")
     if args.resume:
         lines = load_progress(progress_path)
         if lines:
             last = lines[-1]
-            print(f"previous run: {last['done_blocks']}/{last['total_blocks']} blocks "
+            say(f"previous run: {last['done_blocks']}/{last['total_blocks']} blocks "
                   f"({last['stack']}.p{last['period']}.b{last['block']}), "
                   f"mean_err={last['mean_rel_error']:.4g} — restarting from scratch")
         else:
-            print("previous run: no complete progress records — cold start")
+            say("previous run: no complete progress records — cold start")
     # Each run owns its progress file, so records never interleave across runs.
-    if os.path.exists(progress_path):
+    if lead and os.path.exists(progress_path):
         os.remove(progress_path)
 
     state, manifest, skipped = ckpt.load_last_good(args.ckpt_dir, train_template(plan, dev))
     for step, reason in skipped:
-        print(f"WARNING: skipped damaged checkpoint step_{step}: {reason.splitlines()[0]}",
-              file=sys.stderr)
+        say(f"WARNING: skipped damaged checkpoint step_{step}: {reason.splitlines()[0]}",
+            file=sys.stderr)
     params = state["params"]
     del state
-    print(f"loaded checkpoint step {manifest['step']}")
-
+    say(f"loaded checkpoint step {manifest['step']}")
     if args.shard:
-        n = _shard_devices(dev)
-        if n > 1:
-            raise SystemExit(
-                f"--shard over {n} devices: the sharded Σ accumulation and CD solve are not "
-                "ported yet (ROADMAP queue 1 item 8); run without --shard or on one device")
-        print(f"--shard: {n} device(s) — single-device fallback")
+        n = dist.get_world_size() if joined else 1
+        say(f"--shard: {n} device(s)" + (" — single-device fallback" if mesh is None else ""))
 
     batch_fn, _ = make_batch_fn(DataConfig(vocab=cfg.vocab, seed=args.data_seed), cfg,
                                 batch=4, seq=args.seq, split="calib")
@@ -130,15 +153,17 @@ def _run(args, dev) -> dict:
     fetcher = RetryingRunner(lambda acc, i: acc + [batch_fn(i)], lambda: ([], 0), max_retries=5)
     calib, _ = fetcher.run([], 0, args.calib_batches)
     if fetcher.recoveries:
-        print(f"calibration fetch recovered from {fetcher.recoveries} transient fault(s)")
+        say(f"calibration fetch recovered from {fetcher.recoveries} transient fault(s)")
     pcfg = PTQConfig(
         method=args.method,
         spec=GridSpec(bits=args.bits, group_size=args.group_size or None),
         iterations=args.iterations,
         outlier_frac=args.outlier_frac,
         stream_chunk=args.stream_calib,
+        shard=args.shard,
     )
-    os.makedirs(args.out_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.out_dir, exist_ok=True)
 
     def progress(rec: dict):
         print(f"[{rec['stack']} p{rec['period']} b{rec['block']} "
@@ -148,12 +173,13 @@ def _run(args, dev) -> dict:
         append_record(progress_path, rec)
 
     qparams, report = ptq_quantize_model(plan, params, calib, pcfg, progress_cb=progress,
-                                         device=dev)
-    ckpt.save_checkpoint(
-        args.out_dir, manifest["step"], {"params": qparams},
-        meta={"method": args.method, "bits": args.bits,
-              "report": {k: float(v) for k, v in report.items()}},
-    )
+                                         mesh=mesh, device=dev)
+    if lead:
+        ckpt.save_checkpoint(
+            args.out_dir, manifest["step"], {"params": qparams},
+            meta={"method": args.method, "bits": args.bits,
+                  "report": {k: float(v) for k, v in report.items()}},
+        )
     errs = np.array(list(report.values()))
     summary = {
         "layers": len(report),
@@ -161,7 +187,7 @@ def _run(args, dev) -> dict:
         "max_rel_error": float(errs.max()),
         "out_dir": args.out_dir,
     }
-    print(json.dumps(summary, indent=1))
+    say(json.dumps(summary, indent=1))
     return dict(summary, report=report)
 
 

@@ -36,6 +36,7 @@ __all__ = [
     "rope",
     "capture_scope",
     "capture_gram_stats",
+    "capture_linear_inputs",
     "apply_linear",
     "HoistedDequant",
     "hoist_dequant",
@@ -135,9 +136,25 @@ def capture_scope(name: str):
 
 
 @contextlib.contextmanager
+def capture_linear_inputs(records: dict):
+    """Collect ``{scope/name: [x2d, ...]}`` for every linear applied within:
+    the raw activations, O(n·p) memory per layer (an MoE dispatch table is
+    kept whole, ``(E, C, d_in)``).  The numerical oracle of the streaming
+    path; the whole-model solver uses :func:`capture_gram_stats`."""
+    prev = getattr(_capture_state, "records", None)
+    _capture_state.records = records
+    try:
+        yield records
+    finally:
+        _capture_state.records = prev
+
+
+@contextlib.contextmanager
 def capture_gram_stats(stats: dict):
     """Accumulate ``{scope/name: CalibStats}`` for every linear applied within:
-    each call folds its activations into that layer's Σ = XXᵀ on the spot."""
+    each call folds its activations into that layer's Σ = XXᵀ on the spot.
+    The folds are local: under a data mesh the solver reduces each Σ over
+    the mesh once, after the block's capture."""
     prev = getattr(_capture_state, "stats", None)
     _capture_state.stats = stats
     try:
@@ -147,16 +164,24 @@ def capture_gram_stats(stats: dict):
 
 
 def _record_linear(name, x, expert_stacked: bool = False):
-    """Fold ``x`` into the Σ of linear ``name`` under the capture context;
-    ``expert_stacked``: x is an MoE dispatch table ``(E, C, d_in)`` and each
-    expert gets its own Σ ``(E, p, p)``."""
+    """Fold ``x`` into the Σ of linear ``name`` under the capture context
+    (and keep it under :func:`capture_linear_inputs`); ``expert_stacked``:
+    x is an MoE dispatch table ``(E, C, d_in)`` and each expert gets its own
+    Σ ``(E, p, p)``."""
+    if name is None:
+        return
+    records = getattr(_capture_state, "records", None)
     stats = getattr(_capture_state, "stats", None)
-    if name is None or stats is None:
+    if records is None and stats is None:
+        return
+    scope = getattr(_capture_state, "scope", None)
+    key = f"{scope}/{name}" if scope else name
+    if records is not None:
+        records.setdefault(key, []).append(x if expert_stacked else x.reshape(-1, x.shape[-1]))
+    if stats is None:
         return
     from repro_torch.core.calib import CalibStats
 
-    scope = getattr(_capture_state, "scope", None)
-    key = f"{scope}/{name}" if scope else name
     if key not in stats:
         stats[key] = CalibStats.zeros(x.shape[-1], experts=x.shape[0] if expert_stacked else 0,
                                       device=x.device)

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -77,6 +77,8 @@ __all__ = [
     "model_defs",
     "init_params",
     "empty_params",
+    "param_shapes",
+    "param_axes",
     "train_loss",
     "encoder_inputs",
     "encoder",
@@ -108,6 +110,9 @@ class ModelPlan:
     # codes per byte (quant.kv_pack_int4, fold-in-half) and the contiguous
     # cache refuses it.
     kv_cache_dtype: str = "bf16"
+    # Optional per-period param transform (the int8-quantized FSDP gather,
+    # dist/qgather.py), applied to each period's params in train mode.
+    param_transform: Optional[Callable] = dataclasses.field(default=None, compare=False)
 
     @property
     def dtype(self):
@@ -140,13 +145,13 @@ def check_token_only(cfg: ModelConfig, what: str) -> None:
                          f"family, whose inputs carry {extra}")
 
 
-def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16") -> ModelPlan:
+def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16", param_transform=None) -> ModelPlan:
     _check_supported(cfg)
     if kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}; expected one of {KV_CACHE_DTYPES}")
     return ModelPlan(
         cfg=cfg, heads=make_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.hd), vocab_pad=cfg.vocab,
-        kv_cache_dtype=kv_cache_dtype,
+        kv_cache_dtype=kv_cache_dtype, param_transform=param_transform,
     )
 
 
@@ -158,6 +163,7 @@ def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16") -> ModelPlan:
 @dataclasses.dataclass(frozen=True)
 class _P:
     shape: tuple
+    axes: tuple  # the reference's logical axes, one per dimension
     init: str = "normal"  # normal | zeros | ones | small_normal | conv | dt | alog
 
     @property
@@ -168,8 +174,8 @@ class _P:
 
 def _norm_def(cfg, d) -> dict:
     if cfg.norm == "layernorm":
-        return {"scale": _P((d,), "ones"), "bias": _P((d,), "zeros")}
-    return {"scale": _P((d,), "zeros")}  # (1 + scale) convention
+        return {"scale": _P((d,), (None,), "ones"), "bias": _P((d,), (None,), "zeros")}
+    return {"scale": _P((d,), (None,), "zeros")}  # (1 + scale) convention
 
 
 def _attn_defs(cfg: ModelConfig, hp: HeadPlan, suffix: str = "") -> dict:
@@ -177,17 +183,17 @@ def _attn_defs(cfg: ModelConfig, hp: HeadPlan, suffix: str = "") -> dict:
     cross-attention, which has no q/k/v bias and no post-norm."""
     d, hd = cfg.d_model, cfg.hd
     defs = {
-        f"wq{suffix}": _P((d, hp.kv_pad, hp.g_pad, hd)),
-        f"wk{suffix}": _P((d, hp.n_kv, hd)),
-        f"wv{suffix}": _P((d, hp.n_kv, hd)),
-        f"wo{suffix}": _P((hp.kv_pad, hp.g_pad, hd, d)),
+        f"wq{suffix}": _P((d, hp.kv_pad, hp.g_pad, hd), ("embed", "heads", None, None)),
+        f"wk{suffix}": _P((d, hp.n_kv, hd), ("embed", "kv_heads", "head_dim")),
+        f"wv{suffix}": _P((d, hp.n_kv, hd), ("embed", "kv_heads", "head_dim")),
+        f"wo{suffix}": _P((hp.kv_pad, hp.g_pad, hd, d), ("heads", None, None, "embed")),
     }
     if suffix:
         return defs
     if cfg.qkv_bias:
-        defs["bq"] = _P((hp.kv_pad, hp.g_pad, hd), "zeros")
-        defs["bk"] = _P((hp.n_kv, hd), "zeros")
-        defs["bv"] = _P((hp.n_kv, hd), "zeros")
+        defs["bq"] = _P((hp.kv_pad, hp.g_pad, hd), ("heads", None, None), "zeros")
+        defs["bk"] = _P((hp.n_kv, hd), ("kv_heads", "head_dim"), "zeros")
+        defs["bv"] = _P((hp.n_kv, hd), ("kv_heads", "head_dim"), "zeros")
     if cfg.post_norms:
         defs["post_ln"] = _norm_def(cfg, d)
     return defs
@@ -199,19 +205,19 @@ def _mamba_defs(cfg: ModelConfig) -> dict:
     gn2 = 2 * cfg.ssm_ngroups * cfg.ssm_state
     k = cfg.ssm_conv
     return {
-        "wz": _P((d, nh, hd)),
-        "wx": _P((d, nh, hd)),
-        "wbc": _P((d, gn2)),
-        "wdt": _P((d, nh), "small_normal"),
-        "conv_x_w": _P((nh, hd, k), "conv"),
-        "conv_x_b": _P((nh, hd), "zeros"),
-        "conv_bc_w": _P((gn2, k), "conv"),
-        "conv_bc_b": _P((gn2,), "zeros"),
-        "a_log": _P((nh,), "alog"),
-        "d_skip": _P((nh,), "ones"),
-        "dt_bias": _P((nh,), "dt"),
-        "norm_scale": _P((nh, hd), "zeros"),
-        "out_proj": _P((nh, hd, d), "small_normal"),
+        "wz": _P((d, nh, hd), ("embed", "ssm_heads", None)),
+        "wx": _P((d, nh, hd), ("embed", "ssm_heads", None)),
+        "wbc": _P((d, gn2), ("embed", None)),
+        "wdt": _P((d, nh), ("embed", "ssm_heads"), "small_normal"),
+        "conv_x_w": _P((nh, hd, k), ("ssm_heads", None, None), "conv"),
+        "conv_x_b": _P((nh, hd), ("ssm_heads", None), "zeros"),
+        "conv_bc_w": _P((gn2, k), (None, None), "conv"),
+        "conv_bc_b": _P((gn2,), (None,), "zeros"),
+        "a_log": _P((nh,), (None,), "alog"),
+        "d_skip": _P((nh,), (None,), "ones"),
+        "dt_bias": _P((nh,), (None,), "dt"),
+        "norm_scale": _P((nh, hd), ("ssm_heads", None), "zeros"),
+        "out_proj": _P((nh, hd, d), ("ssm_heads", None, "embed"), "small_normal"),
     }
 
 
@@ -232,18 +238,20 @@ def _block_defs(cfg: ModelConfig, hp: HeadPlan, b: BlockDef) -> dict:
 
 def _mlp_defs(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    defs = {"wg": _P((d, f)), "wd": _P((f, d), "small_normal")}
+    defs = {"wg": _P((d, f), ("embed", "ffn")),
+            "wd": _P((f, d), ("ffn", "embed"), "small_normal")}
     if cfg.gated_mlp:
-        defs["wu"] = _P((d, f))
+        defs["wu"] = _P((d, f), ("embed", "ffn"))
     return defs
 
 
 def _moe_defs(cfg: ModelConfig) -> dict:
     d, f, e = cfg.d_model, cfg.moe_ff, cfg.n_experts
-    defs = {"router": _P((d, e)), "w_gate": _P((e, d, f)),
-            "w_down": _P((e, f, d), "small_normal")}
+    defs = {"router": _P((d, e), (None, None)),
+            "w_gate": _P((e, d, f), ("experts", "embed", "expert_ffn")),
+            "w_down": _P((e, f, d), ("experts", "expert_ffn", "embed"), "small_normal")}
     if cfg.gated_mlp:
-        defs["w_up"] = _P((e, d, f))
+        defs["w_up"] = _P((e, d, f), ("experts", "embed", "expert_ffn"))
     return defs
 
 
@@ -261,7 +269,7 @@ def tree_map(fn, tree, is_leaf=None):
 
 def _stack_defs(cfg: ModelConfig, hp: HeadPlan, stack: str) -> dict:
     pattern, n_periods = stack_layout(cfg, stack)
-    return {f"b{i}": tree_map(lambda pd: _P((n_periods, *pd.shape), pd.init),
+    return {f"b{i}": tree_map(lambda pd: _P((n_periods, *pd.shape), ("layers", *pd.axes), pd.init),
                               _block_defs(cfg, hp, b), is_leaf=lambda x: isinstance(x, _P))
             for i, b in enumerate(pattern)}
 
@@ -269,19 +277,31 @@ def _stack_defs(cfg: ModelConfig, hp: HeadPlan, stack: str) -> dict:
 def model_defs(plan: ModelPlan) -> dict:
     cfg, hp = plan.cfg, plan.heads
     d = cfg.d_model
-    defs = {"embed": _P((plan.vocab_pad, d)), "final_norm": _norm_def(cfg, d),
+    defs = {"embed": _P((plan.vocab_pad, d), ("vocab", "embed")), "final_norm": _norm_def(cfg, d),
             "dec": _stack_defs(cfg, hp, "dec")}
     if not cfg.tie_embeddings:
-        defs["lm_head"] = _P((d, plan.vocab_pad))
+        defs["lm_head"] = _P((d, plan.vocab_pad), ("embed", "vocab"))
     if cfg.pos == "learned":
-        defs["pos_emb"] = _P((cfg.max_seq, d), "small_normal")
+        defs["pos_emb"] = _P((cfg.max_seq, d), (None, "embed"), "small_normal")
     if cfg.family == "encdec":
         defs["enc"] = _stack_defs(cfg, hp, "enc")
-        defs["enc_pos_emb"] = _P((cfg.n_frames, d), "small_normal")
+        defs["enc_pos_emb"] = _P((cfg.n_frames, d), (None, "embed"), "small_normal")
         defs["enc_final_norm"] = _norm_def(cfg, d)
     if cfg.n_prefix:
         defs["prefix_ln"] = _norm_def(cfg, d)
     return defs
+
+
+def param_shapes(plan: ModelPlan) -> dict:
+    """The params' shapes and dtypes, as tensors on the meta device (the
+    reference's ``ShapeDtypeStruct`` tree)."""
+    return empty_params(plan, device="meta")
+
+
+def param_axes(plan: ModelPlan) -> dict:
+    """The logical axes of every param leaf (the reference's tree): tuples
+    read by :func:`repro_torch.dist.sharding.Rules.spec`."""
+    return tree_map(lambda pd: pd.axes, model_defs(plan), is_leaf=lambda x: isinstance(x, _P))
 
 
 def empty_params(plan: ModelPlan, *, device="cuda") -> dict:
@@ -585,6 +605,8 @@ def _run_stack(plan: ModelPlan, stack_params: dict, stack: str, x, *, mode: str,
     pattern, n_periods = stack_layout(cfg, stack)
     for period in range(n_periods):
         p_period = period_slice(stack_params, period)
+        if plan.param_transform is not None and mode == "train":
+            p_period = plan.param_transform(p_period)
         for i, b in enumerate(pattern):
             cache = None if caches is None else {k: t[period] for k, t in caches[f"b{i}"].items()}
             x = _block_apply(cfg, hp, b, p_period[f"b{i}"], x, mode=mode, pos_ids=pos_ids,

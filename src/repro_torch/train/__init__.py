@@ -6,6 +6,7 @@ from repro_torch.train.optimizer import (
     adamw_update,
     global_norm,
     lr_schedule,
+    moment_axes,
 )
 from repro_torch.train.train_step import loss_and_grads, make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -16,6 +17,7 @@ __all__ = [
     "adamw_update",
     "global_norm",
     "lr_schedule",
+    "moment_axes",
     "loss_and_grads",
     "make_train_step",
     "Trainer",

@@ -11,6 +11,14 @@ The whole state is ``{"mu": <tree of leaf states>, "count": int32 scalar}``,
 the reference's structure, so :mod:`repro_torch.dist.checkpoint` writes it
 leaf for leaf as the reference does.  The update runs in fp32 and casts the
 new params back to their dtype, as the reference does.
+
+Data-parallel / FSDP: ``shards`` (a :class:`repro_torch.dist.sharding.TreeShards`
+of the params) says which leaves each rank holds a block of.  The update is
+elementwise, so a rank updates its block; the two reductions over whole
+leaves are made global: the gradient norm (the sharded leaves' squared sums
+all-reduced) and an 8-bit moment's row grid where the rows' last axis is
+the sharded one (its row minimum and maximum all-reduced).  With one rank
+the result is the local update's, bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch.dist.collectives import all_reduce
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 __all__ = [
@@ -28,6 +37,7 @@ __all__ = [
     "adamw_update",
     "lr_schedule",
     "global_norm",
+    "moment_axes",
 ]
 
 
@@ -48,21 +58,24 @@ class AdamWConfig:
 _V_FLOOR = 1e-16
 
 
-def _q8_encode(x: torch.Tensor, signed: bool) -> dict:
+def _q8_encode(x: torch.Tensor, signed: bool, row_reduce=None) -> dict:
     """Row-wise (last-axis) 8-bit encoding of an fp32 moment.
 
     m (signed): linear, symmetric around 0 (zero point 128).
     v (unsigned): affine in the log domain, which keeps ~1 % relative
     precision across a heavy-tailed row and never decodes to zero (a linear
     grid would round small entries to 0 and blow up m/(√v+ε)).
+    ``row_reduce(t, op)`` ("max" or "min"), where the rows are split over
+    ranks, makes each row statistic the whole row's.
     """
+    red = row_reduce or (lambda t, op: t)
     if signed:
-        scale = torch.clamp_min(x.abs().amax(-1, keepdim=True) / 127.0, 1e-20)
+        scale = torch.clamp_min(red(x.abs().amax(-1, keepdim=True), "max") / 127.0, 1e-20)
         q = torch.clamp(torch.round(x / scale) + 128, 0, 255).to(torch.uint8)
         return {"q": q, "scale": scale, "zero": torch.full_like(scale, 128.0)}
     lx = torch.log(x + _V_FLOOR)
-    lo = lx.amin(-1, keepdim=True)
-    hi = lx.amax(-1, keepdim=True)
+    lo = red(lx.amin(-1, keepdim=True), "min")
+    hi = red(lx.amax(-1, keepdim=True), "max")
     scale = torch.clamp_min((hi - lo) / 255.0, 1e-12)
     q = torch.clamp(torch.round((lx - lo) / scale), 0, 255).to(torch.uint8)
     return {"q": q, "scale": scale, "zero": -lo / scale}
@@ -106,24 +119,40 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree) -> torch.Tensor:
-    """√(Σ g²) over every leaf, in fp32, summed in the reference's leaf order."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)))
+def global_norm(tree, shards=None) -> torch.Tensor:
+    """√(Σ g²) over every leaf, in fp32, summed in the reference's leaf order;
+    with ``shards``, a sharded leaf's squared sum is taken over all ranks."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)]
+    split = [i for i, d in enumerate(shards.dims) if d is not None] if shards else []
+    if split:
+        part = all_reduce(torch.stack([sq[i] for i in split]), shards.mesh, shards.axis)
+        for j, i in enumerate(split):
+            sq[i] = part[j]
+    return torch.sqrt(sum(sq))
+
+
+def _row_reduce(shards, i: int, ndim: int):
+    """The row-statistic reduction of leaf ``i``: over the ranks where its
+    last axis is the sharded one, else None."""
+    if shards is None or shards.dims[i] != ndim - 1:
+        return None
+    return lambda t, op: all_reduce(t, shards.mesh, shards.axis, op)
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, shards=None):
     """One AdamW step.  Returns ``(new_params, new_state, {"grad_norm", "lr"})``;
-    the inputs are not modified."""
+    the inputs are not modified.  ``shards``: the params' layout over a data
+    mesh (each rank passes its blocks; see the module docstring)."""
     count = state["count"] + 1
     lr = lr_schedule(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shards)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-12), 1.0)
     c = count.to(torch.float32)
     bc1 = 1 - torch.pow(cfg.b1, c)
     bc2 = 1 - torch.pow(cfg.b2, c)
 
-    def leaf(p, g, s):
+    def leaf(i, p, g, s):
         g = g.to(torch.float32) * clip
         m = cfg.b1 * _decode(s["m"], True) + (1 - cfg.b1) * g
         v = torch.clamp_min(cfg.b2 * _decode(s["v"], False) + (1 - cfg.b2) * g * g, 0.0)
@@ -132,7 +161,8 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
         p32 = p.to(torch.float32)
         new_p = p32 - lr * (upd + decay * p32)
         if cfg.moments == "int8" and _use_int8(p):
-            new_s = {"m": _q8_encode(m, True), "v": _q8_encode(v, False)}
+            red = _row_reduce(shards, i, p.dim())
+            new_s = {"m": _q8_encode(m, True, red), "v": _q8_encode(v, False, red)}
         else:
             new_s = {"m": m, "v": v}
         return new_p.to(p.dtype), new_s
@@ -141,8 +171,28 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     flat_p, treedef = tree_flatten(params)
     flat_g = tree_leaves(grads)
     flat_s = tree_flatten(state["mu"], is_leaf=is_state)[0]
-    out = [leaf(p, g, s) for p, g, s in zip(flat_p, flat_g, flat_s, strict=True)]
+    out = [leaf(i, p, g, s)
+           for i, (p, g, s) in enumerate(zip(flat_p, flat_g, flat_s, strict=True))]
     new_params = tree_unflatten(treedef, [o[0] for o in out])
     new_mu = tree_unflatten(treedef, [o[1] for o in out])
     return new_params, {"mu": new_mu, "count": count}, {"grad_norm": gnorm, "lr": lr}
 
+
+
+def moment_axes(params_shapes, param_axes_tree, cfg: AdamWConfig) -> dict:
+    """The logical-axes tree of :func:`adamw_init`'s state (the reference's):
+    a moment's axes are its param's; an 8-bit moment's ``q`` has them, its
+    ``scale`` and ``zero`` drop the last (one per row); ``count`` has none.
+    ``params_shapes``: tensors (meta ones will do) giving each leaf's rank."""
+    flat_s, treedef = tree_flatten(params_shapes)
+    flat_ax = tree_flatten(param_axes_tree, is_leaf=lambda x: isinstance(x, tuple))[0]
+
+    def leaf(t, ax):
+        ax = tuple(ax)
+        if cfg.moments == "int8" and t.dim() >= 2:
+            enc = {"q": ax, "scale": (*ax[:-1], None), "zero": (*ax[:-1], None)}
+            return {"m": enc, "v": enc}
+        return {"m": ax, "v": ax}
+
+    return {"mu": tree_unflatten(treedef, [leaf(t, a) for t, a in zip(flat_s, flat_ax)]),
+            "count": ()}

@@ -1,12 +1,24 @@
 """Trainer: the train loop with atomic checkpoints and crash recovery (the
-port's copy of ``repro.train.trainer``, single device).
+port's copy of ``repro.train.trainer``).
 
-Wires together the synthetic data pipeline, :func:`make_train_step`,
-checkpoints (:mod:`repro_torch.dist.checkpoint`) and
+Wires together the sharding rules (:mod:`repro_torch.dist.sharding`), the
+synthetic data pipeline, :func:`make_train_step`, checkpoints
+(:mod:`repro_torch.dist.checkpoint`) and
 :class:`~repro_torch.dist.elastic.RetryingRunner`.  A run resumes from the
 newest checkpoint in ``ckpt_dir``; the data step is saved with it, so a
-resumed run replays exactly the batches an uninterrupted one would.  The
-mesh and FSDP options of the reference raise ``NotImplementedError``.
+resumed run replays exactly the batches an uninterrupted one would.
+
+``mesh``: a DeviceMesh with a "data" dim over the ranks (one rank a
+device; every rank builds the same Trainer).  Params and moments are laid
+out by ``make_rules(mesh, fsdp=fsdp)`` and ``moment_axes``: with ``fsdp``
+each leaf with an "embed" dimension is split over "data" on it (where
+``d_model`` divides), everything else is whole on every rank.  Each rank
+takes its contiguous block of every seeded global batch (the reference's
+``_put_batch``) and the step averages over the ranks
+(:mod:`repro_torch.train.train_step`).  ``save`` writes whole tensors from
+rank 0 in the reference's format, so either package's loader reads them;
+``restore`` loads on every rank and re-shards.  A "model" axis larger than
+1 (tensor parallelism) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,14 +27,19 @@ import dataclasses
 import os
 import tempfile
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, make_batch_fn
 from repro_torch.device import require_on_device, resolve_device
 from repro_torch.dist import checkpoint as ckpt
+from repro_torch.dist.collectives import axis_rank, axis_size, gather_dim, shard_dim
 from repro_torch.dist.elastic import RetryingRunner
-from repro_torch.models.model import init_params, make_plan
-from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.dist.sharding import TP_ROADMAP, axis_sizes, make_rules
+from repro_torch.models.model import init_params, make_plan, param_axes, param_shapes
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, moment_axes
 from repro_torch.train.train_step import make_train_step
+from repro_torch.tree import tree_flatten, tree_unflatten
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -41,8 +58,8 @@ class TrainerConfig:
 
 
 class Trainer:
-    """``params=`` starts from given weights (on ``device``) instead of the
-    seeded init; ``device`` defaults to ``"cuda"``."""
+    """``params=`` starts from given (whole) weights on ``device`` instead of
+    the seeded init; ``device`` (this rank's) defaults to ``"cuda"``."""
 
     def __init__(
         self,
@@ -55,16 +72,29 @@ class Trainer:
         params=None,
         device="cuda",
     ):
-        if mesh is not None or fsdp:
-            raise NotImplementedError(
-                "mesh=/fsdp=True: sharded training (the reference's dist/ sharding "
-                "rules) is not ported yet; the port trains on one device"
-            )
+        model_n = axis_sizes(mesh).get("model", 1)
+        if model_n > 1:
+            raise NotImplementedError(f"Trainer(mesh=) with a \"model\" axis of {model_n}: "
+                                      f"{TP_ROADMAP}")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
+        self.mesh = mesh
         self.plan = make_plan(model_cfg)
+        self.n_data = axis_size(mesh)
+        if tcfg.batch % self.n_data:
+            raise ValueError(f"batch {tcfg.batch} does not split over {self.n_data} data ranks")
+        self.shards = self.opt_shards = None
+        if mesh is not None:
+            rules = make_rules(
+                mesh, n_heads=self.plan.heads.h_pad, n_kv_heads=self.plan.heads.n_kv,
+                d_ff=model_cfg.d_ff, n_experts=model_cfg.n_experts, vocab=self.plan.vocab_pad,
+                d_model=model_cfg.d_model, fsdp=fsdp,
+            )
+            axes = param_axes(self.plan)
+            self.shards = rules.tree_shards(axes)
+            self.opt_shards = rules.tree_shards(moment_axes(param_shapes(self.plan), axes, opt_cfg))
         self.batch_fn, self.corpus = make_batch_fn(
             DataConfig(vocab=model_cfg.vocab, seed=tcfg.seed), model_cfg, tcfg.batch, tcfg.seq
         )
@@ -72,20 +102,55 @@ class Trainer:
             params = init_params(self.plan, tcfg.seed, device=self.device)
         else:
             require_on_device(params["embed"], self.device)
-        self.params = params
-        self.opt_state = adamw_init(params, opt_cfg)
-        self.train_step = make_train_step(self.plan, opt_cfg, tcfg.n_microbatches)
+        self.params = self._shard(params, self.shards)
+        self.opt_state = adamw_init(self.params, opt_cfg)
+        self.train_step = make_train_step(self.plan, opt_cfg, tcfg.n_microbatches,
+                                          grad_shardings=self.shards)
         self.data_step = 0
         self.metrics_log: list[dict] = []
 
+    def _shard(self, tree, shards):
+        """This rank's blocks of a whole tree laid out by ``shards``."""
+        if shards is None:
+            return tree
+        flat, treedef = tree_flatten(tree)
+        return tree_unflatten(treedef, [t if d is None else shard_dim(t, d, self.mesh)
+                                        for t, d in zip(flat, shards.dims, strict=True)])
+
+    def _whole(self, tree, shards):
+        """The whole tensors of a tree laid out by ``shards`` (a gather;
+        every rank must call it)."""
+        if shards is None:
+            return tree
+        flat, treedef = tree_flatten(tree)
+        return tree_unflatten(treedef, [t if d is None else gather_dim(t, d, self.mesh)
+                                        for t, d in zip(flat, shards.dims, strict=True)])
+
+    def _put_batch(self, batch: dict) -> dict:
+        """This rank's contiguous block of a global batch."""
+        if self.mesh is None:
+            return batch
+        per = self.tcfg.batch // self.n_data
+        lo = axis_rank(self.mesh) * per
+        return {k: v[lo:lo + per] for k, v in batch.items()}
+
     def save(self, step: int):
-        state = {"params": self.params, "opt": self.opt_state}
-        ckpt.save_checkpoint(self.tcfg.ckpt_dir, step, state, meta={"data_step": self.data_step})
+        """Write the whole state from data rank 0 (every rank of the mesh
+        must call it)."""
+        state = {"params": self._whole(self.params, self.shards),
+                 "opt": self._whole(self.opt_state, self.opt_shards)}
+        if axis_rank(self.mesh) == 0:
+            ckpt.save_checkpoint(self.tcfg.ckpt_dir, step, state,
+                                 meta={"data_step": self.data_step})
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.get_group("data"))
 
     def restore(self) -> int:
-        like = {"params": self.params, "opt": self.opt_state}
+        like = {"params": self._whole(self.params, self.shards),
+                "opt": self._whole(self.opt_state, self.opt_shards)}
         state, manifest = ckpt.load_checkpoint(self.tcfg.ckpt_dir, like)
-        self.params, self.opt_state = state["params"], state["opt"]
+        self.params = self._shard(state["params"], self.shards)
+        self.opt_state = self._shard(state["opt"], self.opt_shards)
         self.data_step = manifest["meta"]["data_step"]
         return manifest["step"]
 
@@ -98,7 +163,8 @@ class Trainer:
 
         def do_step(state, step):
             params, opt_state = state
-            params, opt_state, metrics = self.train_step(params, opt_state, self.batch_fn(step))
+            params, opt_state, metrics = self.train_step(params, opt_state,
+                                                         self._put_batch(self.batch_fn(step)))
             self.params, self.opt_state = params, opt_state
             self.data_step = step + 1
             if step % tcfg.log_every == 0 or step == tcfg.steps - 1:

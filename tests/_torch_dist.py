@@ -1,0 +1,318 @@
+"""Spawned gloo ranks for the port's data-parallel tests.
+
+:func:`start_group` starts ``world`` processes with the ``spawn`` method,
+joins them in one gloo process group through a ``file://`` store under the
+caller's temporary directory and runs ``fn(rank, world, *args)`` on each
+(one torch thread a rank); its :meth:`Group.result` returns the ranks'
+results in rank order.  A rank that raises fails the call with its
+traceback.  ``fn`` must be importable by its module path: the rank
+functions live here, and import only torch and the port, so a spawned rank
+loads no JAX.
+
+:func:`run_launched` runs ``fn(rank, world, *args)`` the way ``torchrun``
+would, with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and a ``MASTER_PORT``
+on localhost in each rank's environment and no process group joined.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import pickle
+import socket
+import traceback
+
+import torch
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 240
+
+
+@dataclasses.dataclass(frozen=True)
+class _Pickled:
+    """Arguments passed through a file: a spawned child reads the pickled
+    process object before it runs, and its parent's ``start`` blocks on a
+    pipe until then, so large arguments would start the ranks one by one."""
+
+    path: str
+
+    def load(self):
+        with open(self.path, "rb") as f:
+            return pickle.load(f)
+
+
+def _entry(rank, world, store, env, fn, args, queue):
+    torch.set_num_threads(1)
+    try:
+        if isinstance(args, _Pickled):
+            args = args.load()
+        os.environ.update(env(rank) if env else {})
+        if store:
+            import torch.distributed as dist
+
+            dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                    world_size=world)
+        try:
+            out = fn(rank, world, *args)
+        finally:
+            if store:
+                dist.destroy_process_group()
+        queue.put((rank, True, out))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+        raise
+
+
+class Group:
+    """Ranks started by :func:`start_group`; :meth:`result` waits for them."""
+
+    def __init__(self, world, store, env, fn, args):
+        ctx = mp.get_context("spawn")
+        self.queue = ctx.Queue()
+        self.procs = [ctx.Process(target=_entry, args=(r, world, store, env, fn, args, self.queue))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def result(self) -> list:
+        """The ranks' results in rank order; a rank that raised fails the
+        call with its traceback."""
+        try:
+            got, failed = {}, []
+            for _ in self.procs:
+                rank, ok, out = self.queue.get(timeout=TIMEOUT_S)
+                (got.__setitem__(rank, out) if ok else failed.append(f"rank {rank} failed:\n{out}"))
+            if failed:
+                raise AssertionError("\n".join(failed))
+        finally:
+            for p in self.procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        assert all(not p.is_alive() for p in self.procs)
+        return [got[r] for r in range(len(self.procs))]
+
+
+def start_group(fn, world: int, tmp_dir, *args) -> Group:
+    """Starts the ranks and returns without waiting, so the caller can work
+    (or start another group) while they run."""
+    store = os.path.join(str(tmp_dir), f"store_{fn.__name__}_{world}")
+    with open(f"{store}.args", "wb") as f:
+        pickle.dump(args, f)
+    return Group(world, store, None, fn, _Pickled(f"{store}.args"))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class _LaunchEnv:
+    world: int
+    port: int
+
+    def __call__(self, rank):
+        return {"RANK": str(rank), "WORLD_SIZE": str(self.world), "LOCAL_RANK": str(rank),
+                "MASTER_ADDR": "localhost", "MASTER_PORT": str(self.port)}
+
+
+def run_launched(fn, world: int, *args):
+    return Group(world, None, _LaunchEnv(world, _free_port()), fn, args).result()
+
+
+@contextlib.contextmanager
+def fp32_port_configs():
+    """The port's ``get_config`` gives the fp32 variant of each arch."""
+    import repro_torch.configs as tconfigs
+
+    get = tconfigs.get_config
+    tconfigs.get_config = lambda n: dataclasses.replace(get(n), dtype=torch.float32)
+    try:
+        yield
+    finally:
+        tconfigs.get_config = get
+
+
+# ---------------------------------------------------------------------------
+# Rank functions of tests/test_torch_dist_ptq.py
+# ---------------------------------------------------------------------------
+
+
+def _t(a):
+    return torch.from_numpy(a)
+
+
+def tree_bits(tree) -> bytes:
+    """Every tensor of a tree's bytes, in flatten order (a rank's fingerprint)."""
+    from repro_torch.tree import tree_leaves
+
+    return b"".join(t.detach().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+                    for t in tree_leaves(tree))
+
+
+def ptq_rank(rank, world, case):
+    """One rank of the sharded Σ, the row-sharded solves, qe_outlier under
+    the mesh, qgather (two ranks), whole-model PTQ (two ranks) and a
+    one-rank mesh (rank 0 of two ranks)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import interop
+    from repro_torch.core import solver
+    from repro_torch.core.calib import CalibStats, sharded_gram
+    from repro_torch.dist.collectives import block_bounds
+    from repro_torch.dist.qgather import int8_rows, make_period_transform
+    from repro_torch.dist.sharding import make_rules
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.models import model as M
+    from repro_torch.quant import GridSpec
+
+    mesh = make_data_mesh(device="cpu")
+    assert mesh is not None and tuple(mesh.shape) == (world,)
+    out = {}
+    x = case["gram_x"]
+    lo, hi = block_bounds(len(x), world, rank)
+    out["gram"] = sharded_gram(_t(x[lo:hi]), mesh).numpy()
+    xs = case["tokens_x"]  # (B, S, p): whole sequences per rank
+    lo, hi = block_bounds(len(xs), world, rank)
+    st = CalibStats.zeros(xs.shape[-1], device="cpu").update_tokens(_t(xs[lo:hi]), mesh=mesh)
+    out["update_tokens"] = st.sigma.numpy()
+
+    w3, s3 = _t(case["w3"]), _t(case["s3"])
+    for method in ("quantease", "gptq", "rtn"):
+        cfg = solver.PTQConfig(method=method, spec=GridSpec(bits=case["bits"]),
+                               iterations=case["iterations"], shard=True)
+        out[method] = solver._solve_group(w3, s3, cfg, mesh)[0].numpy()
+    cfg = solver.PTQConfig(method="qe_outlier", spec=GridSpec(bits=case["bits"]),
+                           iterations=case["iterations"], outlier_frac=0.05, shard=True)
+    (wm, hm, _), (wl, hl, _) = (solver._solve_group(w3, s3, cfg, m) for m in (mesh, None))
+    out["qe_outlier_bitwise"] = tree_bits([wm, hm]) == tree_bits([wl, hl])
+
+    if world == 2:
+        rules = make_rules(mesh, d_model=case["qg_d"], fsdp=True)
+        axes = case["qg_axes"]
+        leaves = {k: _t(v) for k, v in case["qg_leaves"].items()}
+        if "qg_bf16" in case:
+            leaves["bf16"] = _t(case["qg_bf16"]).to(torch.bfloat16)
+        mine = {k: v if rules.shard_dim(axes[k]) is None
+                else v.chunk(world, rules.shard_dim(axes[k]))[rank] for k, v in leaves.items()}
+        got = make_period_transform(axes, rules, make_rules(mesh))(mine)
+        out["qgather"] = {k: v.to(torch.float32).numpy() for k, v in got.items()}
+        out["qgather_dtypes"] = {k: str(v.dtype) for k, v in got.items()}
+        codes = {}
+        for k, v in mine.items():
+            if v.dim() >= 2:
+                dim = rules.shard_dim(axes[k])
+                c, s = int8_rows(v, mesh, dim)
+                codes[k] = (c.numpy(), s.numpy(), dim)
+        out["qgather_codes"] = codes
+
+        plan = M.make_plan(case["cfg"])
+        params = interop.params_from_jax(case["params"], device="cpu")
+        pcfg = solver.PTQConfig(method="quantease", spec=GridSpec(bits=4),
+                                iterations=case["iterations"], shard=True)
+        records = []
+        new, report = solver.ptq_quantize_model(plan, params, case["calib"], pcfg,
+                                                progress_cb=records.append, mesh=mesh,
+                                                device="cpu")
+        out["report"], out["records"] = report, records
+        out["ptq_bits"] = tree_bits(new)
+        # A one-rank mesh over rank 0: the local path, bit for bit.
+        one = DeviceMesh("cpu", torch.tensor([0]), mesh_dim_names=("data",))
+        if rank == 0:
+            local = solver.ptq_quantize_model(plan, params, case["calib"], pcfg, device="cpu")
+            mesh1 = solver.ptq_quantize_model(plan, params, case["calib"], pcfg, mesh=one,
+                                              device="cpu")
+            g1 = sharded_gram(_t(x), one)
+            out["one_rank_bitwise"] = (tree_bits(local[0]) == tree_bits(mesh1[0])
+                                       and local[1] == mesh1[1]
+                                       and tree_bits(g1) == tree_bits(_t(x).T @ _t(x)))
+        dist.barrier()
+    if world == 3:
+        out["elastic"] = _elastic()
+    return out
+
+
+def quantize_cli_rank(rank, world, argv):
+    """``repro_torch.launch.quantize.main(argv)`` on one launched rank, with
+    the port's configs at fp32."""
+    from repro_torch.launch import quantize
+
+    with fp32_port_configs():
+        out = quantize.main(list(argv))
+    return {k: v for k, v in out.items() if k != "out_dir"}
+
+
+def _elastic():
+    from repro_torch.dist.elastic import elastic_mesh
+
+    mesh = elastic_mesh(2, device="cpu")
+    try:
+        elastic_mesh(4, device="cpu")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    coord = mesh.get_coordinate()
+    return (tuple(mesh.shape), tuple(mesh.mesh_dim_names), mesh.mesh.tolist(),
+            None if coord is None else list(coord), refused)
+
+
+# ---------------------------------------------------------------------------
+# Rank functions of tests/test_torch_dist_train.py
+# ---------------------------------------------------------------------------
+
+
+def _trainer(case, ckpt_dir, mesh, fsdp, moments):
+    from repro_torch import interop
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+
+    return Trainer(case["cfg"], AdamWConfig(moments=moments, **case["opt"]),
+                   TrainerConfig(ckpt_dir=ckpt_dir, **case["tc"]), mesh=mesh, fsdp=fsdp,
+                   params=interop.params_from_jax(case["params"], device="cpu"), device="cpu")
+
+
+def train_rank(rank, world, case, root):
+    """Each (fsdp, moments) run of ``case["runs"]`` on a data mesh over all
+    ranks (losses; after the run, ``restore`` of the checkpoint it wrote
+    must give back each rank's blocks bit for bit), then on rank 0 a
+    one-rank mesh against ``mesh=None``, bit for bit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import make_data_mesh
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_data_mesh(device="cpu")
+    out = {}
+    for fsdp, moments in case["runs"]:
+        tr = _trainer(case, os.path.join(root, f"{fsdp}_{moments}"), mesh, fsdp, moments)
+        log = tr.run()["log"]
+        before = tree_bits({"p": tr.params, "o": tr.opt_state})
+        whole_params = tr._whole(tr.params, tr.shards)
+        whole = tree_bits({"params": whole_params, "opt": tr._whole(tr.opt_state, tr.opt_shards)})
+        step = tr.restore()
+        out[(fsdp, moments)] = dict(
+            losses=[m["loss"] for m in log], grad_norms=[m["grad_norm"] for m in log],
+            whole=whole, params=[t.detach().numpy().copy() for t in tree_leaves(whole_params)],
+            restored=step == case["tc"]["steps"]
+            and tree_bits({"p": tr.params, "o": tr.opt_state}) == before,
+            sharded=[d for d in (tr.shards.dims if tr.shards else ()) if d is not None])
+    one = DeviceMesh("cpu", torch.tensor([0]), mesh_dim_names=("data",))
+    if rank == 0:
+        same = []
+        for fsdp, moments in case["runs"]:
+            runs = []
+            for m in (None, one):
+                tr = _trainer(case, os.path.join(root, f"one_{m is None}_{fsdp}_{moments}"), m,
+                              fsdp, moments)
+                log = tr.run()["log"]
+                runs.append(([(m["loss"], m["grad_norm"]) for m in log],
+                             tree_bits({"p": tr.params, "o": tr.opt_state})))
+            same.append(runs[0] == runs[1])
+        out["one_rank_bitwise"] = same
+    dist.barrier()
+    return out

@@ -347,9 +347,9 @@ class _Runs(dict):
             jgroups.append((np.asarray(w3), np.asarray(sig3)))
             return jsolve(w3, sig3, cfg, mesh)
 
-        def trec(w3, sig3, cfg):
+        def trec(w3, sig3, cfg, mesh=None):
             tgroups.append((w3.clone(), sig3.clone()))
-            return tsolve(w3, sig3, cfg)
+            return tsolve(w3, sig3, cfg, mesh)
 
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jsolver, "_solve_group", jrec)

@@ -51,6 +51,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.quant import pack as tpack
 from repro_torch.serve import qparams as tqparams
 from tests._torch_cpu import one_torch_thread  # noqa: F401
+from tests._torch_dist import quantize_cli_rank, run_launched
 
 ARCH = "phi3_mini_3_8b"
 
@@ -218,10 +219,28 @@ def test_quantize_shard_on_one_device_takes_the_local_path(trained, tmp_path, ca
     assert "--shard: 1 device(s) — single-device fallback" in capsys.readouterr().out
 
 
-def test_quantize_refuses_a_multi_device_shard(trained, tmp_path, monkeypatch):
-    monkeypatch.setattr(tquantize, "_shard_devices", lambda dev: 4)
-    with pytest.raises(SystemExit, match="queue 1 item 8"):
-        _port(tquantize, *_quant_args(trained[0], str(tmp_path / "q"), "--shard"))
+def test_quantize_refuses_a_multi_device_shard(trained, tmp_path):
+    """``--shard`` over more than one device is no longer refused: two gloo
+    ranks launched as ``torchrun`` launches them (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``) quantize together; rank 0 alone prints, writes the
+    checkpoint, ``progress.jsonl`` and the report, whose keys are the
+    one-rank run's and whose errors are within 1e-4 of it.  The name is
+    kept from when the port refused it, so the test's record carries on."""
+    one, two = str(tmp_path / "one"), str(tmp_path / "two")
+    local = _port(tquantize, *_quant_args(trained[0], one))
+    outs = run_launched(quantize_cli_rank, 2, [*_quant_args(trained[0], two, "--shard"),
+                                                "--device", "cpu"])
+    assert outs[0] == outs[1] and list(outs[0]["report"]) == list(local["report"])
+    for k, v in local["report"].items():
+        assert abs(outs[0]["report"][k] - v) < 1e-4, k
+    def meta(d):
+        step = tckpt.latest_step(d)
+        with open(os.path.join(d, f"step_{step}", "manifest.json")) as f:
+            return json.load(f)["meta"]
+
+    assert meta(two)["report"].keys() == meta(one)["report"].keys()
+    assert [r["done_blocks"] for r in load_progress(os.path.join(two, "progress.jsonl"))] == \
+        [r["done_blocks"] for r in load_progress(os.path.join(one, "progress.jsonl"))]
 
 
 def test_load_progress_tolerates_truncation(tmp_path):

@@ -127,7 +127,8 @@ def test_port_imports_no_jax_and_no_reference():
     """Importing every module of the port (Algorithm 3's ``core.outlier``,
     the serving engines, the fault plans, the eval tasks and harness, GPTQ,
     the trainer and the checkpoints, AWQ, SpQR, the launchers, speculative
-    serving, the tuner, the MoE layer and the new configs among them), and
+    serving, the tuner, the MoE layer, the new configs, the sharding rules,
+    the collectives, the int8 FSDP gather and the data mesh among them), and
     chip_smoke, loads neither jax nor the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -150,7 +151,9 @@ def test_port_imports_no_jax_and_no_reference():
         "        'repro_torch.tune.search', 'repro_torch.launch.tune', 'repro_torch.models.moe',\n"
         "        'repro_torch.configs.opt_paper', 'repro_torch.configs.qwen15_32b',\n"
         "        'repro_torch.configs.stablelm_12b', 'repro_torch.configs.gemma2_27b',\n"
-        "        'repro_torch.configs.olmoe_1b_7b', 'repro_torch.configs.mixtral_8x22b']\n"
+        "        'repro_torch.configs.olmoe_1b_7b', 'repro_torch.configs.mixtral_8x22b',\n"
+        "        'repro_torch.dist.sharding', 'repro_torch.dist.collectives',\n"
+        "        'repro_torch.dist.qgather', 'repro_torch.launch.mesh', 'repro_torch.core.rtn']\n"
         "bad += [m + ' not loaded' for m in need if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]), bad)\n"
     )

@@ -461,10 +461,17 @@ def test_spec_none_is_the_plain_step(spec_model, monkeypatch):
     from repro_torch.serve import engine as eng_mod
 
     plan, params, dplan, dparams, prompts = spec_model
-    calls = []
+    calls, proposals, drafts = [], [], []
     real = eng_mod.paged_decode_step
     monkeypatch.setattr(eng_mod, "paged_decode_step",
                         lambda *a, **k: calls.append(np.asarray(a[2]).shape) or real(*a, **k))
+    real_propose = PagedServingEngine._propose
+    monkeypatch.setattr(PagedServingEngine, "_propose",
+                        lambda self, active: proposals.append(real_propose(self, active))
+                        or proposals[-1])
+    real_draft = tspec.paged_draft_tokens
+    monkeypatch.setattr(tspec, "paged_draft_tokens",
+                        lambda *a, **k: drafts.append(1) or real_draft(*a, **k))
 
     def trace(spec):
         eng = _engine(plan, params, max_batch=1, record_logits=True, spec=spec)
@@ -474,9 +481,10 @@ def test_spec_none_is_the_plain_step(spec_model, monkeypatch):
     plain, legacy = trace(None)
     assert plain.spec_mgr is None and plain.n_spec_rounds == plain.n_draft_tokens == 0
     assert len(calls) == plain.n_decode_steps and set(calls) == {(1, 1)}
-    assert plain.propose_seconds < 1e-3 * max(plain.decode_seconds, 1e-3)
+    assert len(proposals) == plain.n_decode_steps
+    assert all(not toks for prop in proposals for toks in prop.values()) and not drafts
     spec_eng, spec = trace(_spec(dplan, dparams, 3))
-    assert spec_eng.n_spec_rounds > 0 and legacy.keys() == spec.keys()
+    assert spec_eng.n_spec_rounds > 0 and legacy.keys() == spec.keys() and drafts
     for rid in legacy:
         np.testing.assert_allclose(spec[rid], legacy[rid], rtol=0,
                                    atol=1e-5 * np.abs(legacy[rid]).max())
