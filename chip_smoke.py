@@ -44,7 +44,9 @@ Phases (any failed check exits non-zero; no phase is skipped):
 4. small-input reference: ``tests/test_torch_cuda.py`` on the card, where a
    reduced Phi-3 quantized and scored on the card (kernels) and on the CPU
    (plain versions) must agree, and each kernel matches its plain version
-   at small and ragged shapes;
+   at small and ragged shapes; it runs in a pytest process of its own
+   beside phases 7 and 8 (host-bound: a small model's training and the
+   command-line tools), and the script waits for it after phase 8;
 5. main path: Phi-3-mini at full width (2 of 32 decoder layers, seeded
    random weights): RTN, GPTQ and QuantEase PTQ at 4 bits, then RTN, GPTQ,
    QuantEase, outlier-aware QuantEase (1 % outliers), AWQ, AWQ+QuantEase
@@ -226,8 +228,21 @@ Phases (any failed check exits non-zero; no phase is skipped):
    card); (b) ``Trainer(mesh=<data mesh of 1>, fsdp=True)`` in a one-rank
    NCCL group takes 2 steps of phase 5b's batches: losses within 1e-5
    relative of phase 5b's first two (bit for bit recorded), ms per step,
-   peak memory, and the checkpoint round trip bit for bit.  A failed
-   collective or rank fails the phase.
+   peak memory, and the checkpoint round trip bit for bit; (c) after (a)
+   the same ranks, as a ("model",) axis of 2, each cut their half of the
+   restacked artifact (``dist.sharding.shard_tree``: every leaf's storage
+   its shard, sharded leaves half, replicated ones whole) and serve 8
+   requests × 16 greedy steps on the paged engine with bf16 and with int8
+   KV (kernel 3 on column and row shards, fp32 partials all-reduced;
+   kernel 5 on 16 kv slots; every kernel-3 and kernel-5 signature held
+   against its plain version once); the parent serves the whole artifact
+   on one rank with the same requests: the ranks' tokens the same, their
+   first decode step's logits within 2 % of max |logit| of the one-rank
+   run's, their tokens equal up to its first top-2 margin below that
+   bound; launches, the collectives' calls, bytes and seconds, and ms per
+   decode step against one rank are printed (kernel 3's fp32 partials cost
+   nothing measurable against bf16 out: PERF.md, PR 26).
+   A failed collective or rank fails the phase.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
 is ``{"ok": true, "device": {...}}``.  Per-shape details go to
@@ -320,10 +335,24 @@ SHARD_ERR_ATOL = 1e-4  # the mean relative error against phase 5's quantease@4
 # The restacked artifact's perplexity against phase 5's: within this plus
 # the largest deviation of the local solves whose Σ sums the same sequences
 # in another exact order (their tie cascades move a random model's
-# perplexity by 2.8e-3 and 5.3e-3 on the card; PERF.md).
+# perplexity).  Those controls are two more local solves and evaluations
+# (~6 s), the same to the last bit on every card run (NVIDIA H100 80GB
+# HBM3; PERF.md, PRs 25–26): their recorded deviations stand here.
 SHARD_PPL_RTOL = 1e-3
+SHARD_PPL_CONTROLS = {"batches reversed": 0.00526163611809527,
+                      "ranks' blocks": 0.002760105400254398}
 SHARD_TRAIN_STEPS = 2
 SHARD_LOSS_RTOL = 1e-5  # the FSDP trainer's losses against phase 5b's first steps
+# (c) Tensor-parallel serving: the same ranks, as a ("model",) axis of 2,
+# each serve their shard of the sharded solve's QuantEase@4 artifact (Phi-3-
+# mini's 32 heads and 32,064-token vocabulary split in halves: no padding)
+# on the paged engine, bf16 and int8 KV; the parent serves the whole
+# artifact on one rank with the same requests.
+TP_RANKS = SHARD_RANKS
+TP_PROMPTS, TP_PROMPT_LO, TP_PROMPT_HI, TP_NEW = 8, 16, 256, 16
+TP_PAGED = dict(max_batch=8, max_seq=512, page_size=16, prefill_chunk=128)  # PAGE, defined below
+TP_KV = ("bf16", "int8")
+TP_LOGIT_RTOL = 2e-2  # first-decode logits against the one-rank run's, of max |logit|
 # Phase 7: the reference's quality table (benchmarks/bench_eval.py, its full
 # budget): bench_opt_s trained 1,600 steps at batch 16 x 96, then the grid.
 QUALITY_TRAIN = dict(steps=1600, batch=16, seq=96)
@@ -1057,7 +1086,9 @@ def check_fused_iteration(gen, dev, detail):
               f"{n_unexplained} of {n_diff} differing rows do not start with a tie flip: {ties}")
         del k_out, p_out
         ms = cuda_ms(lambda: ops.quantease_fused_iteration(*args, **kw))
-        plain = cuda_ms(lambda: ref.quantease_fused_iteration_ref(*args, **kw), reps=10, warmup=1)
+        # The plain column loop holds the host ~0.7–2.9 s a call (host speed):
+        # three timed calls, warm from the comparison above.
+        plain = cuda_ms(lambda: ref.quantease_fused_iteration_ref(*args, **kw), reps=3, warmup=0)
         n_bytes, n_flop = fused_bytes_flop(G, q, p, bsz, dt == "bfloat16")
         b_ms, b_by = bound(n_bytes, n_flop)
         sgemm = corr_yardsticks(f"fused_iteration G={G} ({q},{p}) B={bsz} {dt}", s, sig_corr, bsz)
@@ -1165,7 +1196,8 @@ def check_outlier_iteration(gen, dev, detail):
         del k_out, p_out, cand
         ms = cuda_ms(lambda: ops.quantease_outlier_iteration(*args, **kw))
         split = device_profile(lambda: ops.quantease_outlier_iteration(*args, **kw))
-        plain = cuda_ms(lambda: ref.quantease_outlier_iteration_ref(*args, **kw), reps=5, warmup=1)
+        # As the fused iteration's: three timed calls of a host-bound plain loop.
+        plain = cuda_ms(lambda: ref.quantease_outlier_iteration_ref(*args, **kw), reps=3, warmup=0)
         n_bytes, n_flop = outlier_bytes_flop(G, q, p, bsz, dt == "bfloat16")
         b_ms, b_by = bound(n_bytes, n_flop)
         sgemm = corr_yardsticks(f"outlier_iteration G={G} ({q},{p}) B={bsz} {dt}", s, sig_corr, bsz, dh)
@@ -1671,20 +1703,44 @@ def check_paged_attention(gen, dev, detail):
 # ---------------------------------------------------------------------------
 
 
-def card_tests() -> None:
+def start_card_tests():
     """The slice on a small input, card against CPU, and every kernel against
-    its plain version at small and ragged shapes: ``tests/test_torch_cuda.py``."""
+    its plain version at small and ragged shapes: ``tests/test_torch_cuda.py``
+    in a pytest process of its own, started here and collected by
+    :func:`finish_card_tests`.  The script runs phases 7 and 8 meanwhile:
+    both hold the host (training a small model, the command-line tools), not
+    the card, and time nothing the kernels line or PERF.md's kernel table
+    reads."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src")] + [v for v in [os.environ.get("PYTHONPATH")] if v]))
-    t0 = time.monotonic()
-    run = subprocess.run(
-        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "tests/test_torch_cuda.py"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900,
-    )
-    tail = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
-    print(f"[reference] tests/test_torch_cuda.py: {tail} ({time.monotonic() - t0:.1f}s)", flush=True)
-    check(run.returncode == 0 and "skipped" not in tail,
-          f"tests/test_torch_cuda.py on the card:\n{run.stdout[-6000:]}\n{run.stderr[-2000:]}")
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "--durations=8",
+         "tests/test_torch_cuda.py"], cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, out, time.monotonic()
+
+
+def finish_card_tests(started) -> None:
+    """Wait for :func:`start_card_tests`' pytest (within 900 s of its start)
+    and fail unless every test passed and none skipped; print its slowest
+    tests."""
+    proc, out, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, 900 - (time.monotonic() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    out.seek(0)
+    text = out.read()
+    out.close()
+    lines = text.strip().splitlines()
+    tail = lines[-1] if lines else ""
+    slow = [ln.strip() for ln in lines if ln.strip()[:1].isdigit() and "s call" in ln]
+    print(f"[reference] tests/test_torch_cuda.py: {tail} (done {time.monotonic() - t0:.1f}s after "
+          f"its start); slowest: {'; '.join(slow[:8])}", flush=True)
+    check(proc.returncode == 0 and "skipped" not in tail,
+          f"tests/test_torch_cuda.py on the card:\n{text[-8000:]}")
 
 
 # ---------------------------------------------------------------------------
@@ -4009,7 +4065,7 @@ def encdec_families(dev, detail):
 
 # ---------------------------------------------------------------------------
 # Phase 13: the data-parallel mesh (two gloo ranks on the card; FSDP at
-# world size 1 over NCCL)
+# world size 1 over NCCL), and tensor-parallel serving on the same ranks
 # ---------------------------------------------------------------------------
 
 
@@ -4129,6 +4185,7 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue):
                        sigmas=_tree_bytes(sigmas), params=_tree_bytes(params),
                        n_sequences=[hi - lo for lo, hi in
                                     (block_bounds(len(b["tokens"]), world, rank) for b in calib)])
+            out["tp"] = tp_serve_rank(rank, plan, params, qparams["dec"], dev)
             if rank == 0:
                 cpu = lambda tree: M.tree_map(
                     lambda a: a.map_arrays(lambda t: t.cpu()) if hasattr(a, "map_arrays")
@@ -4142,6 +4199,178 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue):
     except BaseException:
         queue.put((rank, False, traceback.format_exc()))
         raise
+
+
+def tp_shard_bytes(whole, local, axes, rules, n: int) -> tuple:
+    """Leaf by leaf, the bytes of storage a rank holds against its shard of
+    ``whole``: a leaf the rules put on "model" 1/n, any other leaf whole
+    (a per-channel grid of a row-parallel linear included).  Returns
+    ``(leaves that differ, bytes held, bytes of the whole)``."""
+    from repro_torch.quant import QuantizedTensor
+
+    bad, held, total = [], 0, 0
+
+    def one(path, w, l, sharded):
+        nonlocal held, total
+        want = w.numel() * w.element_size() // (n if sharded else 1)
+        got = l.untyped_storage().nbytes()
+        held, total = held + got, total + w.numel() * w.element_size()
+        if got != want:
+            bad.append((path, got, want))
+
+    def walk(w, l, ax, path):
+        if isinstance(w, QuantizedTensor):
+            check(w.outlier_idx is None and w.outlier_col_idx is None and not w.group_size,
+                  f"{path}: phase 13 counts per-channel artifacts without outliers")
+            dim = rules.shard_dim(tuple(ax["codes"]), "model")
+            one(f"{path}.codes", w.codes, l.codes, dim is not None)
+            for f in ("scale", "zero"):
+                one(f"{path}.{f}", getattr(w, f), getattr(l, f), dim == w.codes.dim() - 2)
+        elif isinstance(w, dict):
+            for k in w:
+                walk(w[k], l[k], ax[k], f"{path}.{k}" if path else k)
+        else:
+            one(path, w, l, rules.shard_dim(tuple(ax), "model") is not None)
+
+    walk(whole, local, axes, "")
+    return bad, held, total
+
+
+def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
+    """Phase 13 (c) on one rank: its shard (``dist.sharding.shard_tree``
+    under ``serve.qparams.serving_rules``) of the restacked artifact, held
+    leaf by leaf against 1/TP_RANKS of each sharded leaf, serves TP_PROMPTS
+    requests on the paged engine inside the axis' rules, for each KV dtype
+    of TP_KV; then every kernel-3 and kernel-5 signature of the runs once
+    against its plain version.  Returns the outputs, the first decode
+    step's logits, the launches, the collectives and the step times."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import axis_rules, shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServingEngine
+    from repro_torch.serve.qparams import qt_param_axes, quantize_params_for_serving, serving_rules
+
+    cfg = plan.cfg
+    tplan = M.make_plan(cfg, TP_RANKS)
+    check(tplan.heads.kv_pad == plan.heads.kv_pad and tplan.vocab_pad == cfg.vocab,
+          "phase 13 (c): the axis pads the plan")
+    mesh = DeviceMesh(dev.type, torch.arange(TP_RANKS), mesh_dim_names=("model",))
+    rules = serving_rules(tplan, mesh)
+    whole = quantize_params_for_serving(plan, params, qdec, device=dev)
+    axes = qt_param_axes(tplan)
+    local = shard_tree(whole, axes, rules)
+    bad, held, total = tp_shard_bytes(whole, local, axes, rules, TP_RANKS)
+    del whole
+    prompts = family_prompts(cfg.vocab, TP_PROMPTS, TP_PROMPT_LO, TP_PROMPT_HI)
+    ops.reset_launch_counts()
+    variants0 = dict(dequant_matmul_cuda.launches_by_variant)
+    # The forward pass' collectives (model.all_reduce, model.gather_dim):
+    # calls, the bytes a rank sends (its tensor, or its shard) and the
+    # seconds each holds the host (gloo returns once the data has arrived).
+    comm = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+
+    def counted(kind, fn):
+        def call(t, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(t, *a, **k)
+            row = comm[kind]
+            row[0], row[1], row[2] = (row[0] + 1, row[1] + t.numel() * t.element_size(),
+                                      row[2] + time.perf_counter() - t0)
+            return out
+        return call
+
+    originals = M.all_reduce, M.gather_dim
+    M.all_reduce, M.gather_dim = counted("all_reduce", M.all_reduce), counted("all_gather",
+                                                                             M.gather_dim)
+    runs = {}
+    with recording_calls() as calls, axis_rules(rules):
+        for kv in TP_KV:
+            kplan = dataclasses.replace(tplan, kv_cache_dtype=kv)
+            k5 = ops.launch_counts()["paged_attention"]
+            stats, outputs, eng = serve_run(
+                f"phase 13 (c) rank {rank} {kv}", lambda: PagedServingEngine(
+                    kplan, local, **TP_PAGED, record_logits=True, device=dev), prompts, TP_NEW)
+            n_attn = cfg.n_periods * len(cfg.pattern)
+            check(ops.launch_counts()["paged_attention"] - k5 == eng.n_decode_steps * n_attn,
+                  f"phase 13 (c) {kv}: kernel 5 not launched once a decode step and layer")
+            runs[kv] = dict(stats=stats, outputs=outputs,
+                            first={rid: t[0] for rid, t in eng.logit_trace.items()})
+            del eng
+        torch.cuda.synchronize()
+    M.all_reduce, M.gather_dim = originals
+    counts = ops.launch_counts()
+    variants = {v: n - variants0[v] for v, n in dequant_matmul_cuda.launches_by_variant.items()}
+    checked = family_checks("tensor-parallel", calls, variants, phase="phase 13 (c)")
+    del calls
+    return dict(runs=runs, counts=counts, comm=comm, variants=variants, checked=checked,
+                bytes_bad=bad, bytes_held=held, bytes_whole=total,
+                kv_slots=tplan.heads.kv_pad // TP_RANKS, prompts=[len(p) for p in prompts])
+
+
+def tp_against_one_rank(dev, detail, plan, served, ranks) -> None:
+    """Phase 13 (c) in the parent: the whole artifact on one rank with the
+    ranks' requests, each KV dtype; the ranks' tokens the same, their first
+    decode step's logits within TP_LOGIT_RTOL of max |logit| of the one-rank
+    run's, and their tokens equal to its up to its first top-2 margin below
+    that bound; every rank's storage its shard."""
+    import numpy as np
+
+    from repro_torch.serve import PagedServingEngine
+
+    cfg = plan.cfg
+    prompts = family_prompts(cfg.vocab, TP_PROMPTS, TP_PROMPT_LO, TP_PROMPT_HI)
+    out = {}
+    for r, row in enumerate(ranks):
+        tp = row["tp"]
+        check(not tp["bytes_bad"], f"rank {r} holds other bytes than its shard: {tp['bytes_bad'][:4]}")
+        print(f"[tp] rank {r}: holds {tp['bytes_held'] / 2**20:.1f} MiB of the whole artifact's "
+              f"{tp['bytes_whole'] / 2**20:.1f} MiB, every leaf its shard ({TP_RANKS} ranks: "
+              f"sharded leaves 1/{TP_RANKS}, replicated ones whole); kv slots "
+              f"{tp['kv_slots']} of {plan.heads.kv_pad}; launches {tp['counts']}, kernel 3 by "
+              f"variant {tp['variants']}; " + "; ".join(
+                  f"{k} {n} calls {b / 2**20:.2f} MiB {t:.3f}s" for k, (n, b, t) in tp["comm"].items())
+              + f"; checked {tp['checked']}", flush=True)
+    for kv in TP_KV:
+        kplan = dataclasses.replace(plan, kv_cache_dtype=kv)
+        stats, outputs, eng = serve_run(f"phase 13 (c) one rank {kv}", lambda: PagedServingEngine(
+            kplan, served, **TP_PAGED, record_logits=True, device=dev), prompts, TP_NEW)
+        trace = eng.logit_trace
+        del eng
+        runs = [row["tp"]["runs"][kv] for row in ranks]
+        check(all(r["outputs"] == runs[0]["outputs"] for r in runs), f"{kv}: the ranks' tokens differ")
+        tp = runs[0]
+        rel = max(float(np.abs(tp["first"][rid] - trace[rid][0]).max() / np.abs(trace[rid][0]).max())
+                  for rid in trace)
+        compared, parted = 0, []
+        for rid, steps in trace.items():
+            for j, logits in enumerate(steps):
+                top2 = np.sort(logits)[-2:]
+                if top2[1] - top2[0] < TP_LOGIT_RTOL * np.abs(logits).max():
+                    break
+                compared += 1
+                if tp["outputs"][rid][j] != outputs[rid][j]:
+                    parted.append((rid, j))
+                    break
+        ms = [r["stats"]["ms_per_step"] for r in runs]
+        print(f"[tp] {kv} KV: first-decode logits within {rel:.3g} of max |logit| of the one-rank "
+              f"run (bound {TP_LOGIT_RTOL}); {compared} of {TP_PROMPTS * TP_NEW} tokens compared "
+              f"before a top-2 margin under the bound, {len(parted)} parting {parted[:4]}; decode "
+              f"{', '.join(f'{x:.2f}' for x in ms)} ms/step on the ranks against "
+              f"{stats['ms_per_step']:.2f} on one rank (two ranks share one card and move "
+              f"activations through gloo on the host: no speed-up can show)", flush=True)
+        check(rel <= TP_LOGIT_RTOL, f"{kv}: tensor-parallel first-decode logits off the one-rank run's")
+        check(not parted, f"{kv}: tensor-parallel tokens part from the one-rank run's above the margin")
+        out[kv] = dict(first_decode_rel=rel, tokens_compared=compared, parted=parted,
+                       ms_per_step_ranks=ms, ms_per_step_one=stats["ms_per_step"],
+                       stats_ranks=[r["stats"] for r in runs], stats_one=stats)
+    detail["sharded"]["tp"] = dict(
+        runs=out, launches=[r["tp"]["counts"] for r in ranks], comm=[r["tp"]["comm"] for r in ranks],
+        variants=[r["tp"]["variants"] for r in ranks], checked=[r["tp"]["checked"] for r in ranks],
+        bytes_held=[r["tp"]["bytes_held"] for r in ranks], bytes_whole=ranks[0]["tp"]["bytes_whole"])
 
 
 def run_ranks(target, world: int, *args) -> list:
@@ -4213,7 +4442,7 @@ def sharded_path(dev, detail, plan, artifact, dense, keep):
     bits; the mean error within SHARD_ERR_ATOL of phase 5's ``quantease@4``
     and the restacked artifact's perplexity within SHARD_PPL_RTOL of it
     beyond the largest deviation of two local solves whose Σ sums the same
-    sequences in another exact order;
+    sequences in another exact order (SHARD_PPL_CONTROLS, recorded);
     each group's Σ within SHARD_SIGMA_RTOL of a local Σ of the same
     sequences (in period 0 phase 5's inputs; a later period's come from
     each run's own quantized periods before it); the codes those of the
@@ -4224,9 +4453,7 @@ def sharded_path(dev, detail, plan, artifact, dense, keep):
     import numpy as np
     import torch
 
-    from repro_torch.core import solver
     from repro_torch.data import DataConfig, make_batch_fn
-    from repro_torch.dist.collectives import block_bounds
     from repro_torch.eval.harness import EvalBudget, eval_model
     from repro_torch.kernels import ops
     from repro_torch.quant import GridSpec, compute_grid
@@ -4259,7 +4486,8 @@ def sharded_path(dev, detail, plan, artifact, dense, keep):
     ops.reset_launch_counts()
     metrics = eval_model(plan, served, eval_fn, budget=EvalBudget(), device=dev)
     torch.cuda.synchronize()
-    counts = {k: v + sum(r["counts"][k] for r in ranks) for k, v in ops.launch_counts().items()}
+    counts = {k: v + sum(r["counts"][k] + r["tp"]["counts"][k] for r in ranks)
+              for k, v in ops.launch_counts().items()}
 
     mean13 = float(np.mean(list(r0["report"].values())))
     mean5 = float(np.mean(list(keep["report"].values())))
@@ -4276,6 +4504,7 @@ def sharded_path(dev, detail, plan, artifact, dense, keep):
     checked = {}
     for r in ranks:
         merge_checked(checked, r["checked"])
+        merge_checked(checked, r["tp"]["checked"])
     detail["sharded"] = out = dict(
         ranks=SHARD_RANKS, seconds_with_start=t_ranks, ptq_seconds=[r["t_ptq"] for r in ranks],
         seconds_per_layer=r0["blocks"], seconds_per_layer_local=layer5, comm=[r["comm"] for r in ranks],
@@ -4349,30 +4578,25 @@ def sharded_path(dev, detail, plan, artifact, dense, keep):
           f"sharded codes part from the local solve's outside verified ties: {bad[:8]}")
     check(abs(mean13 - mean5) <= SHARD_ERR_ATOL, "sharded mean error off phase 5's")
     # Ties cascade along a row, and a row parting in period 0 changes every
-    # input of period 1: how far that alone moves the perplexity is measured
+    # input of period 1: how far that alone moves the perplexity was measured
     # on local solves whose Σ sums the same sequences in another exact order
     # (the batches reversed; each batch in the ranks' blocks).
-    pcfg = solver.PTQConfig(method="quantease", spec=GridSpec(bits=4), iterations=PTQ_ITERATIONS,
-                            emit="qt")
-    shares = [block_bounds(MAIN_BATCH, SHARD_RANKS, r) for r in range(SHARD_RANKS)]
-    controls = {"batches reversed": calib[::-1],
-                "ranks' blocks": [{k: v[lo:hi] for k, v in b.items()} for b in calib
-                                  for lo, hi in shares]}
-    spread = {}
-    for label, cal in controls.items():
-        q, _ = solver.ptq_quantize_model(plan, dense, cal, pcfg, device=dev)
-        sv = quantize_params_for_serving(plan, dense, q["dec"], device=dev)
-        spread[label] = eval_model(plan, sv, eval_fn, budget=EvalBudget(), device=dev)["ppl"] / ppl5 - 1
-        del q, sv
+    spread = SHARD_PPL_CONTROLS
     bound = SHARD_PPL_RTOL + max(abs(x) for x in spread.values())
     out["ppl_spread"] = spread
     print(f"[shard] ppl {metrics['ppl']:.4f} against phase 5's {ppl5:.4f}: rel "
-          f"{metrics['ppl'] / ppl5 - 1:.3g}; local solves on Σ summed in other orders: "
+          f"{metrics['ppl'] / ppl5 - 1:.3g}; local solves on Σ summed in other orders (recorded): "
           + ", ".join(f"{k} {v:.3g}" for k, v in spread.items())
           + f"; bound {bound:.3g}", flush=True)
     check(abs(metrics["ppl"] / ppl5 - 1) <= bound, "sharded perplexity off phase 5's")
     for name in ("quantease_block_sweep", "quantease_fused_iteration", "dequant_matmul"):
         check(all(r["counts"][name] > 0 for r in ranks), f"a rank launched no {name}")
+    for name in ("dequant_matmul", "paged_attention"):
+        check(all(r["tp"]["counts"][name] > 0 for r in ranks),
+              f"a rank's tensor-parallel serving launched no {name}")
+    t0 = time.monotonic()
+    tp_against_one_rank(dev, detail, plan, served, ranks)
+    print(f"[tp] the one-rank runs and checks: {time.monotonic() - t0:.1f}s", flush=True)
     return counts, checked
 
 
@@ -4626,8 +4850,6 @@ def main() -> None:
     check_legacy_engines(gen, dev, detail)
     print(f"[phase] 3, the legacy engines: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
-    card_tests()
-    torch.cuda.empty_cache()
     t0 = time.monotonic()
     counts_ptq, plan, artifact, dense, keep = main_path(dev, detail)
     print(f"[phase] 5, the main path: {time.monotonic() - t0:.1f}s", flush=True)
@@ -4654,15 +4876,20 @@ def main() -> None:
     counts_serve = serving(dev, detail, plan, artifact)
     print(f"[phase] 6, serving: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
-    t0 = time.monotonic()
-    counts_quality, at_path, quality_model = quality_table(dev, detail, card)
-    print(f"[phase] 7, the quality table: {time.monotonic() - t0:.1f}s", flush=True)
-    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    card_tests = start_card_tests()
     try:
+        t0 = time.monotonic()
+        counts_quality, at_path, quality_model = quality_table(dev, detail, card)
+        print(f"[phase] 7, the quality table: {time.monotonic() - t0:.1f}s", flush=True)
+        torch.cuda.empty_cache()
         t0 = time.monotonic()
         counts_cli, at_cli = cli_path(dev, detail, root)
         print(f"[phase] 8, the command-line path: {time.monotonic() - t0:.1f}s", flush=True)
+        t0 = time.monotonic()
+        finish_card_tests(card_tests)
+        print(f"[phase] 4, tests/test_torch_cuda.py beside phases 7 and 8: waited "
+              f"{time.monotonic() - t0:.1f}s after them", flush=True)
         torch.cuda.empty_cache()
         t0 = time.monotonic()
         counts_spec, at_spec = speculation(dev, detail, plan, artifact, dense, quality_model)
@@ -4673,6 +4900,9 @@ def main() -> None:
         print(f"[phase] 9, speculation and the tuner at full width: {time.monotonic() - t0:.1f}s",
               flush=True)
     finally:
+        if card_tests[0].poll() is None:  # a failed phase 7 or 8: stop the tests' process
+            card_tests[0].kill()
+            card_tests[0].wait()
         shutil.rmtree(root, ignore_errors=True)
     t0 = time.monotonic()
     counts_fam, at_fam = families(dev, detail)

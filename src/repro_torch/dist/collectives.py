@@ -15,6 +15,9 @@ the CPU (and, two ranks on one card, on CUDA tensors as well).
 * :func:`block_bounds` splits ``n`` items over the dim in contiguous
   blocks of ``ceil(n / size)``, as a batch-sharded JAX array lays them out
   (the last blocks may be short).
+
+The tensor-parallel forward pass (:mod:`repro_torch.models.model`) calls
+:func:`all_reduce` and :func:`gather_dim` on the mesh's "model" dim.
 """
 
 from __future__ import annotations

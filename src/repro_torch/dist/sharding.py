@@ -20,10 +20,13 @@ This module owns the one mapping from those names to mesh axes:
   (:class:`TreeShards`: the dimension each flattened leaf is sharded on),
   what the data-parallel trainer, its train step and AdamW read.
 * :func:`axis_rules` installs a Rules as the ambient table;
-  :func:`logical_constraint` is the model-side entry point.  In the port a
-  rank's tensor already is its data shard, so the constraint is the
-  identity unless the mesh has a "model" axis larger than 1 (tensor
-  parallelism, not ported).
+  :func:`logical_constraint` is the model-side entry point.  Under explicit
+  collectives a rank's tensor already is its shard (its data block, or its
+  model-axis slice), so the constraint is the identity.
+* :func:`model_axis` reads the ambient rules' mesh for the
+  tensor-parallel forward pass (None where its "model" axis is 1), and
+  :func:`shard_tree` cuts a whole params tree (dense or a quantized
+  serving artifact) into one rank's local tree under a Rules.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import threading
 from collections.abc import Mapping
 from typing import Optional, Union
 
+import torch
+
 __all__ = [
     "Rules",
     "make_rules",
@@ -43,14 +48,31 @@ __all__ = [
     "mesh_axis_size",
     "axis_sizes",
     "TreeShards",
-    "TP_ROADMAP",
+    "model_axis",
+    "shard_tree",
+    "TP_TRAIN_ROADMAP",
+    "TP_MOE_ROADMAP",
+    "TP_MAMBA_ROADMAP",
+    "TP_ENCDEC_ROADMAP",
+    "TP_SPEC_ROADMAP",
 ]
 
 # A table value: one mesh axis, a tuple of mesh axes (batch over
 # ("pod", "data")), or None (replicated).
 _Entry = Union[str, tuple, None]
 
-TP_ROADMAP = "tensor parallelism on a \"model\" axis is ROADMAP.md queue 1 item 8.1"
+# Under a "model" axis the port serves token-only dense attention decoders;
+# the rest is queued in ROADMAP.md queue 1, and each refusal names its item.
+TP_TRAIN_ROADMAP = ("training under a \"model\" axis (backward collectives) is ROADMAP.md "
+                    "queue 1 item 8.1.1")
+TP_MOE_ROADMAP = ("mixture-of-experts layers under a \"model\" axis (experts or expert_ffn) "
+                  "are ROADMAP.md queue 1 item 8.1.2")
+TP_MAMBA_ROADMAP = ("Mamba-2 blocks under a \"model\" axis (ssm_heads) are ROADMAP.md queue 1 "
+                    "item 8.1.3")
+TP_ENCDEC_ROADMAP = ("the encoder-decoder and prefix families under a \"model\" axis are "
+                     "ROADMAP.md queue 1 item 8.1.4")
+TP_SPEC_ROADMAP = ("speculative serving and deadlines under a \"model\" axis are ROADMAP.md "
+                   "queue 1 item 8.1.5")
 
 
 def axis_sizes(mesh) -> dict:
@@ -233,10 +255,161 @@ def axis_rules(rules: Optional[Rules]):
 
 
 def logical_constraint(x, axes: tuple):
-    """The identity where no rules are active or the rules' mesh has no
-    "model" axis larger than 1: each rank's tensor already is its data
-    shard.  A larger "model" axis needs tensor parallelism, not ported."""
+    """The identity: under the port's explicit collectives a rank's tensor
+    already is its shard (its data block, or its slice of a "model" axis).
+    The reference's GSPMD constraints become the collectives of the
+    tensor-parallel forward pass (:mod:`repro_torch.models.model`)."""
+    return x
+
+
+def model_axis():
+    """The ambient rules' mesh where its "model" axis is larger than 1, else
+    None (no rules active, or an axis of 1).  The mesh must be a DeviceMesh:
+    its "model" process group carries the tensor-parallel collectives."""
     rules = current_rules()
-    if rules is None or axis_sizes(rules.mesh).get("model", 1) <= 1:
-        return x
-    raise NotImplementedError(f"a \"model\" axis larger than 1 ({TP_ROADMAP})")
+    if rules is None:
+        return None
+    n = axis_sizes(rules.mesh).get("model", 1)
+    if n <= 1:
+        return None
+    if not hasattr(rules.mesh, "get_group"):
+        raise ValueError(f"a \"model\" axis of {n} runs on a DeviceMesh with named dims, "
+                         f"whose process group carries the collectives; got {rules.mesh!r}")
+    return rules.mesh
+
+
+def _rows(t, lo: int, n: int, dim: int):
+    """A copy of ``t``'s ``[lo, lo + n)`` along ``dim``, in storage of its own
+    (a view would keep the whole tensor's bytes alive)."""
+    return t.narrow(dim, lo, n).clone(memory_format=torch.contiguous_format)
+
+
+def _split(size: int, n: int, path: str, what: str) -> int:
+    if size % n:
+        raise ValueError(f"{path}: {what} of {size} does not split over {n} ranks")
+    return size // n
+
+
+def _coo_part(idx, vals, p: int, owned, rebase):
+    """The COO entries (flat ``row·p + col``) a rank owns, per leading slice
+    (a period), in their order, as planes padded to the largest count with
+    (index 0, value 0) entries, additive no-ops.  ``owned(row, col)``
+    selects, ``rebase(row, col)`` gives the local flat index."""
+    lead, s = idx.shape[:-1], idx.shape[-1]
+    i2, v2 = idx.reshape(-1, s).long(), vals.reshape(-1, s)
+    row, col = i2 // p, i2 % p
+    mask = owned(row, col)
+    new = torch.where(mask, rebase(row, col), torch.zeros_like(i2))
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
+    m = int(mask.sum(1).max()) if mask.numel() else 0
+    keep = torch.gather(mask, 1, order)[:, :m]
+    new = torch.gather(new, 1, order)[:, :m].where(keep, torch.zeros((), dtype=i2.dtype))
+    v = torch.gather(v2, 1, order)[:, :m]
+    v = v.where(keep, torch.zeros((), dtype=v.dtype))
+    return new.to(idx.dtype).reshape(*lead, m).clone(), v.reshape(*lead, m).clone()
+
+
+def _shard_qt(qt, axes: dict, rules: Rules, n: int, rank: int, mesh_axis: str, path: str):
+    """One rank's QuantizedTensor: a column-parallel leaf (out rows on the
+    axis) keeps its rows of codes, grid and outlier planes; a row-parallel
+    leaf (in columns on the axis) keeps its columns of codes, its grid's
+    groups (a per-channel grid whole) and its COO entries, re-based."""
+    import dataclasses
+
+    dim = rules.shard_dim(tuple(axes["codes"]), mesh_axis)
+    if dim is None:
+        return qt
+    nd = qt.codes.dim()
+    q, p = qt.shape[-2:]
+    if qt.pack_layout != "linear":
+        raise ValueError(f"{path}: tile-native codes; shard the linear layout "
+                         "(quant.as_linear_layout)")
+    if dim == nd - 2:
+        ql = _split(q, n, path, "the out rows")
+        r0 = rank * ql
+        kw = dict(codes=_rows(qt.codes, r0, ql, nd - 2), scale=_rows(qt.scale, r0, ql, nd - 2),
+                  zero=_rows(qt.zero, r0, ql, nd - 2))
+        owned = lambda row, col: (row >= r0) & (row < r0 + ql)
+        rebase = lambda row, col: (row - r0) * p + col
+        if qt.outlier_col_vals is not None:
+            kw["outlier_col_vals"] = _rows(qt.outlier_col_vals, r0, ql, nd - 2)
+    elif dim == nd - 1:
+        pl = _split(p, n, path, "the in columns")
+        c0 = rank * pl
+        kw = {}
+        if qt.packed:
+            per_byte = {2: 4, 4: 2}.get(qt.bits)
+            if per_byte is None or pl % per_byte:
+                raise ValueError(f"{path}: {qt.bits}-bit packed codes of {p} columns cut at column "
+                                 f"{pl} over {n} ranks, inside a byte")
+            kw["codes"] = _rows(qt.codes, c0 // per_byte, pl // per_byte, nd - 1)
+        else:
+            kw["codes"] = _rows(qt.codes, c0, pl, nd - 1)
+        if qt.group_size:
+            if pl % qt.group_size:
+                raise ValueError(f"{path}: group_size {qt.group_size} does not give each of {n} "
+                                 f"ranks whole groups of its {pl} columns")
+            g0, gl = c0 // qt.group_size, pl // qt.group_size
+            kw["scale"] = _rows(qt.scale, g0, gl, nd - 1)
+            kw["zero"] = _rows(qt.zero, g0, gl, nd - 1)
+        if qt.outlier_col_idx is not None:
+            raise ValueError(f"{path}: structured outlier columns of a row-parallel leaf do not "
+                             "shard (a rank's columns differ in count from period to period)")
+        owned = lambda row, col: (col >= c0) & (col < c0 + pl)
+        rebase = lambda row, col: row * pl + col - c0
+    else:
+        raise ValueError(f"{path}: a QuantizedTensor shards on its out rows or in columns, "
+                         f"not on dim {dim} of {nd}")
+    if qt.outlier_idx is not None:
+        kw["outlier_idx"], kw["outlier_values"] = _coo_part(qt.outlier_idx, qt.outlier_values,
+                                                            p, owned, rebase)
+    return dataclasses.replace(qt, **kw)
+
+
+def shard_tree(tree, axes_tree, rules: Rules, *, rank: Optional[int] = None,
+               mesh_axis: str = "model"):
+    """This rank's local tree of a whole ``tree`` laid out by ``axes_tree``
+    under ``rules``: each dimension the rules put on ``mesh_axis`` keeps the
+    rank's contiguous block (a copy of its own), every other leaf stays
+    whole (the same tensor).
+
+    ``axes_tree`` is :func:`repro_torch.models.model.param_axes` for dense
+    params, :func:`repro_torch.serve.qparams.qt_param_axes` for a serving
+    artifact, whose QuantizedTensor leaves it describes by ``{"codes",
+    "scale", "zero"}``.  Such a leaf shards as :func:`_shard_qt` says:
+    column-parallel leaves (out rows on "heads_fused", "kv_fused", "ffn",
+    ...) by rows of codes, grid and outlier planes; row-parallel ones
+    (``wo``, ``wd``: in columns on "heads_fused" or "ffn") by columns of
+    codes, with a per-channel grid whole and a grouped one cut into whole
+    groups (``ValueError`` naming the leaf where the groups, or packed
+    4-bit bytes, would be cut), and the COO planes of a ``qe_outlier``
+    artifact to the rank owning each entry, re-based to the local matrix
+    and padded per period with (index 0, value 0) entries to the period
+    with the most.  ``rank`` defaults to this process's coordinate on the
+    rules' mesh."""
+    from repro_torch.quant import QuantizedTensor
+
+    n = mesh_axis_size(rules.mesh, mesh_axis)
+    if rank is None:
+        rank = rules.mesh.get_local_rank(mesh_axis) if n > 1 else 0
+
+    def walk(node, axes, path):
+        if isinstance(node, QuantizedTensor):
+            if not isinstance(axes, dict):
+                raise TypeError(f"{path}: a QuantizedTensor leaf needs the qt_param_axes layout "
+                                f"{{codes, scale, zero}}, got {axes!r}")
+            return _shard_qt(node, axes, rules, n, rank, mesh_axis, path)
+        if isinstance(node, dict):
+            if not isinstance(axes, dict) or set(axes) != set(node):
+                raise ValueError(f"{path}: params and axes trees differ "
+                                 f"({sorted(node)} against {axes!r})")
+            return {k: walk(v, axes[k], f"{path}.{k}" if path else k) for k, v in node.items()}
+        if not isinstance(axes, tuple) or len(axes) != node.dim():
+            raise ValueError(f"{path}: axes {axes!r} for a tensor of shape {tuple(node.shape)}")
+        dim = rules.shard_dim(axes, mesh_axis)
+        if dim is None or n == 1:
+            return node
+        size = _split(node.shape[dim], n, path, f"dimension {dim}")
+        return _rows(node, rank * size, size, dim)
+
+    return walk(tree, axes_tree, "")

@@ -36,7 +36,8 @@ def token_scores(plan, params, tokens, *, chunk: int = 128, device="cuda"):
     head = M._logit_head(plan, params)
     lps, ranks = [], []
     for s0 in range(0, x.shape[1], chunk):
-        logits = softcap(M._head_logits(x[:, s0 : s0 + chunk], head), cfg.logit_softcap)
+        logits = softcap(M._head_logits(x[:, s0 : s0 + chunk], head, M.tp_rules(plan)),
+                         cfg.logit_softcap)
         vp = logits.shape[-1]
         if vp > cfg.vocab:
             logits = logits.masked_fill(torch.arange(vp, device=logits.device) >= cfg.vocab, -torch.inf)

@@ -1,8 +1,9 @@
 """Shared model components: norms, RoPE, attention, linears, PTQ capture.
 
 Attention heads are carried in the reference's grouped layout
-``(kv_heads, q_per_kv, head_dim)``.  On one device no head padding is
-needed, so the :class:`HeadPlan` is the true architecture.
+``(kv_slots, q_per_slot, head_dim)``.  The :class:`HeadPlan` pads the kv
+slots to a multiple of the "model" axis (tensor parallelism); at axis 1 it
+is the true architecture.
 
 Any weight may be a :class:`~repro_torch.quant.QuantizedTensor`;
 :func:`apply_linear` sends those through the dequantizing GEMM
@@ -47,11 +48,20 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class HeadPlan:
-    """Grouped-head layout: ``kv_pad`` kv slots of ``g_pad`` q heads each."""
+    """Padded grouped-head layout for one (config, model-axis size) pair.
+
+    True q heads H and kv heads KV become ``kv_pad`` kv slots of ``g_pad``
+    q heads each: each true kv head is duplicated ``dup`` times (GQA, exact),
+    or the kv slots are zero-padded (MHA), so that ``kv_pad`` is a multiple
+    of ``axis_n`` and a rank of the "model" axis holds whole slots.  At
+    ``axis_n=1`` the plan is the true architecture.
+    """
 
     n_heads: int
     n_kv: int
     head_dim: int
+    axis_n: int
+    dup: int
     kv_pad: int
     g_pad: int
 
@@ -60,9 +70,21 @@ class HeadPlan:
         return self.kv_pad * self.g_pad
 
 
-def make_head_plan(n_heads: int, n_kv: int, head_dim: int) -> HeadPlan:
-    g = max(n_heads // max(n_kv, 1), 1)
-    return HeadPlan(n_heads, n_kv, head_dim, max(n_kv, 1), g)
+def make_head_plan(n_heads: int, n_kv: int, head_dim: int, axis_n: int = 1) -> HeadPlan:
+    """The reference's plan: no padding at ``axis_n <= 1``; MHA zero-pads its
+    kv slots to the next multiple of the axis (padded q slots read zero
+    ``wq``/``wo`` rows in a padded model's own params); GQA duplicates each
+    kv head ``lcm(KV, axis_n) / KV`` times and spreads the q heads over the
+    copies, ``g_pad = ceil(H / kv_pad)``."""
+    if axis_n <= 1 or n_kv == 0:
+        g = max(n_heads // max(n_kv, 1), 1)
+        return HeadPlan(n_heads, n_kv, head_dim, 1, 1, max(n_kv, 1), g)
+    if n_kv == n_heads:
+        kv_pad = -(-n_kv // axis_n) * axis_n
+        return HeadPlan(n_heads, n_kv, head_dim, axis_n, 1, kv_pad, 1)
+    dup = math.lcm(n_kv, axis_n) // n_kv
+    kv_pad = n_kv * dup
+    return HeadPlan(n_heads, n_kv, head_dim, axis_n, dup, kv_pad, -(-n_heads // kv_pad))
 
 
 # --------------------------------------------------------------------------
@@ -191,34 +213,40 @@ def _record_linear(name, x, expert_stacked: bool = False):
         stats[key] = stats[key].update_tokens(x)
 
 
-def _outlier_adds(w, x2: torch.Tensor, y2: torch.Tensor) -> torch.Tensor:
+def _outlier_adds(w, x2: torch.Tensor, y2: torch.Tensor, out_dtype) -> torch.Tensor:
     """The post-GEMM outlier corrections of a quantized weight ``w`` (a
     QuantizedTensor or HoistedDequant), in fp32: the rank-s COO planes,
-    ``y[:, rows] += x[:, cols] · vals``, then the structured columns."""
+    ``y[:, rows] += x[:, cols] · vals``, then the structured columns; each
+    result rounded to ``out_dtype``."""
     if w.outlier_values is not None:
         idx = w.outlier_idx.long()
         rows, cols = idx // w.shape[-1], idx % w.shape[-1]
         contrib = x2[:, cols].to(torch.float32) * w.outlier_values.to(torch.float32)
-        y2 = y2.to(torch.float32).index_add(1, rows, contrib).to(x2.dtype)
+        y2 = y2.to(torch.float32).index_add(1, rows, contrib).to(out_dtype)
     if w.outlier_col_idx is not None:
         cols = w.outlier_col_idx.long()
         y2 = (y2.to(torch.float32)
               + x2[:, cols].to(torch.float32) @ w.outlier_col_vals.to(torch.float32).T
-              ).to(x2.dtype)
+              ).to(out_dtype)
     return y2
 
 
-def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) -> torch.Tensor:
+def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """y = x @ W, where W is ``(d_in, *out_dims)`` dense, or a QuantizedTensor
     or HoistedDequant whose matrix is ``(prod(out_dims), d_in)``.  x:
-    ``(..., d_in)``."""
+    ``(..., d_in)``.  ``out_dtype`` (default: x's) is the dtype y is formed
+    and rounded in; a tensor-parallel rank asks fp32 for its row-parallel
+    partial sums (the dequant-GEMM then writes fp32, the outlier adds stay
+    fp32, a dense product runs over fp32 upcasts)."""
     _record_linear(name, x)
     if isinstance(w, (QuantizedTensor, HoistedDequant)):
+        out_dtype = out_dtype or x.dtype
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         if isinstance(w, HoistedDequant):
             # The plain GEMM's own contraction over the bytes it would rebuild.
-            y2 = (x2.to(torch.float32) @ w.w.T).to(x.dtype)
+            y2 = (x2.to(torch.float32) @ w.w.T).to(out_dtype)
         else:
             from repro_torch.kernels import ops
 
@@ -229,12 +257,13 @@ def apply_linear(w, x: torch.Tensor, out_shape: tuple = (), name: str = None) ->
                     "(interop.qtensor_from_jax, dist.checkpoint, quant.as_linear_layout)")
             y2 = ops.dequant_matmul(
                 x2, w.codes, w.scale, w.zero, packed4=w.packed and w.bits == 4,
-                out_dtype=x.dtype, group_size=w.group_size,
+                out_dtype=out_dtype, group_size=w.group_size,
             )
-        y2 = _outlier_adds(w, x2, y2)
+        y2 = _outlier_adds(w, x2, y2, out_dtype)
         return y2.reshape(*lead, *(out_shape or (w.shape[0],)))
     d_in = x.shape[-1]
-    y = x @ w.reshape(d_in, -1)
+    w2 = w.reshape(d_in, -1)
+    y = x @ w2 if out_dtype is None else x.to(out_dtype) @ w2.to(out_dtype)
     if out_shape:
         y = y.reshape(*y.shape[:-1], *out_shape)
     elif w.dim() > 2 and w.shape[0] == d_in:

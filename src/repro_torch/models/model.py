@@ -54,6 +54,15 @@ import torch
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import all_reduce, axis_rank, axis_size, gather_dim
+from repro_torch.dist.sharding import (
+    TP_ENCDEC_ROADMAP,
+    TP_MAMBA_ROADMAP,
+    TP_MOE_ROADMAP,
+    TP_TRAIN_ROADMAP,
+    current_rules,
+    model_axis,
+)
 from repro_torch.models.common import (
     HeadPlan,
     HoistedDequant,
@@ -65,6 +74,7 @@ from repro_torch.models.common import (
     make_head_plan,
     rope,
     softcap,
+    _outlier_adds,
     _record_linear,
 )
 from repro_torch.models.mamba2 import mamba_apply, mamba_decode
@@ -79,6 +89,8 @@ __all__ = [
     "empty_params",
     "param_shapes",
     "param_axes",
+    "cache_axes",
+    "tp_rules",
     "train_loss",
     "encoder_inputs",
     "encoder",
@@ -103,7 +115,11 @@ KV_CACHE_DTYPES = ("bf16", "int8", "int4")
 
 @dataclasses.dataclass(frozen=True)
 class ModelPlan:
+    """Static plan: the config and the paddings of a "model" axis of
+    ``axis_n`` (1: none)."""
+
     cfg: ModelConfig
+    axis_n: int
     heads: HeadPlan
     vocab_pad: int
     # "bf16" | "int8" | "int4".  int4 is paged-engine only: pages store two
@@ -145,14 +161,110 @@ def check_token_only(cfg: ModelConfig, what: str) -> None:
                          f"family, whose inputs carry {extra}")
 
 
-def make_plan(cfg: ModelConfig, kv_cache_dtype: str = "bf16", param_transform=None) -> ModelPlan:
+def make_plan(cfg: ModelConfig, axis_n: int = 1, kv_cache_dtype: str = "bf16",
+              param_transform=None) -> ModelPlan:
+    """The plan for a "model" axis of ``axis_n``: heads padded by
+    :func:`~repro_torch.models.common.make_head_plan`, the vocabulary to a
+    multiple of the axis (the reference's).  A padded plan is a model of
+    its own (its params carry the padded slots and vocabulary rows); run on
+    one rank it is the reference's padded plan on one device."""
     _check_supported(cfg)
     if kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}; expected one of {KV_CACHE_DTYPES}")
+    n = max(axis_n, 1)
     return ModelPlan(
-        cfg=cfg, heads=make_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.hd), vocab_pad=cfg.vocab,
-        kv_cache_dtype=kv_cache_dtype, param_transform=param_transform,
+        cfg=cfg, axis_n=axis_n, heads=make_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.hd, axis_n),
+        vocab_pad=-(-cfg.vocab // n) * n, kv_cache_dtype=kv_cache_dtype,
+        param_transform=param_transform,
     )
+
+
+def tp_rules(plan: ModelPlan):
+    """The ambient rules where their mesh has a "model" axis larger than 1
+    (:func:`repro_torch.dist.sharding.model_axis`), else None.  Under them
+    the forward pass is one rank's part of a tensor-parallel program on its
+    local params (:func:`repro_torch.dist.sharding.shard_tree`), and each
+    leaf's layout is the rules' (:meth:`Rules.shard_dim` of its logical
+    axes, :data:`_TP_AXES`).  The plan must be padded for the axis, the
+    rules must cut the (padded) heads over it, and only token-only dense
+    attention decoders run (the others raise ``NotImplementedError`` naming
+    their ROADMAP item)."""
+    mesh = model_axis()
+    if mesh is None:
+        return None
+    cfg, n = plan.cfg, axis_size(mesh, "model")
+    if plan.axis_n != n:
+        raise ValueError(f"the plan is padded for a \"model\" axis of {plan.axis_n}, the ambient "
+                         f"rules' is {n}: make_plan(cfg, axis_n={n})")
+    if cfg.family == "encdec" or cfg.n_prefix:
+        raise NotImplementedError(f"{cfg.name}: {TP_ENCDEC_ROADMAP}")
+    if any(b.kind == "mamba" for b in cfg.pattern):
+        raise NotImplementedError(f"{cfg.name}: {TP_MAMBA_ROADMAP}")
+    if any(b.mlp == "moe" for b in cfg.pattern):
+        raise NotImplementedError(f"{cfg.name}: {TP_MOE_ROADMAP}")
+    rules = current_rules()
+    if rules.shard_dim(("heads",), "model") is None:
+        raise ValueError("the rules keep the attention heads whole: a rank of a \"model\" axis "
+                         "holds its kv slots (serve.qparams.serving_rules)")
+    return rules
+
+
+def _kv_slots(plan: ModelPlan) -> int:
+    """The kv slots a rank holds: all of them, or its share of the ambient
+    "model" axis."""
+    tp = tp_rules(plan)
+    return plan.heads.kv_pad // (axis_size(tp.mesh, "model") if tp else 1)
+
+
+# The logical axes of the leaves whose layout the tensor-parallel forward
+# reads, per period (without "layers"): a dense leaf's as param_axes gives
+# them, and a quantized leaf's codes matrix (out, in) as
+# serve.qparams.qt_param_axes gives it (q and wo follow the heads, which a
+# padded plan always cuts).
+_TP_AXES = {
+    "wk": (("embed", "kv_heads", "head_dim"), ("kv_fused", "embed")),
+    "bk": (("kv_heads", "head_dim"), None),
+    "wd": (("ffn", "embed"), (None, "ffn")),
+    "embed": (("vocab", "embed"), None),
+    "lm_head": (("embed", "vocab"), ("vocab", "embed")),
+}
+
+
+def _cut(tp, leaf: str, w) -> Optional[int]:
+    """The dimension of ``w`` (leaf ``leaf``'s local tensor; of a quantized
+    weight, its (out, in) matrix) the rules ``tp`` cut over "model", or
+    None: whole, or no model axis."""
+    if tp is None:
+        return None
+    dense, quantized = _TP_AXES[leaf]
+    return tp.shard_dim(quantized if isinstance(w, (QuantizedTensor, HoistedDequant)) else dense,
+                        "model")
+
+
+def _row_parallel(w, x, tp, name: str):
+    """y = x @ W for a row-parallel weight (``wo``'s kv slots, ``wd``'s ffn
+    block): this rank's product is a partial sum, formed in fp32,
+    all-reduced over "model" in fp32 and cast once, to x's dtype for a
+    quantized weight and to a dense weight's own (a bf16 ``o`` from bf16
+    pages meets an fp32 ``wo`` upcast, as :func:`_apply_out_proj` does).
+    Where the one-rank product rounds twice (a quantized weight with
+    outlier planes and x not fp32: the GEMM's output is rounded to x's
+    dtype before the fp32 outlier adds), the GEMM's and the adds' partials
+    are reduced apart and rounded where it rounds."""
+    quantized = isinstance(w, (QuantizedTensor, HoistedDequant))
+    dt = x.dtype if quantized else w.dtype
+    outliers = quantized and (w.outlier_values is not None or w.outlier_col_idx is not None)
+    if not outliers or dt == torch.float32:
+        y = apply_linear(w, x.to(dt), name=name, out_dtype=torch.float32)
+        return all_reduce(y, tp.mesh, "model").to(dt)
+    plain = dataclasses.replace(w, outlier_values=None, outlier_idx=None, outlier_col_idx=None,
+                                outlier_col_vals=None)
+    y = all_reduce(apply_linear(plain, x, name=name, out_dtype=torch.float32), tp.mesh, "model")
+    x2 = x.reshape(-1, x.shape[-1])
+    adds = _outlier_adds(w, x2, x2.new_zeros(x2.shape[0], y.shape[-1], dtype=torch.float32),
+                         torch.float32)
+    adds = all_reduce(adds, tp.mesh, "model").reshape(y.shape)
+    return (y.to(dt).to(torch.float32) + adds).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -361,24 +473,80 @@ def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(cfg, hp: HeadPlan, p, h):
-    q = apply_linear(p["wq"], h, out_shape=(hp.kv_pad, hp.g_pad, hp.head_dim), name="wq")
-    k, v = _kv(hp, p, h)
+def _qkv(cfg, hp: HeadPlan, p, h, tp=None):
+    """q on this rank's kv slots (all of them without a model axis), k and v
+    expanded into the same slots (:func:`_kv`)."""
+    kv_slots = hp.kv_pad // (axis_size(tp.mesh, "model") if tp else 1)
+    q = apply_linear(p["wq"], h, out_shape=(kv_slots, hp.g_pad, hp.head_dim), name="wq")
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return q, k, v
+        q = q + p["bq"]
+    return (q, *_kv(hp, p, h, bias=cfg.qkv_bias, tp=tp))
 
 
-def _kv(hp: HeadPlan, p, h, suffix: str = ""):
-    k = apply_linear(p[f"wk{suffix}"], h, out_shape=(hp.n_kv, hp.head_dim), name=f"wk{suffix}")
-    v = apply_linear(p[f"wv{suffix}"], h, out_shape=(hp.n_kv, hp.head_dim), name=f"wv{suffix}")
-    return k, v
+def _expand_kv(hp: HeadPlan, k):
+    """(…, KV, hd) → (…, kv_pad, hd): GQA duplicates each kv head ``dup``
+    times, MHA zero-pads the slots past KV (the reference's)."""
+    if hp.dup > 1:
+        return k.repeat_interleave(hp.dup, dim=-2)
+    if hp.kv_pad > hp.n_kv:
+        return torch.cat([k, k.new_zeros(*k.shape[:-2], hp.kv_pad - hp.n_kv, k.shape[-1])], -2)
+    return k
 
 
-def _apply_out_proj(w, o, name=None):
+def _whole(t, dim: Optional[int], tp):
+    """``t`` all-gathered over "model" on ``dim`` (counted from the end), or
+    ``t`` itself where ``dim`` is None (a whole leaf's output)."""
+    return t if dim is None else gather_dim(t, dim, tp.mesh, "model").contiguous()
+
+
+def _kv(hp: HeadPlan, p, h, suffix: str = "", bias: bool = False, tp=None):
+    """k and v (plus ``bk``/``bv`` when ``bias``) in this rank's kv slots.
+
+    Under a model axis ``wk``/``wv`` are stored as the rules lay them out
+    (:func:`repro_torch.dist.sharding.make_rules`).  Where the rules cut
+    the kv heads (dense) or the fused rows in whole heads (quantized) and
+    no slot is padded, a rank's heads are its slots: nothing moves.
+    Otherwise (the ``head_dim`` fallback, fused rows cut inside a head, or
+    a replicated leaf) the rank projects its part, the parts are
+    all-gathered into the whole (…, KV, hd), and the rank expands that and
+    keeps its slots.  The gather, not a replicated copy of ``wk``/``wv``:
+    each rank stores exactly its shard of the artifact, and the gathered
+    k/v (tokens × KV × hd) are small beside the weights."""
+    full = (hp.n_kv, hp.head_dim)
+    out = []
+    for w in "kv":
+        wt, b = p[f"w{w}{suffix}"], p[f"b{w}"] if bias else None
+        if tp is None:
+            y = apply_linear(wt, h, out_shape=full, name=f"w{w}{suffix}")
+            out.append(_expand_kv(hp, y if b is None else y + b))
+            continue
+        quantized = isinstance(wt, (QuantizedTensor, HoistedDequant))
+        d = _cut(tp, "wk", wt)
+        kv_slots = hp.kv_pad // axis_size(tp.mesh, "model")
+        y = apply_linear(wt, h, name=f"w{w}{suffix}")  # (…, rows) quantized, (…, KV', hd') dense
+        if hp.kv_pad == hp.n_kv and d == (0 if quantized else 1):
+            y = y.reshape(*h.shape[:-1], kv_slots, hp.head_dim)
+            out.append(y if b is None else y + b)
+            continue
+        # the output dim the cut falls on: the fused rows, or dense (KV, hd)'s
+        y = _whole(y, None if d is None else (-1 if quantized else d - 3), tp)
+        y = y.reshape(*h.shape[:-1], *full)
+        if b is not None:
+            db = _cut(tp, "bk", b)
+            y = y + _whole(b, None if db is None else db - 2, tp)
+        lo = axis_rank(tp.mesh, "model") * kv_slots
+        out.append(_expand_kv(hp, y)[..., lo : lo + kv_slots, :])
+    return out
+
+
+def _apply_out_proj(w, o, name=None, tp=None):
     """o: (B, S, KVp, Gp, hd) → (B, S, d); dense 4-D weight, or a
-    QuantizedTensor / HoistedDequant of matrix (d, KVp·Gp·hd)."""
+    QuantizedTensor / HoistedDequant of matrix (d, KVp·Gp·hd).  Under a
+    model axis ``o`` holds the rank's slots and ``w`` is row-parallel
+    (:func:`_row_parallel`)."""
     o2 = o.reshape(*o.shape[:2], -1)
+    if tp is not None:
+        return _row_parallel(w, o2, tp, name)
     if isinstance(w, (QuantizedTensor, HoistedDequant)):
         return apply_linear(w, o2, name=name)
     _record_linear(name, o2)
@@ -474,12 +642,15 @@ def _fill_cache(cache, k, v, window, kv_dtype="bf16"):
 
 
 def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids, mode="train", cache=None,
-                   kv_dtype="bf16", page_table=None, page_write=None, q_offset=0, enc_out=None):
+                   kv_dtype="bf16", page_table=None, page_write=None, q_offset=0, enc_out=None,
+                   tp=None):
     """Self-attention sublayer in ``train``, ``prefill`` or ``decode`` mode;
     with ``page_table`` set the KV cache is block-paged.  A cross block then
-    attends ``enc_out`` (:func:`_cross_attention`)."""
+    attends ``enc_out`` (:func:`_cross_attention`).  Under a model axis
+    (``tp``) the rank attends its kv slots alone, its caches hold them, and
+    ``wo``'s partial sums are all-reduced."""
     h = apply_norm(p["ln"], x, cfg.norm)
-    q, k, v = _qkv(cfg, hp, p, h)
+    q, k, v = _qkv(cfg, hp, p, h, tp)
     if cfg.pos == "rope":
         q = rope(q, pos_ids, cfg.rope_theta)
         k = rope(k, pos_ids, cfg.rope_theta)
@@ -505,7 +676,7 @@ def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids, mode="train", cache=N
         )
         if mode == "prefill":
             _fill_cache(cache, k, v, b.window, kv_dtype)
-    out = _apply_out_proj(p["wo"], o, name="wo")
+    out = _apply_out_proj(p["wo"], o, name="wo", tp=tp)
     if cfg.post_norms:
         out = apply_norm(p["post_ln"], out, cfg.norm)
     x = x + out
@@ -532,9 +703,11 @@ def _cross_attention(cfg, hp, p, x, *, mode, cache, enc_out):
     return x + _apply_out_proj(p["wo_c"], o, name="wo_c")
 
 
-def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None):
+def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None, tp=None):
     """Dense or MoE MLP; an MoE block appends its router's load-balancing
-    loss to ``aux`` when one is given (training)."""
+    loss to ``aux`` when one is given (training).  Under a model axis whose
+    rules cut "ffn", ``wg``/``wu`` are column-parallel and ``wd``
+    row-parallel (:func:`_row_parallel`); else the MLP is replicated."""
     if b.mlp == "none":
         return x
     h = apply_norm(p["ln2"], x, cfg.norm)
@@ -548,7 +721,10 @@ def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None):
         u = activation(apply_linear(p["wg"], h, name="wg"), cfg.act)
         if cfg.gated_mlp:
             u = u * apply_linear(p["wu"], h, name="wu")
-        y = apply_linear(p["wd"], u, name="wd")
+        if _cut(tp, "wd", p["wd"]) is not None:
+            y = _row_parallel(p["wd"], u, tp, "wd")
+        else:
+            y = apply_linear(p["wd"], u, name="wd")
     if cfg.post_norms:
         y = apply_norm(p["post_ln2"], y, cfg.norm)
     return x + y
@@ -568,13 +744,14 @@ def _mamba_sublayer(cfg, p, x, *, mode="train", cache=None):
     return x + y
 
 
-def _block_apply(cfg, hp, b, p, x, *, pos_ids, aux: Optional[list] = None, **attn_kw):
+def _block_apply(cfg, hp, b, p, x, *, pos_ids, aux: Optional[list] = None, tp=None,
+                 **attn_kw):
     if b.kind == "mamba":
         x = _mamba_sublayer(cfg, p, x, mode=attn_kw.get("mode", "train"),
                             cache=attn_kw.get("cache"))
     else:
-        x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids, **attn_kw)
-    return _mlp_sublayer(cfg, b, p, x, aux)
+        x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids, tp=tp, **attn_kw)
+    return _mlp_sublayer(cfg, b, p, x, aux, tp=tp)
 
 
 def _quantized(a) -> bool:
@@ -602,6 +779,7 @@ def _run_stack(plan: ModelPlan, stack_params: dict, stack: str, x, *, mode: str,
     (:func:`_store_state`); ``aux`` (a list) collects the MoE blocks'
     router losses; ``enc_out`` is what a cross block attends."""
     cfg, hp = plan.cfg, plan.heads
+    tp = tp_rules(plan)
     pattern, n_periods = stack_layout(cfg, stack)
     for period in range(n_periods):
         p_period = period_slice(stack_params, period)
@@ -610,7 +788,7 @@ def _run_stack(plan: ModelPlan, stack_params: dict, stack: str, x, *, mode: str,
         for i, b in enumerate(pattern):
             cache = None if caches is None else {k: t[period] for k, t in caches[f"b{i}"].items()}
             x = _block_apply(cfg, hp, b, p_period[f"b{i}"], x, mode=mode, pos_ids=pos_ids,
-                             cache=cache, kv_dtype=plan.kv_cache_dtype, **attn_kw)
+                             cache=cache, kv_dtype=plan.kv_cache_dtype, tp=tp, **attn_kw)
             if b.kind == "mamba" and cache is not None:
                 _store_state(caches[f"b{i}"], period, cache)
     return x
@@ -632,12 +810,21 @@ def _store_state(stack: dict, period: int, state: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _head_logits(xc, head):
+def _head_logits(xc, head, tp=None):
+    """fp32 logits over the vocabulary.  Under a model axis whose rules cut
+    the vocabulary, a rank's head (``lm_head``, or the tied embedding)
+    holds its block of it: its logits are all-gathered on the vocabulary."""
     if isinstance(head, tuple) and head[0] == "tied":
-        return xc.to(torch.float32) @ head[1].to(torch.float32).T
-    if isinstance(head, QuantizedTensor):
-        return apply_linear(head, xc).to(torch.float32)
-    return xc.to(torch.float32) @ head.to(torch.float32)
+        leaf, w = "embed", head[1]
+        y = xc.to(torch.float32) @ w.to(torch.float32).T
+    elif isinstance(head, QuantizedTensor):
+        leaf, w = "lm_head", head
+        y = apply_linear(head, xc).to(torch.float32)
+    else:
+        leaf, w = "lm_head", head
+        y = xc.to(torch.float32) @ head.to(torch.float32)
+    cut = _cut(tp, leaf, w)
+    return _whole(y, None if cut is None else -1, tp)
 
 
 def _logit_head(plan, params):
@@ -647,7 +834,19 @@ def _logit_head(plan, params):
 
 
 def _embed_tokens(plan, params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens.long()].to(plan.dtype)
+    """Token embeddings.  Under a model axis a rank holds a block of the
+    vocabulary's rows: it looks up the tokens that fall in its block (zero
+    elsewhere) and the rows are summed over the axis in fp32, exactly, as
+    one rank holds each."""
+    emb, ids = params["embed"], tokens.long()
+    tp = tp_rules(plan)
+    if _cut(tp, "embed", emb) is not None:
+        local = ids - axis_rank(tp.mesh, "model") * emb.shape[0]
+        inside = (local >= 0) & (local < emb.shape[0])
+        rows = emb[torch.clamp(local, 0, emb.shape[0] - 1)].to(torch.float32)
+        x = all_reduce(torch.where(inside[..., None], rows, 0.0), tp.mesh, "model").to(plan.dtype)
+    else:
+        x = emb[ids].to(plan.dtype)
     if plan.cfg.name.startswith("gemma"):
         x = x * torch.tensor(math.sqrt(plan.cfg.d_model), dtype=plan.dtype, device=x.device)
     return x
@@ -773,6 +972,8 @@ def train_loss(plan: ModelPlan, params, batch: dict) -> torch.Tensor:
     model) → scalar next-token loss, plus ``0.01 · Σ router losses /
     n_layers`` for MoE models.  The prefix's positions carry no loss."""
     cfg = plan.cfg
+    if tp_rules(plan) is not None:
+        raise NotImplementedError(f"train_loss: {TP_TRAIN_ROADMAP}")
     tokens = as_tokens(batch["tokens"], params["embed"].device)
     aux = [] if any(b.mlp == "moe" for b in cfg.pattern) else None
     x = _hidden(plan, params, tokens, batch, aux)
@@ -809,14 +1010,15 @@ def _block_cache_shape(plan: ModelPlan, b: BlockDef, B: int, cap: int) -> dict:
                 "conv_bc": ((B, k - 1, 2 * cfg.ssm_ngroups * cfg.ssm_state), torch.bfloat16),
                 "ssm": ((B, nh, cfg.ssm_headdim, cfg.ssm_state), torch.float32)}
     c = min(cap, b.window) if b.window is not None else cap
+    kv_slots = _kv_slots(plan)
     if plan.kv_cache_dtype == "int4":
         raise ValueError(
             "kv_cache_dtype='int4' is paged-engine only (packed pages, "
             "quant.kv_pack_int4); the contiguous cache supports bf16 and int8"
         )
-    kv = (B, c, hp.kv_pad, hp.head_dim)
+    kv = (B, c, kv_slots, hp.head_dim)
     if plan.kv_cache_dtype == "int8":
-        sc = ((B, c, hp.kv_pad, 1), torch.float32)
+        sc = ((B, c, kv_slots, 1), torch.float32)
         out = {"k": (kv, torch.int8), "v": (kv, torch.int8), "ks": sc, "vs": sc}
     else:
         out = {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
@@ -834,7 +1036,8 @@ def _stacked(plan: ModelPlan, per_block: dict) -> dict:
 
 def cache_shapes(plan: ModelPlan, B: int, cap: int) -> dict:
     """``{"b<i>": {leaf: (shape, dtype)}}`` of the contiguous decode cache,
-    stacked over periods."""
+    stacked over periods (under a model axis, a rank's kv slots)."""
+    tp_rules(plan)  # refuses a family the model axis does not run
     return _stacked(plan, {f"b{i}": _block_cache_shape(plan, b, B, cap)
                            for i, b in enumerate(plan.cfg.pattern)})
 
@@ -864,11 +1067,35 @@ def paged_cache_shapes(plan: ModelPlan, n_pages: int, page_size: int) -> dict:
         kdt, page_hd = torch.uint8, hp.head_dim // 2
     else:
         kdt, page_hd = (torch.int8 if kv_dt == "int8" else torch.bfloat16), hp.head_dim
-    page = ((n_pages, page_size, hp.kv_pad, page_hd), kdt)
+    kv_slots = _kv_slots(plan)
+    page = ((n_pages, page_size, kv_slots, page_hd), kdt)
     sh = {"k": page, "v": page}
     if kv_dt in ("int8", "int4"):
-        sh["ks"] = sh["vs"] = ((n_pages, page_size, hp.kv_pad, 1), torch.float32)
+        sh["ks"] = sh["vs"] = ((n_pages, page_size, kv_slots, 1), torch.float32)
     return _stacked(plan, {f"b{i}": sh for i in range(len(cfg.pattern))})
+
+
+def cache_axes(plan: ModelPlan, seq_shard: bool = False) -> dict:
+    """The logical axes of :func:`cache_shapes`' leaves (the reference's):
+    attention k/v (and int8 scales, cross ``ck``/``cv``) on "heads", a Mamba
+    block's state on "ssm_heads"."""
+    seq_ax = "cache_seq" if seq_shard else None
+    out = {}
+    for i, b in enumerate(plan.cfg.pattern):
+        if b.kind == "attn":
+            kv = ("layers", "batch", seq_ax, "heads", None)
+            ax = {"k": kv, "v": kv}
+            if plan.kv_cache_dtype == "int8":
+                ax.update(ks=kv, vs=kv)
+            if b.cross:
+                ax.update(ck=("layers", "batch", None, "heads", None),
+                          cv=("layers", "batch", None, "heads", None))
+        else:
+            ax = {"conv_x": ("layers", "batch", None, "ssm_heads", None),
+                  "conv_bc": ("layers", "batch", None, None),
+                  "ssm": ("layers", "batch", "ssm_heads", None, None)}
+        out[f"b{i}"] = ax
+    return out
 
 
 def _zeros(shapes: dict, device) -> dict:
@@ -888,7 +1115,8 @@ def init_paged_cache(plan: ModelPlan, n_pages: int, page_size: int, *, device="c
 def _final_logits(plan, params, x):
     cfg = plan.cfg
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return softcap(_head_logits(x, _logit_head(plan, params))[:, 0], cfg.logit_softcap)
+    return softcap(_head_logits(x, _logit_head(plan, params), tp_rules(plan))[:, 0],
+                   cfg.logit_softcap)
 
 
 def _positions(pos, B: int, device) -> torch.Tensor:

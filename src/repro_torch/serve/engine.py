@@ -41,6 +41,15 @@ their timer stops.  ``decode_seconds`` and ``prefill_seconds`` sum the host
 wall time (``time.perf_counter``) of those calls; the injectable ``clock``
 is read exactly where the reference reads it.
 
+Tensor parallelism: built and run inside ``dist.sharding.axis_rules`` of a
+"model" axis larger than 1, on a rank's local params
+(``dist.sharding.shard_tree``), an engine is one rank's part of an SPMD
+program: every rank of the axis runs the same engine on the same requests,
+its caches (and the paged pool's pages) hold the rank's kv slots, and the
+logits each step brings back are the whole vocabulary's, gathered, so every
+rank picks the same greedy token and makes the same scheduling decisions.
+Deadlines (ranks' clocks differ) and speculation are refused there.
+
 Speculative decoding (``spec=``, a :class:`~repro_torch.serve.spec.SpecConfig`):
 each decode round of the paged engine is propose → verify → commit.  A
 draft stack proposes up to γ tokens per lane, the target scores them in one
@@ -62,6 +71,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import require_on_device
+from repro_torch.dist.collectives import axis_size
+from repro_torch.dist.sharding import TP_SPEC_ROADMAP
 from repro_torch.faults import TransientFault, fault_point
 from repro_torch.models import (
     decode_step,
@@ -76,6 +87,7 @@ from repro_torch.models.model import (
     check_positions,
     check_token_only,
     paged_verify_tokens,
+    tp_rules,
 )
 from repro_torch.serve.kv_cache import NULL_PAGE, PagePool, page_nbytes
 from repro_torch.serve.spec import DraftManager, SpecConfig, greedy_accept_len, maybe_hoist
@@ -128,6 +140,11 @@ def _host_logits(logits: torch.Tensor) -> np.ndarray:
     return logits.to(torch.float32).cpu().numpy()
 
 
+def _check_tp_request(tp, req) -> None:
+    if tp is not None and req.deadline_ms is not None:
+        raise NotImplementedError(f"request {req.rid}: a deadline ({TP_SPEC_ROADMAP})")
+
+
 class ServingEngine:
     """Contiguous-slot engine: per-slot ``max_seq`` KV reservation.
 
@@ -163,6 +180,7 @@ class ServingEngine:
         self.logit_trace: dict[int, list] = {}
 
         self.cache = init_cache(plan, max_batch, max_seq, device=self.device)
+        self._tp = tp_rules(plan)
         self.slot_req: list[Optional[Request]] = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int64)
         self.queue: list[Request] = []
@@ -186,6 +204,7 @@ class ServingEngine:
                 f"request {req.rid} cannot fit: prompt {len(req.prompt)} + "
                 f"max_new {req.max_new_tokens} > max_seq {self.max_seq}"
             )
+        _check_tp_request(self._tp, req)
         req.output = []
         req.status = "queued"
         req.submit_t = self.clock()
@@ -328,6 +347,9 @@ class PagedServingEngine:
         self.clock = clock or time.monotonic
 
         self.cache = init_paged_cache(plan, n_pages, page_size, device=self.device)
+        self._tp = tp_rules(plan)
+        if spec is not None and self._tp is not None:
+            raise NotImplementedError(f"spec=: {TP_SPEC_ROADMAP}")
         self.pool = PagePool(n_pages, page_size)
         self.table = np.full((max_batch, self.pages_per_seq), NULL_PAGE, np.int32)
         self._dev_table = None  # rebuilt lazily when self.table changes
@@ -381,8 +403,9 @@ class PagedServingEngine:
     def kv_read_bytes(self) -> int:
         """Decode-attention KV bytes implied by the page-read counter."""
         hp = self.plan.heads
+        kv_slots = hp.kv_pad // axis_size(self._tp.mesh if self._tp else None, "model")
         per_page = page_nbytes(
-            self.page_size, hp.kv_pad, hp.head_dim,
+            self.page_size, kv_slots, hp.head_dim,
             self.plan.cfg.n_periods, self.plan.kv_cache_dtype,
         )
         return self.n_kv_page_reads * per_page
@@ -401,6 +424,7 @@ class PagedServingEngine:
                 f"request {req.rid} cannot fit: needs {need} pages / "
                 f"{len(req.prompt) + req.max_new_tokens} positions"
             )
+        _check_tp_request(self._tp, req)
         req.output = []
         req.status = "queued"
         req.submit_t = self.clock()

@@ -9,6 +9,14 @@ dense in their own dtype: norms, biases, embeddings, the MoE router, and a
 Mamba block's dynamics (``wdt``, ``a_log`` and ``dt_bias`` in fp32,
 ``d_skip``, the convolution weights, ``norm_scale``).
 
+The layout tables of a serving artifact are the reference's:
+:func:`qt_param_shapes` (each leaf's shape and dtype, a quantized leaf's
+codes, scale and zero as :class:`QTShape`), :func:`qt_param_axes` (its
+logical axes: the codes matrix is ``(out_fused, d_in)``, column-parallel
+linears name their out rows, row-parallel ones their in columns) and
+:func:`qt_rules_extra` (the fused names' entries); :func:`serving_rules`
+builds a model axis' rules from them, as the reference's dry-run does.
+
 The port's dequant-GEMM reads packed 4-bit codes in the linear layout, so
 on the port's own backends (``"cuda"``, ``"cpu"``) every leaf stays linear.
 ``backend="tpu"`` reproduces the reference's tile-native prepack and its
@@ -36,7 +44,133 @@ from repro_torch.quant import (
 from repro_torch.quant.pack import prepack_codes, select_tile_k, unpack_codes
 
 __all__ = ["quantize_params_for_serving", "prepack_params_for_serving",
-           "rtn_quantize_for_serving", "harmonize_qt_stack"]
+           "rtn_quantize_for_serving", "harmonize_qt_stack", "QTShape", "qt_param_shapes",
+           "qt_param_axes", "qt_rules_extra", "serving_rules"]
+
+
+def _linear_meta(plan, name: str) -> tuple:
+    """``(out_fused, d_in, axis_out, axis_in)`` of a quantizable leaf."""
+    cfg, hp = plan.cfg, plan.heads
+    d, hd = cfg.d_model, cfg.hd
+    heads = hp.kv_pad * hp.g_pad * hd
+    kv = hp.n_kv * hd
+    ssm = cfg.ssm_nheads * cfg.ssm_headdim
+    return {
+        "wq": (heads, d, "heads_fused", "embed"),
+        "wk": (kv, d, "kv_fused", "embed"),
+        "wv": (kv, d, "kv_fused", "embed"),
+        "wo": (d, heads, None, "heads_fused"),
+        "wq_c": (heads, d, "heads_fused", "embed"),
+        "wk_c": (kv, d, "kv_fused", "embed"),
+        "wv_c": (kv, d, "kv_fused", "embed"),
+        "wo_c": (d, heads, None, "heads_fused"),
+        "wg": (cfg.d_ff, d, "ffn", "embed"),
+        "wu": (cfg.d_ff, d, "ffn", "embed"),
+        "wd": (d, cfg.d_ff, None, "ffn"),
+        "wz": (ssm, d, "ssm_fused", "embed"),
+        "wx": (ssm, d, "ssm_fused", "embed"),
+        "wbc": (2 * cfg.ssm_ngroups * cfg.ssm_state, d, None, "embed"),
+        "out_proj": (d, ssm, None, "ssm_fused"),
+        "w_gate": (cfg.moe_ff, d, "expert_ffn", "embed"),
+        "w_up": (cfg.moe_ff, d, "expert_ffn", "embed"),
+        "w_down": (d, cfg.moe_ff, None, "expert_ffn"),
+    }[name]
+
+
+def qt_rules_extra(plan, axis_n: int) -> dict:
+    """The fused names' rules entries: "model" where the fused width divides
+    the axis, else replicated."""
+    cfg, hp = plan.cfg, plan.heads
+    fits = lambda n: n > 0 and n % axis_n == 0
+    return {
+        "heads_fused": "model" if fits(hp.kv_pad * hp.g_pad * cfg.hd) else None,
+        "kv_fused": "model" if fits(hp.n_kv * cfg.hd) else None,
+        "ssm_fused": "model" if fits(cfg.ssm_nheads * cfg.ssm_headdim) else None,
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class QTShape:
+    """A quantized leaf's layout: ``codes``, ``scale`` and ``zero`` as
+    ``(shape, dtype)``, with the leaf's static fields."""
+
+    codes: tuple
+    scale: tuple
+    zero: tuple
+    bits: int
+    group_size: Optional[int]
+    packed: bool
+
+
+def _lead(cfg, name: str, stack: str) -> tuple:
+    n = cfg.n_enc_periods if stack == "enc" else cfg.n_periods
+    return (n, cfg.n_experts) if name in _MOE_NAMES else (n,)
+
+
+def _map_quantizable(plan, dense: dict, fn) -> dict:
+    """``dense`` with each stack's quantizable leaves replaced by
+    ``fn(name, stack)``."""
+    out = dict(dense)
+    for stack in ("dec", "enc"):
+        if stack in dense:
+            out[stack] = {key: {name: fn(name, stack) if name in QUANTIZABLE else leaf
+                                for name, leaf in blk.items()}
+                          for key, blk in dense[stack].items()}
+    return out
+
+
+def qt_param_shapes(plan, bits: int = 4) -> dict:
+    """The serving artifact's leaves as ``(shape, dtype)`` (the reference's
+    ShapeDtypeStruct tree): dense leaves as :func:`param_shapes` has them, a
+    quantizable leaf a :class:`QTShape` of uint8 codes (two a byte at 4
+    bits where d_in is even) and a per-channel fp32 grid."""
+    from repro_torch.models import model as M
+
+    dense = M.tree_map(lambda t: (tuple(t.shape), t.dtype), M.param_shapes(plan),
+                       is_leaf=torch.is_tensor)
+
+    def quant(name, stack):
+        out_f, d_in, _, _ = _linear_meta(plan, name)
+        lead = _lead(plan.cfg, name, stack)
+        packed = bits == 4 and d_in % 2 == 0
+        return QTShape(codes=((*lead, out_f, d_in // 2 if packed else d_in), torch.uint8),
+                       scale=((*lead, out_f, 1), torch.float32),
+                       zero=((*lead, out_f, 1), torch.float32),
+                       bits=bits, group_size=None, packed=packed)
+
+    return _map_quantizable(plan, dense, quant)
+
+
+def qt_param_axes(plan) -> dict:
+    """The serving artifact's logical axes: dense leaves as
+    :func:`param_axes` has them, a quantizable leaf ``{"codes": (…, out,
+    in), "scale": (…, out, None), "zero": (…, out, None)}`` with lead axes
+    ``("layers",)`` or ``("layers", "experts")``."""
+    from repro_torch.models import model as M
+
+    def quant(name, stack):
+        _, _, ax_o, ax_i = _linear_meta(plan, name)
+        lead = ("layers", "experts") if name in _MOE_NAMES else ("layers",)
+        return {"codes": (*lead, ax_o, ax_i), "scale": (*lead, ax_o, None),
+                "zero": (*lead, ax_o, None)}
+
+    return _map_quantizable(plan, M.param_axes(plan), quant)
+
+
+def serving_rules(plan, mesh):
+    """The rules of ``mesh`` for serving ``plan`` (the reference dry-run's
+    table, batch left to the mesh): heads, kv heads, head dim, ffn and
+    vocabulary at their padded sizes, and :func:`qt_rules_extra`'s fused
+    names, so :func:`repro_torch.dist.sharding.shard_tree` cuts dense params
+    by :func:`~repro_torch.models.model.param_axes` and an artifact by
+    :func:`qt_param_axes` consistently."""
+    from repro_torch.dist.sharding import axis_sizes, make_rules
+
+    cfg, hp = plan.cfg, plan.heads
+    return make_rules(mesh, n_heads=hp.h_pad, n_kv_heads=hp.n_kv, head_dim=cfg.hd,
+                      d_ff=cfg.d_ff, n_experts=cfg.n_experts, vocab=plan.vocab_pad,
+                      d_model=cfg.d_model,
+                      extra=qt_rules_extra(plan, axis_sizes(mesh).get("model", 1)))
 
 
 def _static_meta(qt: QuantizedTensor) -> tuple:

@@ -35,7 +35,7 @@ from repro_torch.device import require_on_device, resolve_device
 from repro_torch.dist import checkpoint as ckpt
 from repro_torch.dist.collectives import axis_rank, axis_size, gather_dim, shard_dim
 from repro_torch.dist.elastic import RetryingRunner
-from repro_torch.dist.sharding import TP_ROADMAP, axis_sizes, make_rules
+from repro_torch.dist.sharding import TP_TRAIN_ROADMAP, axis_sizes, make_rules
 from repro_torch.models.model import init_params, make_plan, param_axes, param_shapes
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, moment_axes
 from repro_torch.train.train_step import make_train_step
@@ -75,7 +75,7 @@ class Trainer:
         model_n = axis_sizes(mesh).get("model", 1)
         if model_n > 1:
             raise NotImplementedError(f"Trainer(mesh=) with a \"model\" axis of {model_n}: "
-                                      f"{TP_ROADMAP}")
+                                      f"{TP_TRAIN_ROADMAP}")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg

@@ -1,4 +1,4 @@
-"""Spawned gloo ranks for the port's data-parallel tests.
+"""Spawned gloo ranks for the port's data- and tensor-parallel tests.
 
 :func:`start_group` starts ``world`` processes with the ``spawn`` method,
 joins them in one gloo process group through a ``file://`` store under the
@@ -77,17 +77,40 @@ class Group:
 
     def result(self) -> list:
         """The ranks' results in rank order; a rank that raised fails the
-        call with its traceback."""
+        call with its traceback.  Collected once: a later call returns (or
+        raises) the same."""
+        if not hasattr(self, "_outcome"):
+            try:
+                self._outcome = (True, self._collect())
+            except BaseException as e:  # noqa: BLE001 - re-raised below, and on every call
+                self._outcome = (False, e)
+        ok, value = self._outcome
+        if not ok:
+            raise value
+        return value
+
+    def close(self) -> None:
+        """Collect the ranks (stopping any that hang) if nobody has."""
         try:
-            got, failed = {}, []
+            self.result()
+        except BaseException:  # noqa: BLE001 - a test that read the group reported it
+            pass
+
+    def _collect(self) -> list:
+        got, failed = {}, []
+        try:
             for _ in self.procs:
                 rank, ok, out = self.queue.get(timeout=TIMEOUT_S)
-                (got.__setitem__(rank, out) if ok else failed.append(f"rank {rank} failed:\n{out}"))
+                if not ok:
+                    # Its peers may wait on it in a collective: stop them.
+                    failed.append(f"rank {rank} failed:\n{out}")
+                    break
+                got[rank] = out
             if failed:
                 raise AssertionError("\n".join(failed))
         finally:
             for p in self.procs:
-                p.join(timeout=30)
+                p.join(timeout=2 if failed else 30)
                 if p.is_alive():
                     p.kill()
                     p.join(timeout=10)
@@ -234,6 +257,10 @@ def ptq_rank(rank, world, case):
         dist.barrier()
     if world == 3:
         out["elastic"] = _elastic()
+        # Every rank past the meshes' subgroup handshakes before any rank
+        # tears its process group down (a peer still connecting saw
+        # "Connection closed by peer").
+        dist.barrier()
     return out
 
 
@@ -314,5 +341,111 @@ def train_rank(rank, world, case, root):
                              tree_bits({"p": tr.params, "o": tr.opt_state})))
             same.append(runs[0] == runs[1])
         out["one_rank_bitwise"] = same
+    dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rank functions of tests/test_torch_tp.py
+# ---------------------------------------------------------------------------
+
+
+def storage_bytes(tree) -> dict:
+    """``{path: bytes of the storage behind the leaf}`` of a params tree, a
+    QuantizedTensor's array fields as ``path.field``: what a rank holds."""
+    from repro_torch.quant import QuantizedTensor
+
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, QuantizedTensor):
+            for f in dataclasses.fields(node):
+                t = getattr(node, f.name)
+                if isinstance(t, torch.Tensor):
+                    out[f"{path}.{f.name}"] = t.untyped_storage().nbytes()
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else k)
+        else:
+            out[path] = node.untyped_storage().nbytes()
+
+    walk(tree, "")
+    return out
+
+
+def tp_serve(plan, params, case, cache):
+    """Prefill on a fresh contiguous cache, one decode step from ``cache``
+    (the reference prefill's, or a rank's shard of it), then each engine
+    on the case's prompts (logits recorded): what the tensor-parallel test
+    compares, run the same way on one rank or on a model axis."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServingEngine, Request, ServingEngine
+
+    tokens = case["tokens"]
+    fresh = M.init_cache(plan, tokens.shape[0], case["cap"], device="cpu")
+    l1, _ = M.prefill(plan, params, {"tokens": tokens}, fresh)
+    l2, cache = M.decode_step(plan, params, case["next"], cache, tokens.shape[1])
+    # The cache entries the decode step wrote (bf16), one (k, v) per period
+    # and block: (B, kv slots, hd).
+    wrote = [(c["k"][i, :, tokens.shape[1]].float().numpy(),
+              c["v"][i, :, tokens.shape[1]].float().numpy())
+             for c in (cache[k] for k in sorted(cache)) for i in range(c["k"].shape[0])]
+    out = {"prefill": l1.float().numpy(), "decode": l2.float().numpy(), "wrote": wrote}
+    for eng_name, kw in case["engines"].items():
+        cls = PagedServingEngine if eng_name.startswith("paged") else ServingEngine
+        eplan = dataclasses.replace(plan, kv_cache_dtype="int8") if eng_name == "paged_int8" \
+            else plan
+        eng = cls(eplan, params, record_logits=True, device="cpu", **kw)
+        for i, p in enumerate(case["prompts"]):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=case["max_new"]))
+        eng.run()
+        out[eng_name] = ({r.rid: r.output for r in eng.finished}, eng.logit_trace)
+    return out
+
+
+def tp_rank(rank, world, cases):
+    """Every case of ``cases`` on a ("model",) mesh over all ranks: the
+    whole params (dense or a serving artifact) cut by
+    ``dist.sharding.shard_tree`` under ``serve.qparams.serving_rules``, then
+    :func:`tp_serve` inside the rules; each case's storage bytes per leaf
+    and collectives (the forward pass' ``all_reduce`` and ``gather_dim``
+    calls and bytes, counted by wrapping them) come back with its
+    outputs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import axis_rules, shard_tree
+    from repro_torch.models import model as M
+    from repro_torch.serve.qparams import qt_param_axes, serving_rules
+
+    mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("model",))
+    comm = {}
+
+    def counted(kind, fn):
+        def call(t, *a, **k):  # the bytes a rank sends: its tensor, or its shard
+            row = comm[kind]
+            row[0], row[1] = row[0] + 1, row[1] + t.numel() * t.element_size()
+            return fn(t, *a, **k)
+        return call
+
+    originals = {"all_reduce": M.all_reduce, "gather_dim": M.gather_dim}
+    M.all_reduce = counted("all_reduce", originals["all_reduce"])
+    M.gather_dim = counted("all_gather", originals["gather_dim"])
+    out = {}
+    try:
+        for name, case in cases.items():
+            plan = M.make_plan(case["cfg"], world)
+            rules = serving_rules(plan, mesh)
+            axes = qt_param_axes(plan) if case["quantized"] else M.param_axes(plan)
+            local = shard_tree(case["params"], axes, rules)
+            cache = shard_tree(case["cache"], M.cache_axes(plan), rules)
+            comm.update(all_reduce=[0, 0], all_gather=[0, 0])
+            with axis_rules(rules):
+                res = tp_serve(plan, local, case, cache)
+            res["bytes"] = storage_bytes(local)
+            res["comm"] = {k: list(v) for k, v in comm.items()}
+            out[name] = res
+    finally:
+        M.all_reduce, M.gather_dim = originals["all_reduce"], originals["gather_dim"]
     dist.barrier()
     return out

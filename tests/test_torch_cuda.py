@@ -380,6 +380,39 @@ def test_dequant_matmul_tensor_core_variants(cuda, variant, gsz, p, packed4):
             _dq_check(y, y_ref, out_dtype)
 
 
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("q,p", [(3072, 3072), (3072, 8192)])
+def test_dequant_matmul_row_parallel_partials(cuda, q, p, m):
+    """The tensor-parallel row-parallel product (Phi-3-mini's ``wo`` and
+    ``wd`` at a model axis of 2): each rank's k/2 columns of packed 4-bit
+    per-channel codes, cut by ``dist.sharding.shard_tree``, through the
+    dequant-GEMM with fp32 out (bf16 x), each partial against the plain
+    version at rtol 1e-6 / atol 1e-4, and their sum against the whole
+    product's plain version within 1e-4 of max |y| (two fp32 sums)."""
+    from repro_torch.dist.sharding import make_rules, shard_tree
+    from repro_torch.quant import QuantizedTensor
+
+    x, codes, scale, zero = _gemm(q + p + m, m, q, p, 1, cuda, torch.bfloat16)
+    qt = QuantizedTensor(codes=pack_codes(codes, 4), scale=scale, zero=zero, bits=4, packed=True)
+    axes = {"codes": (None, "ffn"), "scale": (None, None), "zero": (None, None)}
+    rules = make_rules({"model": 2}, d_ff=p)
+    y_ref = ref.dequant_matmul_ref(x, codes, scale, zero, out_dtype=torch.float32)
+    parts = []
+    for rank in range(2):
+        part = shard_tree({"w": qt}, {"w": axes}, rules, rank=rank)["w"]
+        assert part.codes.shape == (q, p // 4) and part.scale.data_ptr() == scale.data_ptr()
+        xr = x[:, rank * p // 2:(rank + 1) * p // 2].contiguous()
+        before = ops.launch_counts()["dequant_matmul"]
+        y = ops.dequant_matmul(xr, part.codes, part.scale, part.zero, packed4=True,
+                               out_dtype=torch.float32)
+        assert ops.launch_counts()["dequant_matmul"] == before + 1 and y.dtype == torch.float32
+        _dq_check(y, ref.dequant_matmul_ref(xr, part.unpacked_codes(), part.scale, part.zero,
+                                            out_dtype=torch.float32), torch.float32)
+        parts.append(y)
+    total = parts[0] + parts[1]
+    assert float((total - y_ref).abs().max()) <= 1e-4 * float(y_ref.abs().max())
+
+
 @pytest.mark.parametrize("m,x_dtype,gsz,variant", [
     (8, torch.bfloat16, None, "tc_small"),
     (64, torch.bfloat16, 128, "tc_small"),

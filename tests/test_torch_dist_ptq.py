@@ -92,18 +92,41 @@ def _case():
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def started(tmp_path_factory):
+    """The case, the two groups started at once, and the reference's
+    unsharded PTQ of the reduced model, run here while the ranks work."""
     case = _case()
     sent = {k: v for k, v in case.items() if k != "jcfg"}
     tmp = tmp_path_factory.mktemp("dist_ptq")
-    # Both groups run at once, while this process runs the reference's
-    # unsharded PTQ of the reduced model.
     groups = {n: start_group(ptq_rank, n, tmp, sent) for n in (2, 3)}
-    _, case["report"] = jsolver.ptq_quantize_model(
-        jplan(case["jcfg"], 1), jax.tree.map(jnp.asarray, case["params"]),
-        [{"tokens": jnp.asarray(b["tokens"])} for b in case["calib"]],
-        jsolver.PTQConfig(method="quantease", spec=JSpec(bits=4), iterations=ITERATIONS))
-    return case, {n: g.result() for n, g in groups.items()}
+    try:
+        _, case["report"] = jsolver.ptq_quantize_model(
+            jplan(case["jcfg"], 1), jax.tree.map(jnp.asarray, case["params"]),
+            [{"tokens": jnp.asarray(b["tokens"])} for b in case["calib"]],
+            jsolver.PTQConfig(method="quantease", spec=JSpec(bits=4), iterations=ITERATIONS))
+        yield case, groups
+    finally:
+        for g in groups.values():  # a group no test read is still collected
+            g.close()
+
+
+# One fixture per group: a rank that fails errors only the tests that read
+# its group.
+@pytest.fixture(scope="module")
+def runs2(started):
+    case, groups = started
+    return case, {2: groups[2].result()}
+
+
+@pytest.fixture(scope="module")
+def runs3(started):
+    case, groups = started
+    return case, {3: groups[3].result()}
+
+
+@pytest.fixture
+def runs(request, world):
+    return request.getfixturevalue(f"runs{world}")
 
 
 @pytest.mark.parametrize("world", [2, 3])
@@ -118,9 +141,9 @@ def test_sharded_gram_matches_the_reference(runs, world):
         np.testing.assert_allclose(got[0], ref, rtol=0, atol=GRAM_RTOL * np.abs(ref).max())
 
 
-def test_sharded_gram_matches_the_references_two_device_gram(runs, tmp_path):
+def test_sharded_gram_matches_the_references_two_device_gram(runs2, tmp_path):
     """The reference's own shard_map + psum on two forged JAX devices."""
-    case, out = runs
+    case, out = runs2
     np.save(tmp_path / "x.npy", case["gram_x"])
     code = (
         "import os; os.environ['XLA_FLAGS']='--xla_force_host_platform_device_count=2'\n"
@@ -230,12 +253,12 @@ def test_qe_outlier_under_a_mesh_is_the_local_solve(runs, world):
     assert all(o["qe_outlier_bitwise"] for o in runs[1][world])
 
 
-def test_qgather_matches_the_reference(runs):
+def test_qgather_matches_the_reference(runs2):
     """Codes equal the reference's (its arithmetic: max |x| / 127 + 1e-12,
     round, clip); values within one ulp of the leaf's dtype of the
     reference's ``_gather_int8`` on one device (its constraints the
     identity there)."""
-    case, out = runs
+    case, out = runs2
     mesh = jax.make_mesh((1,), ("data",), axis_types=(jax.sharding.AxisType.Auto,))
     rules = jmake_rules(mesh, d_model=case["qg_d"], fsdp=True)
     leaves = {k: jnp.asarray(v) for k, v in case["qg_leaves"].items()}
@@ -263,8 +286,8 @@ def test_qgather_matches_the_reference(runs):
         np.testing.assert_array_equal(tcodes, jcodes, err_msg=k)
 
 
-def test_sharded_ptq_report_matches_the_unsharded_reference(runs):
-    case, out = runs
+def test_sharded_ptq_report_matches_the_unsharded_reference(runs2):
+    case, out = runs2
     want = case["report"]
     r0, r1 = out[2]
     assert list(r0["report"]) == list(want) and r0["report"] == r1["report"]
@@ -276,8 +299,8 @@ def test_sharded_ptq_report_matches_the_unsharded_reference(runs):
     assert r0["one_rank_bitwise"] is True
 
 
-def test_elastic_mesh_at_three_ranks(runs):
-    for rank, o in enumerate(runs[1][3]):
+def test_elastic_mesh_at_three_ranks(runs3):
+    for rank, o in enumerate(runs3[1][3]):
         shape, names, ranks, coord, refused = o["elastic"]
         assert shape == (1, 2) and names == ("data", "model") and ranks == [[0, 1]]
         assert coord == ([0, rank] if rank < 2 else None)

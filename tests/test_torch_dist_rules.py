@@ -121,9 +121,14 @@ def test_logical_constraint_and_the_data_mesh_without_a_group():
         assert tsharding.current_rules() is rules
         assert tsharding.logical_constraint(x, ("batch", None)) is x
     assert tsharding.current_rules() is None
+    # Under explicit collectives a rank's tensor already is its shard, on a
+    # "model" axis too; the tensor-parallel forward needs the axis' process
+    # group, which a {name: size} mapping has not.
     with tsharding.axis_rules(tsharding.make_rules({"data": 2, "model": 2})):
-        with pytest.raises(NotImplementedError, match="item 8.1"):
-            tsharding.logical_constraint(x, ("batch", None))
+        assert tsharding.logical_constraint(x, ("batch", "heads")) is x
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            tsharding.model_axis()
+    assert tsharding.model_axis() is None
     assert make_data_mesh(device="cpu") is None and make_data_mesh(1, device="cpu") is None
 
 
