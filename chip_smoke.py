@@ -156,10 +156,12 @@ Phases (any failed check exits non-zero; no phase is skipped):
    decode step and attention layer, and each config's kernel 3 and 5
    calls are held against their plain versions (one kept call per
    signature; kernel 5 within ``PAGED_ATOL`` scaled by max |out| above 1),
-   with kernel 5's plan printed per head shape; OLMoE's CD calls too
-   (kernels 2 and 4, kernel 1 on each of their blocks), one signature at a
-   time right after each group solve, and of OPT-66B one: a quantizing
-   fused iteration at p = 36,864 and its 144 block sweeps;
+   with kernel 5's plan printed per head shape; of OLMoE's CD calls two
+   signatures, right after their group's solve: the 64-expert group's
+   quantizing fused iteration at 4 bits and its outlier-aware iteration
+   (kernels 2 and 4, kernel 1 on each of their blocks), and of OPT-66B
+   one: a quantizing fused iteration at p = 36,864 and its 144 block
+   sweeps;
 11. Mamba-2 and the hybrid Jamba at full width, seeded random bf16 weights:
    (a) Mamba-2-2.7B (4 of 64 layers; d 2560, 80 SSD heads of 64, state
    128, vocab 50,280 tied): RTN and QuantEase at 4 bits, QuantEase and
@@ -241,7 +243,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
    run's, their tokens equal up to its first top-2 margin below that
    bound; launches, the collectives' calls, bytes and seconds, and ms per
    decode step against one rank are printed (kernel 3's fp32 partials cost
-   nothing measurable against bf16 out: PERF.md, PR 26).
+   nothing measurable against bf16 out: PERF.md); (d) the same
+   ranks stay up, their card freed, until phases 10 and 11 have run: then
+   each loads on the CPU the artifact those phases saved (10 (a)'s OLMoE
+   quantease@4, one layer; 11 (b)(ii)'s Jamba blocks 0+1 RTN@4, 7.5 GB),
+   moves its shard alone to the card (every leaf's storage its shard) and
+   serves their requests with their engine settings (OLMoE paged, bf16 KV,
+   8 x 32, its 64 experts 32 a rank; Jamba contiguous, 4 x 16: kv 8 -> 4,
+   d_ff 24,576 -> 12,288, 256 SSD heads -> 128, 16 experts -> 8); those
+   phases' served runs, their logits recorded, are the one-rank baselines:
+   the ranks' tokens and router ids the same, their first decode step's
+   logits within 2 % of max |logit| of the one-rank run's (a lane past it
+   only at a router crossing: a top-k boundary whose one-rank probability
+   gap is under 1e-2, on which the ranks' ids part; each printed), no
+   token parting above the one-rank run's top-2 margin rule; every kernel-3
+   and kernel-5 signature held against its plain version once; kernel 3's
+   launches a decode step against one rank's, the collectives, ms per
+   decode step and peak memory a rank printed.
    A failed collective or rank fails the phase.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
@@ -251,6 +269,7 @@ is ``{"ok": true, "device": {...}}``.  Per-shape details go to
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -353,6 +372,21 @@ TP_PROMPTS, TP_PROMPT_LO, TP_PROMPT_HI, TP_NEW = 8, 16, 256, 16
 TP_PAGED = dict(max_batch=8, max_seq=512, page_size=16, prefill_chunk=128)  # PAGE, defined below
 TP_KV = ("bf16", "int8")
 TP_LOGIT_RTOL = 2e-2  # first-decode logits against the one-rank run's, of max |logit|
+# (d) After phases 10 and 11 the same ranks serve two more families on the
+# axis, each from the artifact its phase saved (loaded on the CPU, the
+# rank's shard alone moved to the card): phase 10 (a)'s OLMoE-1B-7B
+# quantease@4 (one layer; 16 heads, kv 8 a rank; 64 experts, 32 a rank:
+# expert-parallel) on the paged engine, and phase 11 (b)(ii)'s Jamba-1.5-
+# Large blocks 0 and 1 RTN@4 (kv 8 -> 4, d_ff 24,576 -> 12,288, 256 SSD
+# heads -> 128, 16 experts -> 8) on the contiguous engine, each with its
+# phase's requests and engine settings; those phases' own served runs, with
+# their logits recorded, are the one-rank baselines.  A first-decode lane
+# past TP_LOGIT_RTOL is allowed only where a router crosses: a top-k
+# boundary whose one-rank probability gap is under TP_ROUTER_GAP, on which
+# the ranks' top-k ids part from the one-rank run's.
+TP_FAMILIES = ("olmoe", "jamba")
+TP_WAIT_S = 1800  # how long the ranks wait after (c) for (d)
+TP_ROUTER_GAP = 1e-2
 # Phase 7: the reference's quality table (benchmarks/bench_eval.py, its full
 # budget): bench_opt_s trained 1,600 steps at batch 16 x 96, then the grid.
 QUALITY_TRAIN = dict(steps=1600, batch=16, seq=96)
@@ -485,14 +519,20 @@ FAM_DENSE = (("qwen15_32b", ("bf16",)), ("stablelm_12b", ("bf16", "int4")),
 FAM_DENSE_CALIB, FAM_DENSE_EVAL = (4, 512), (2, 512)
 FAM_REQUESTS, FAM_PROMPT_LO, FAM_PROMPT_HI, FAM_NEW = 4, 16, 512, 16
 # The CD calls (kernels 1, 2 and 4) of (a) and (b) held against their plain
-# versions after each group solve: every signature of OLMoE's three groups
-# (phase 10 (a)), and of OPT-66B one signature of its p = 36,864 group, a
-# quantizing fused iteration (kernel 2's ``plan_corr`` split at that p) with
-# its 144 block sweeps.  Qwen1.5's, StableLM-2's and Gemma 2's (48.5 s of
-# plain column loops) were cut to keep the whole run within 1,000 s once
-# phase 11 came, and OPT-66B's other five signatures (~17 s) once phase 13
+# versions after each group solve: of OLMoE's three groups (phase 10 (a))
+# the 64-expert group's quantizing fused iteration at 4 bits and its
+# outlier-aware iteration, and of OPT-66B one signature of its p = 36,864
+# group, a quantizing fused iteration (kernel 2's ``plan_corr`` split at
+# that p) with its 144 block sweeps.  Qwen1.5's, StableLM-2's and Gemma 2's
+# (48.5 s of plain column loops) were cut to keep the whole run within
+# 1,000 s once phase 11 came, OPT-66B's other five signatures (~17 s) once
+# phase 13 came, and OLMoE's other ten (~9 s of its 10.8) once phase 13 (d)
 # came; their kernel-3 and kernel-5 calls are still held.
-FAM_CD_REPLAYED = {"opt_66b": lambda key: key[1][0][0][-2] == 36864 and dict(key[2]).get("quantize")}
+FAM_CD_REPLAYED = {
+    "opt_66b": lambda key: key[1][0][0][-2] == 36864 and dict(key[2]).get("quantize"),
+    "olmoe_1b_7b": lambda key: key[1][0][0][0] == 64 and dict(key[2]).get("quantize") and (
+        key[0] == "outlier_iteration_cuda" or dict(key[2]).get("n_levels") == 16),
+}
 # (c) Mixtral-8x22B, one layer: a 4-bit RTN artifact serves 4 requests.
 FAM_MIXTRAL = "mixtral_8x22b"
 FAM_PAGED = dict(max_batch=8, max_seq=1536, page_size=PAGE, prefill_chunk=128)
@@ -3232,21 +3272,26 @@ def family_prompts(vocab: int, n: int, lo: int, hi: int) -> list:
     return [rng.integers(0, vocab, int(k)).astype(np.int32) for k in rng.integers(lo, hi + 1, n)]
 
 
-def family_serve(label, plan, artifact, prompts, new_tokens, dev):
+def family_serve(label, plan, artifact, prompts, new_tokens, dev, keep=None):
     """One paged run (every request completes, kernel 5 launched once per
-    decode step and period); returns its stats."""
+    decode step and period); returns its stats.  With ``keep`` (a dict) the
+    run records its logits and ``keep`` gets its outputs, logit trace and
+    stats: phase 13 (d)'s one-rank baseline."""
     from repro_torch.kernels import ops
     from repro_torch.serve import PagedServingEngine
 
     k5 = ops.launch_counts()["paged_attention"]
     stats, outputs, eng = serve_run(label, lambda: PagedServingEngine(
-        plan, artifact, **FAM_PAGED, device=dev), prompts, new_tokens)
+        plan, artifact, **FAM_PAGED, record_logits=keep is not None, device=dev), prompts,
+        new_tokens)
     k5 = ops.launch_counts()["paged_attention"] - k5
     n_attn = plan.cfg.n_periods * len(plan.cfg.pattern)
     check(stats["statuses"] == ["completed"] and all(len(o) == new_tokens for o in outputs.values()),
           f"{label}: statuses {stats['statuses']}")
     check(k5 == eng.n_decode_steps * n_attn,
           f"{label}: kernel 5 launched {k5}, expected {eng.n_decode_steps} x {n_attn}")
+    if keep is not None:
+        keep.update(outputs=outputs, trace=eng.logit_trace, stats=stats)
     del eng
     return stats
 
@@ -3370,8 +3415,10 @@ def less_checks(st: dict):
     return net
 
 
-def family_moe(dev, detail):
-    """Phase 10 (a): OLMoE-1B-7B at full width, FAM_MOE's layers of 16."""
+def family_moe(dev, detail, tp_keep):
+    """Phase 10 (a): OLMoE-1B-7B at full width, FAM_MOE's layers of 16.
+    The served run is phase 13 (d)'s one-rank baseline: its logits, first
+    decodes' routes and artifact go into ``tp_keep["olmoe"]``."""
     import numpy as np
     import torch
 
@@ -3400,7 +3447,7 @@ def family_moe(dev, detail):
     ops.reset_launch_counts()
     t0 = time.monotonic()
     with recording_calls() as calls:
-        with checked_solves(name, calls, seen) as st:
+        with checked_solves(name, calls, seen, replay=FAM_CD_REPLAYED[name]) as st:
             net, net_all = less_checks(st), less_checks(st)
             for method, bits in FAM_MOE_RUNS:
                 label = f"{method}@{bits}"
@@ -3425,8 +3472,11 @@ def family_moe(dev, detail):
         del params
         _free()
         prompts = serve_traffic(cfg.vocab)[:FAM_MOE_REQUESTS]
-        stats = family_serve(f"{name} {FAM_MOE_SERVED} paged bf16", plan, artifact, prompts,
-                             FAM_MOE_NEW, dev)
+        base = tp_keep["olmoe"] = dict(engine="paged", prompts=prompts, new=FAM_MOE_NEW)
+        with first_decode_routes(prompts) as (routes, per_step):
+            stats = family_serve(f"{name} {FAM_MOE_SERVED} paged bf16", plan, artifact, prompts,
+                                 FAM_MOE_NEW, dev, keep=base)
+        base.update(routes=routes, kernel3_per_step=per_step)
     torch.cuda.synchronize()
     counts = path_counts(st)
     variants = dict(dequant_matmul_cuda.launches_by_variant)
@@ -3460,6 +3510,7 @@ def family_moe(dev, detail):
           f"(PTQ and eval {t_ptq_all:.1f}s, the CD checks' {st['seconds']:.1f}s apart); served "
           f"{FAM_MOE_SERVED}: decode {stats['decode_tok_s']:.1f} tok/s, {stats['ms_per_step']:.2f} "
           f"ms/step", flush=True)
+    tp_save(tp_keep, "olmoe", f"{name} {FAM_MOE_SERVED}", cfg, artifact)
     del artifact
     _free()
     checked = merge_checked(family_checks(name, calls, variants), st["checked"])
@@ -3578,15 +3629,15 @@ def family_mixtral(dev, detail):
     return counts, checked
 
 
-def families(dev, detail):
+def families(dev, detail, tp_keep):
     """Phase 10: (a) OLMoE-1B-7B, (b) the dense configs, (c) Mixtral-8x22B,
     each at full width with its depth cut, seeded random bf16 weights, what
     the previous one left freed first.  Returns the kernels' launch counts
     summed over the configs (each read just after its config's path ran,
-    from 0) and the checked calls per config."""
+    from 0) and the checked calls per config; (a) fills ``tp_keep``."""
     per, checked = {}, {}
     _free()
-    per[FAM_MOE[0]], checked[FAM_MOE[0]] = family_moe(dev, detail)
+    per[FAM_MOE[0]], checked[FAM_MOE[0]] = family_moe(dev, detail, tp_keep)
     for name, kvs in FAM_DENSE:
         _free()
         t0 = time.monotonic()
@@ -3603,20 +3654,24 @@ def families(dev, detail):
 # ---------------------------------------------------------------------------
 
 
-def ssm_serve(label, plan, artifact, prompts, new_tokens, dev):
+def ssm_serve(label, plan, artifact, prompts, new_tokens, dev, keep=None):
     """One contiguous run (every request completes with ``new_tokens``);
-    returns its stats and kernel 3's launches by variant in the run."""
+    returns its stats and kernel 3's launches by variant in the run.  With
+    ``keep``, as :func:`family_serve`."""
     from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
     from repro_torch.serve import ServingEngine
 
     before = dict(dequant_matmul_cuda.launches_by_variant)
     stats, outputs, eng = serve_run(label, lambda: ServingEngine(
-        plan, artifact, **SSM_CONTIG, device=dev), prompts, new_tokens)
+        plan, artifact, **SSM_CONTIG, record_logits=keep is not None, device=dev), prompts,
+        new_tokens)
     by_variant = {v: c - before[v] for v, c in dequant_matmul_cuda.launches_by_variant.items()}
     check(stats["statuses"] == ["completed"] and all(len(o) == new_tokens for o in outputs.values()),
           f"{label}: statuses {stats['statuses']}")
     check(by_variant["tc_small"] > 0 and by_variant["simt"] == 0,
           f"{label}: kernel 3 launches by variant {by_variant}")
+    if keep is not None:
+        keep.update(outputs=outputs, trace=eng.logit_trace, stats=stats)
     del eng
     return stats, by_variant
 
@@ -3723,10 +3778,11 @@ def ssm_mamba(dev, detail):
     return counts, checked
 
 
-def ssm_jamba(dev, detail):
+def ssm_jamba(dev, detail, tp_keep):
     """Phase 11 (b): Jamba-1.5-Large at full width, its period cut to two
     blocks: (i) PTQ and eval on blocks 0 and 2, (ii) an RTN artifact of
-    blocks 0 and 1 served."""
+    blocks 0 and 1 served: phase 13 (d)'s one-rank baseline, whose logits,
+    first decodes' routes and artifact go into ``tp_keep["jamba"]``."""
     import numpy as np
     import torch
 
@@ -3791,8 +3847,11 @@ def ssm_jamba(dev, detail):
         t_rtn = time.monotonic() - t2
         w_up = served["dec"]["b1"]["w_up"]
         prompts = family_prompts(cfg2.vocab, FAM_REQUESTS, FAM_PROMPT_LO, FAM_PROMPT_HI)
-        stats, by_variant = ssm_serve(f"{name} blocks 0+1 rtn@4 contiguous", plan2, served,
-                                      prompts, FAM_NEW, dev)
+        base = tp_keep["jamba"] = dict(engine="contiguous", prompts=prompts, new=FAM_NEW)
+        with first_decode_routes(prompts) as (routes, per_step):
+            stats, by_variant = ssm_serve(f"{name} blocks 0+1 rtn@4 contiguous", plan2, served,
+                                          prompts, FAM_NEW, dev, keep=base)
+        base.update(routes=routes, kernel3_per_step=per_step)
         torch.cuda.synchronize()
         peak_serve = torch.cuda.max_memory_allocated() / 2**30
     counts = path_counts(st)
@@ -3823,7 +3882,9 @@ def ssm_jamba(dev, detail):
           f"{stats['ms_per_step']:.2f} ms per decode step; dequant_matmul by variant (serving) "
           f"{by_variant}; peak device memory {peak_serve:.2f} GiB; launches {counts} "
           f"({time.monotonic() - t0:.1f}s)", flush=True)
-    del served, w_up
+    del w_up
+    tp_save(tp_keep, "jamba", f"{name} blocks 0+1 rtn@4", cfg2, served)
+    del served
     _free()
     checked = merge_checked(family_checks(name, calls, variants, "phase 11"), st["checked"])
     detail.setdefault("families", {})[name] = dict(
@@ -3833,14 +3894,14 @@ def ssm_jamba(dev, detail):
     return counts, checked
 
 
-def ssm_families(dev, detail):
+def ssm_families(dev, detail, tp_keep):
     """Phase 11: (a) Mamba-2-2.7B, (b) Jamba-1.5-Large, at full width with
     their depth cut, seeded random bf16 weights, what the previous one left
     freed first.  Returns the kernels' launch counts summed over the two
     (each read just after its path ran, from 0) and the checked calls per
-    config."""
+    config; (b) fills ``tp_keep``."""
     per, checked = {}, {}
-    for name, fn in ((SSM_MAMBA[0], ssm_mamba), (SSM_JAMBA, ssm_jamba)):
+    for name, fn in ((SSM_MAMBA[0], ssm_mamba), (SSM_JAMBA, lambda d, det: ssm_jamba(d, det, tp_keep))):
         _free()
         t0 = time.monotonic()
         per[name], checked[name] = fn(dev, detail)
@@ -4096,13 +4157,16 @@ def _tree_bytes(tree) -> bytes:
     return h.hexdigest()
 
 
-def _sharded_rank(rank, world, store, out_path, dev_type, queue):
+def _sharded_rank(rank, world, store, out_path, dev_type, queue, go):
     """One rank of phase 13 (a): ``ptq_quantize_model(mesh=)`` on its
     sequences of phase 5's calibration set, QuantEase at 4 bits, its rows of
     each group through kernels 1 and 2 on the card, kernels 1 and 2 held
     against their plain versions on one call per signature.  Rank 0 saves
     its artifact and each group's Σ; every rank reports its launches, its
-    collectives and the digests of its artifact, Σ's and params."""
+    collectives and the digests of its artifact, Σ's and params, with (c)'s
+    results (:func:`tp_serve_rank`).  Then the rank frees the card and
+    waits on ``go`` for (d)'s message (None: stop), serves each family of
+    TP_FAMILIES (:func:`tp_family_rank`) and reports again."""
     import traceback
 
     import torch
@@ -4187,15 +4251,19 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue):
                                     (block_bounds(len(b["tokens"]), world, rank) for b in calib)])
             out["tp"] = tp_serve_rank(rank, plan, params, qparams["dec"], dev)
             if rank == 0:
-                cpu = lambda tree: M.tree_map(
-                    lambda a: a.map_arrays(lambda t: t.cpu()) if hasattr(a, "map_arrays")
-                    else a.cpu(), tree, is_leaf=lambda a: hasattr(a, "map_arrays"))
-                torch.save({"dec": cpu(qparams["dec"]), "sigmas": [s.cpu() for s in sigmas]},
-                           out_path)
+                torch.save({"dec": tree_to(qparams["dec"], "cpu"),
+                            "sigmas": [s.cpu() for s in sigmas]}, out_path)
             dist.barrier()
+            queue.put((rank, True, out))
+            del out, params, qparams, sigmas, calls, st, calib
+            _free()
+            msg = go.get(timeout=TP_WAIT_S)
+            if msg is not None:
+                out = {name: tp_family_rank(rank, world, msg[name], dev) for name in TP_FAMILIES}
+                dist.barrier()
+                queue.put((rank, True, out))
         finally:
             dist.destroy_process_group()
-        queue.put((rank, True, out))
     except BaseException:
         queue.put((rank, False, traceback.format_exc()))
         raise
@@ -4204,8 +4272,9 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue):
 def tp_shard_bytes(whole, local, axes, rules, n: int) -> tuple:
     """Leaf by leaf, the bytes of storage a rank holds against its shard of
     ``whole``: a leaf the rules put on "model" 1/n, any other leaf whole
-    (a per-channel grid of a row-parallel linear included).  Returns
-    ``(leaves that differ, bytes held, bytes of the whole)``."""
+    (a per-channel grid of a row-parallel linear included; an MoE matrix
+    cut on its experts cuts its grid too).  Returns ``(leaves that differ,
+    bytes held, bytes of the whole)``."""
     from repro_torch.quant import QuantizedTensor
 
     bad, held, total = [], 0, 0
@@ -4225,7 +4294,8 @@ def tp_shard_bytes(whole, local, axes, rules, n: int) -> tuple:
             dim = rules.shard_dim(tuple(ax["codes"]), "model")
             one(f"{path}.codes", w.codes, l.codes, dim is not None)
             for f in ("scale", "zero"):
-                one(f"{path}.{f}", getattr(w, f), getattr(l, f), dim == w.codes.dim() - 2)
+                one(f"{path}.{f}", getattr(w, f), getattr(l, f),
+                    dim is not None and dim <= w.codes.dim() - 2)
         elif isinstance(w, dict):
             for k in w:
                 walk(w[k], l[k], ax[k], f"{path}.{k}" if path else k)
@@ -4234,6 +4304,36 @@ def tp_shard_bytes(whole, local, axes, rules, n: int) -> tuple:
 
     walk(whole, local, axes, "")
     return bad, held, total
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """While open, the tensor-parallel forward pass' collectives
+    (``models.model.all_reduce``, ``gather_dim``) are counted into the dict
+    it yields: per kind the calls, the bytes a rank sends (its tensor, or
+    its shard) and the seconds each holds the host (gloo returns once the
+    data has arrived)."""
+    from repro_torch.models import model as M
+
+    comm = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+
+    def counted(kind, fn):
+        def call(t, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(t, *a, **k)
+            row = comm[kind]
+            row[0], row[1], row[2] = (row[0] + 1, row[1] + t.numel() * t.element_size(),
+                                      row[2] + time.perf_counter() - t0)
+            return out
+        return call
+
+    originals = M.all_reduce, M.gather_dim
+    M.all_reduce, M.gather_dim = counted("all_reduce", M.all_reduce), counted("all_gather",
+                                                                             M.gather_dim)
+    try:
+        yield comm
+    finally:
+        M.all_reduce, M.gather_dim = originals
 
 
 def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
@@ -4268,26 +4368,8 @@ def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
     prompts = family_prompts(cfg.vocab, TP_PROMPTS, TP_PROMPT_LO, TP_PROMPT_HI)
     ops.reset_launch_counts()
     variants0 = dict(dequant_matmul_cuda.launches_by_variant)
-    # The forward pass' collectives (model.all_reduce, model.gather_dim):
-    # calls, the bytes a rank sends (its tensor, or its shard) and the
-    # seconds each holds the host (gloo returns once the data has arrived).
-    comm = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
-
-    def counted(kind, fn):
-        def call(t, *a, **k):
-            t0 = time.perf_counter()
-            out = fn(t, *a, **k)
-            row = comm[kind]
-            row[0], row[1], row[2] = (row[0] + 1, row[1] + t.numel() * t.element_size(),
-                                      row[2] + time.perf_counter() - t0)
-            return out
-        return call
-
-    originals = M.all_reduce, M.gather_dim
-    M.all_reduce, M.gather_dim = counted("all_reduce", M.all_reduce), counted("all_gather",
-                                                                             M.gather_dim)
     runs = {}
-    with recording_calls() as calls, axis_rules(rules):
+    with recording_calls() as calls, axis_rules(rules), counted_collectives() as comm:
         for kv in TP_KV:
             kplan = dataclasses.replace(tplan, kv_cache_dtype=kv)
             k5 = ops.launch_counts()["paged_attention"]
@@ -4301,7 +4383,6 @@ def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
                             first={rid: t[0] for rid, t in eng.logit_trace.items()})
             del eng
         torch.cuda.synchronize()
-    M.all_reduce, M.gather_dim = originals
     counts = ops.launch_counts()
     variants = {v: n - variants0[v] for v, n in dequant_matmul_cuda.launches_by_variant.items()}
     checked = family_checks("tensor-parallel", calls, variants, phase="phase 13 (c)")
@@ -4373,35 +4454,300 @@ def tp_against_one_rank(dev, detail, plan, served, ranks) -> None:
         bytes_held=[r["tp"]["bytes_held"] for r in ranks], bytes_whole=ranks[0]["tp"]["bytes_whole"])
 
 
-def run_ranks(target, world: int, *args) -> list:
-    """``target(rank, world, *args, queue)`` in ``world`` processes started
-    with ``spawn``; their results in rank order.  A rank that fails, or does
-    not report within SHARD_TIMEOUT_S, fails the phase; every process is
-    stopped before this returns."""
-    import multiprocessing as mp
+def tp_save(keep: dict, name: str, label: str, cfg, artifact) -> None:
+    """Phase 13 (d)'s input from phase 10 (a) or 11 (b)(ii): the served
+    artifact and its config, moved to the CPU and saved under
+    ``keep["dir"]``, whose path goes into ``keep[name]``."""
+    import torch
 
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    procs = [ctx.Process(target=target, args=(r, world, *args, queue)) for r in range(world)]
-    for p in procs:
-        p.start()
+    t0 = time.monotonic()
+    path = os.path.join(keep["dir"], f"{name}.pt")
+    torch.save({"cfg": cfg, "params": tree_to(artifact, "cpu")}, path)
+    keep[name].update(path=path, label=label)
+    print(f"[tp] {label}: artifact saved for phase 13 (d), {os.path.getsize(path) / 2**30:.2f} GiB "
+          f"in {time.monotonic() - t0:.1f}s", flush=True)
+
+
+@contextlib.contextmanager
+def first_decode_routes(prompts):
+    """While open, each request's first decode step as both engines run it
+    (the prompt's last token replayed at position len - 1): per MoE layer,
+    its router's top-k expert ids and the gap between the k-th and the
+    (k+1)-th probability, ``{rid: [(ids, gap), ...]}``; and kernel 3's
+    launches in each decode step, in a list.  Yields both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.serve import engine as E
+
+    keys = {(len(p) - 1, int(p[-1])): rid for rid, p in enumerate(prompts)}
+    check(len(keys) == len(prompts), "two prompts end alike: their first decodes look the same")
+    routes, layers, per_step = {}, [], []
+    route = moe._route
+
+    def routed(router, xf, top_k, norm_topk):
+        out = route(router, xf, top_k, norm_topk)
+        layers.append((out[0], out[2], top_k))
+        return out
+
+    def first_decodes(fn):
+        def call(plan, params, tokens, cache, pos, *a, **k):
+            layers.clear()
+            k3 = ops.launch_counts()["dequant_matmul"]
+            out = fn(plan, params, tokens, cache, pos, *a, **k)
+            per_step.append(ops.launch_counts()["dequant_matmul"] - k3)
+            toks, at = np.asarray(tokens).reshape(-1), np.asarray(pos).reshape(-1)
+            for b in range(len(toks)):
+                rid = keys.get((int(at[b]), int(toks[b])))
+                if rid is None or rid in routes:
+                    continue
+                row = []
+                for probs, ids, top_k in layers:
+                    srt = torch.sort(probs[b], descending=True).values
+                    row.append((ids[b].cpu().numpy(), float(srt[top_k - 1] - srt[top_k])))
+                routes[rid] = row
+            return out
+        return call
+
+    originals = E.decode_step, E.paged_decode_step, moe._route
+    E.decode_step, E.paged_decode_step = first_decodes(E.decode_step), first_decodes(E.paged_decode_step)
+    moe._route = routed
     try:
+        yield routes, per_step
+    finally:
+        E.decode_step, E.paged_decode_step, moe._route = originals
+
+
+def tp_family_rank(rank, world, spec, dev) -> dict:
+    """Phase 13 (d) on one rank, one family: the artifact ``spec["path"]``
+    loaded on the CPU (memory-mapped), the rank's shard
+    (``dist.sharding.shard_tree`` under ``serve.qparams.serving_rules``)
+    alone moved to the card and held leaf by leaf against 1/world of each
+    sharded leaf; then ``spec``'s requests on its engine (phase 10's paged
+    or phase 11's contiguous settings) inside the axis' rules, logits
+    recorded, kernel 5 launched once a decode step and attention layer on
+    the paged engine; then every kernel-3 and kernel-5 signature of the run
+    once against its plain version.  Returns the outputs, the first decode
+    step's logits and routes, the launches (kernel 3 by variant and a
+    decode step), the collectives, the step times and the peak device
+    memory."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import axis_rules, shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.models import model as M
+    from repro_torch.serve import PagedServingEngine, ServingEngine
+    from repro_torch.serve.qparams import qt_param_axes, serving_rules
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    saved = torch.load(spec["path"], map_location="cpu", mmap=True, weights_only=False)
+    cfg, whole = saved["cfg"], saved["params"]
+    tplan = M.make_plan(cfg, world)
+    check(tplan.heads.kv_pad == M.make_plan(cfg).heads.kv_pad and tplan.vocab_pad == cfg.vocab,
+          f"phase 13 (d) {cfg.name}: the axis pads the plan")
+    mesh = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("model",))
+    rules = serving_rules(tplan, mesh)
+    axes = qt_param_axes(tplan)
+    local = tree_to(shard_tree(whole, axes, rules), dev)
+    torch.cuda.synchronize()
+    t_load = time.monotonic() - t0
+    bad, held, total = tp_shard_bytes(whole, local, axes, rules, world)
+    del saved, whole
+    gc.collect()
+    if spec["engine"] == "paged":
+        make = lambda: PagedServingEngine(tplan, local, **FAM_PAGED, record_logits=True, device=dev)
+    else:
+        make = lambda: ServingEngine(tplan, local, **SSM_CONTIG, record_logits=True, device=dev)
+    ops.reset_launch_counts()
+    variants0 = dict(dequant_matmul_cuda.launches_by_variant)
+    with recording_calls() as calls, axis_rules(rules), counted_collectives() as comm, \
+            first_decode_routes(spec["prompts"]) as (routes, per_step):
+        stats, outputs, eng = serve_run(f"phase 13 (d) {cfg.name} rank {rank}", make,
+                                        spec["prompts"], spec["new"])
+        n_decode, trace = eng.n_decode_steps, eng.logit_trace
+        del eng
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    variants = {v: n - variants0[v] for v, n in dequant_matmul_cuda.launches_by_variant.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_attn = sum(b.kind == "attn" for b in cfg.pattern) * cfg.n_periods
+    if spec["engine"] == "paged":
+        check(counts["paged_attention"] == n_decode * n_attn,
+              f"phase 13 (d) {cfg.name}: kernel 5 launched {counts['paged_attention']}, expected "
+              f"{n_decode} x {n_attn}")
+    check(stats["statuses"] == ["completed"], f"phase 13 (d) {cfg.name}: {stats['statuses']}")
+    del local
+    _free()
+    checked = family_checks(f"tensor-parallel {cfg.name}", calls, variants, phase="phase 13 (d)")
+    del calls
+    _free()
+    return dict(outputs=outputs, first={rid: t[0] for rid, t in trace.items()}, routes=routes,
+                stats=stats, counts=counts, variants=variants,
+                kernel3_per_step=float(np.median(per_step)), comm=comm, checked=checked,
+                bytes_bad=bad, bytes_held=held, bytes_whole=total, t_load=t_load, peak_gib=peak,
+                layouts={k: rules.table[k] for k in ("heads", "kv_heads", "head_dim", "ffn",
+                                                      "experts", "expert_ffn", "ssm_heads",
+                                                      "ssm_fused", "vocab")})
+
+
+def tp_families(detail, ranks: "Ranks", keep: dict) -> tuple:
+    """Phase 13 (d) in the parent: the ranks get the saved artifacts and the
+    requests of TP_FAMILIES, serve them (:func:`tp_family_rank`) and stop.
+    Per family: every rank's storage its shard; the ranks' tokens and router
+    ids the same; their first-decode logits within TP_LOGIT_RTOL of max
+    |logit| of the one-rank baseline's (phase 10 (a)'s or 11 (b)(ii)'s run),
+    a lane past it allowed only at a router crossing (a top-k boundary
+    whose one-rank probability gap is under TP_ROUTER_GAP, where the ranks'
+    top-k ids part from the one-rank run's; each printed); their tokens
+    equal to its up to its first top-2 margin below that bound.  Returns
+    the kernels' launches (both ranks) and the calls checked."""
+    import numpy as np
+
+    msg = {name: {k: keep[name][k] for k in ("path", "engine", "prompts", "new")}
+           for name in TP_FAMILIES}
+    t0 = time.monotonic()
+    ranks.send(msg)
+    got = ranks.collect(timeout=TP_WAIT_S)
+    ranks.close()
+    print(f"[tp] (d) the ranks' loads, runs and checks: {time.monotonic() - t0:.1f}s", flush=True)
+    counts, checked, out = {}, {}, {}
+    for name in TP_FAMILIES:
+        base, rows = keep[name], [g[name] for g in got]
+        label = base["label"]
+        for r, row in enumerate(rows):
+            check(not row["bytes_bad"],
+                  f"(d) {label}: rank {r} holds other bytes than its shard: {row['bytes_bad'][:4]}")
+            print(f"[tp] (d) {label} rank {r}: holds {row['bytes_held'] / 2**30:.3f} GiB of the whole "
+                  f"artifact's {row['bytes_whole'] / 2**30:.3f} GiB "
+                  f"({row['bytes_held'] / row['bytes_whole']:.1%}), every leaf its shard; layouts "
+                  f"{row['layouts']}; loaded and moved in {row['t_load']:.1f}s; peak device memory "
+                  f"{row['peak_gib']:.2f} GiB; launches {row['counts']}; kernel 3 by variant "
+                  f"{row['variants']}, {row['kernel3_per_step']:g} a decode step against "
+                  f"{float(np.median(base['kernel3_per_step'])):g} on one rank; " + "; ".join(
+                      f"{k} {n} calls {b / 2**20:.2f} MiB {t:.3f}s"
+                      for k, (n, b, t) in row["comm"].items())
+                  + f"; checked {row['checked']}", flush=True)
+            for k, v in row["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+            merge_checked(checked, row["checked"])
+        r0 = rows[0]
+        check(all(r["outputs"] == r0["outputs"] for r in rows), f"(d) {label}: the ranks' tokens differ")
+        check(all(sorted(r["routes"]) == sorted(r0["routes"])
+                  and all(np.array_equal(a, b) for rid in r0["routes"]
+                          for (a, _), (b, _) in zip(r["routes"][rid], r0["routes"][rid]))
+                  for r in rows), f"(d) {label}: the ranks' router ids differ")
+        trace, outputs, one_routes = base["trace"], base["outputs"], base["routes"]
+        check(sorted(one_routes) == sorted(trace) == sorted(r0["routes"]),
+              f"(d) {label}: a request's first decode went unrecorded")
+        lanes = {rid: float(np.abs(r0["first"][rid] - trace[rid][0]).max()
+                            / np.abs(trace[rid][0]).max()) for rid in trace}
+        crossed, unexplained = {}, []
+        for rid, rel in sorted(lanes.items()):
+            if rel <= TP_LOGIT_RTOL:
+                continue
+            cross = [(i, sorted(a.tolist()), sorted(b.tolist()), gap)
+                     for i, ((a, gap), (b, _)) in enumerate(zip(one_routes[rid], r0["routes"][rid]))
+                     if set(a.tolist()) != set(b.tolist()) and gap < TP_ROUTER_GAP]
+            if not cross:
+                unexplained.append((rid, rel))
+                continue
+            crossed[rid] = dict(rel=rel, crossings=cross)
+            for i, a, b, gap in cross:
+                print(f"[tp] (d) {label} lane {rid}: first-decode logits {rel:.3g} of max |logit| off "
+                      f"the one-rank run's (past {TP_LOGIT_RTOL}) at a router crossing: MoE layer "
+                      f"{i}, one rank's top-k {a}, the ranks' {b}, one-rank gap {gap:.3g} (under "
+                      f"{TP_ROUTER_GAP})", flush=True)
+        compared, parted = 0, []
+        for rid, steps in trace.items():
+            for j, logits in enumerate(steps):
+                top2 = np.sort(logits)[-2:]
+                if top2[1] - top2[0] < TP_LOGIT_RTOL * np.abs(logits).max():
+                    break
+                compared += 1
+                if r0["outputs"][rid][j] != outputs[rid][j]:
+                    parted.append((rid, j))
+                    break
+        n_tok = sum(len(o) for o in outputs.values())
+        ms = [r["stats"]["ms_per_step"] for r in rows]
+        within = max((v for rid, v in lanes.items() if rid not in crossed), default=0.0)
+        print(f"[tp] (d) {label}: first-decode logits within {within:.3g} of max |logit| of the "
+              f"one-rank run (bound {TP_LOGIT_RTOL}) on {len(lanes) - len(crossed)} of {len(lanes)} "
+              f"lanes, {len(crossed)} at router crossings, {len(unexplained)} unexplained "
+              f"{unexplained[:4]}; {compared} of {n_tok} tokens compared before a top-2 margin under "
+              f"the bound, {len(parted)} parting {parted[:4]}; decode "
+              f"{', '.join(f'{x:.2f}' for x in ms)} ms/step on the ranks against "
+              f"{base['stats']['ms_per_step']:.2f} on one rank (two ranks share one card and move "
+              f"activations through gloo on the host: no speed-up can show)", flush=True)
+        check(not unexplained, f"(d) {label}: first-decode logits off the one-rank run's "
+              f"without a router crossing: {unexplained[:8]}")
+        check(not parted, f"(d) {label}: tensor-parallel tokens part from the one-rank run's above "
+              f"the margin: {parted[:8]}")
+        out[name] = dict(label=label, lanes=lanes, crossed=crossed, tokens_compared=compared,
+                         parted=parted, ms_per_step_ranks=ms,
+                         ms_per_step_one=base["stats"]["ms_per_step"],
+                         kernel3_per_step_ranks=[r["kernel3_per_step"] for r in rows],
+                         kernel3_per_step_one=float(np.median(base["kernel3_per_step"])),
+                         launches=[r["counts"] for r in rows], variants=[r["variants"] for r in rows],
+                         comm=[r["comm"] for r in rows], checked=[r["checked"] for r in rows],
+                         bytes_held=[r["bytes_held"] for r in rows], bytes_whole=r0["bytes_whole"],
+                         load_seconds=[r["t_load"] for r in rows],
+                         peak_gib=[r["peak_gib"] for r in rows], layouts=r0["layouts"])
+    detail.setdefault("sharded", {})["tp_families"] = out
+    return counts, checked
+
+
+class Ranks:
+    """``target(rank, world, *args, queue, go)`` in ``world`` processes
+    started with ``spawn``.  :meth:`collect` reads one result from each, in
+    rank order: a rank that fails, or does not report within ``timeout``,
+    fails the phase.  :meth:`send` hands every rank a message on ``go``;
+    :meth:`close` sends None (stop) and stops every process, whatever state
+    the ranks are in."""
+
+    def __init__(self, target, world: int, *args):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.queue, self.go, self.closed = ctx.Queue(), ctx.Queue(), False
+        self.procs = [ctx.Process(target=target, args=(r, world, *args, self.queue, self.go))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def collect(self, timeout: float = SHARD_TIMEOUT_S) -> list:
         got, failed = {}, []
-        for _ in procs:
-            rank, ok, out = queue.get(timeout=SHARD_TIMEOUT_S)
+        for _ in self.procs:
+            rank, ok, out = self.queue.get(timeout=timeout)
             if ok:
                 got[rank] = out
             else:
                 failed.append(f"rank {rank}:\n{out}")
         check(not failed, "phase 13 rank failed: " + "\n".join(failed))
-    finally:
-        for p in procs:
+        return [got[r] for r in range(len(self.procs))]
+
+    def send(self, msg) -> None:
+        for _ in self.procs:
+            self.go.put(msg)
+
+    def close(self, strict: bool = True) -> None:
+        """``strict``: a rank that exits other than 0 fails the phase."""
+        if self.closed:
+            return
+        self.closed = True
+        self.send(None)
+        for p in self.procs:
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
                 p.join(timeout=30)
-    check(all(p.exitcode == 0 for p in procs), f"phase 13 ranks exited {[p.exitcode for p in procs]}")
-    return [got[r] for r in range(world)]
+        check(not strict or all(p.exitcode == 0 for p in self.procs),
+              f"phase 13 ranks exited {[p.exitcode for p in self.procs]}")
 
 
 def replay_solve(w3, sig3, grid3, rows=None):
@@ -4434,7 +4780,7 @@ def replay_solve(w3, sig3, grid3, rows=None):
     return final, records
 
 
-def sharded_path(dev, detail, plan, artifact, dense, keep):
+def sharded_path(dev, detail, plan, artifact, dense, keep, tp_dir):
     """Phase 13 (a): SHARD_RANKS gloo ranks on the one card run
     ``ptq_quantize_model(mesh=)`` (QuantEase at 4 bits) on phase 5's model
     and calibration set, each on its block of the sequences and its rows of
@@ -4448,8 +4794,10 @@ def sharded_path(dev, detail, plan, artifact, dense, keep):
     each run's own quantized periods before it); the codes those of the
     local solve on that Σ (in period 0 phase 5's artifact) outside rows
     that start at a verified rounding tie (both solves replayed iteration
-    by iteration, the sharded one on its own rank's rows and Σ).  Returns the kernels' launches (both ranks' PTQ and
-    the scoring) and the calls checked against the plain versions."""
+    by iteration, the sharded one on its own rank's rows and Σ).  The ranks
+    stay up for (d) (:func:`tp_families`): the caller closes them.  Returns
+    the kernels' launches (both ranks' PTQ and the scoring), the calls
+    checked against the plain versions and the ranks."""
     import numpy as np
     import torch
 
@@ -4460,15 +4808,16 @@ def sharded_path(dev, detail, plan, artifact, dense, keep):
     from repro_torch.serve.qparams import quantize_params_for_serving
 
     cfg = plan.cfg
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
-    try:
-        t0 = time.monotonic()
-        ranks = run_ranks(_sharded_rank, SHARD_RANKS, os.path.join(tmp, "store"),
-                          os.path.join(tmp, "rank0.pt"), dev.type)
-        t_ranks = time.monotonic() - t0
-        saved = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.monotonic()
+    handle = Ranks(_sharded_rank, SHARD_RANKS, os.path.join(tp_dir, "store"),
+                   os.path.join(tp_dir, "rank0.pt"), dev.type)
+    # The gloo group's file store stays for (d): the ranks are closed at exit
+    # whatever happens before.
+    atexit.register(handle.close, strict=False)
+    ranks = handle.collect()
+    t_ranks = time.monotonic() - t0
+    saved = torch.load(os.path.join(tp_dir, "rank0.pt"), weights_only=False)
+    os.remove(os.path.join(tp_dir, "rank0.pt"))
     r0 = ranks[0]
     check(all(r["params"] == _tree_bytes(dense) for r in ranks),
           "a rank's seeded params differ from phase 5's")
@@ -4597,7 +4946,7 @@ def sharded_path(dev, detail, plan, artifact, dense, keep):
     t0 = time.monotonic()
     tp_against_one_rank(dev, detail, plan, served, ranks)
     print(f"[tp] the one-rank runs and checks: {time.monotonic() - t0:.1f}s", flush=True)
-    return counts, checked
+    return counts, checked, handle
 
 
 def local_sigmas(plan, dense, q13, calib, dev) -> dict:
@@ -4865,7 +5214,10 @@ def main() -> None:
     print(f"[phase] 5b, training at full width: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    counts_sharded, at_sharded = sharded_path(dev, detail, plan, artifact, dense, keep)
+    tp_dir = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    atexit.register(shutil.rmtree, tp_dir, True)
+    tp_keep = {"dir": tp_dir}
+    counts_sharded, at_sharded, ranks = sharded_path(dev, detail, plan, artifact, dense, keep, tp_dir)
     del keep
     _free()
     counts_fsdp = fsdp_world_one(dev, detail)
@@ -4905,12 +5257,17 @@ def main() -> None:
             card_tests[0].wait()
         shutil.rmtree(root, ignore_errors=True)
     t0 = time.monotonic()
-    counts_fam, at_fam = families(dev, detail)
+    counts_fam, at_fam = families(dev, detail, tp_keep)
     print(f"[phase] 10, the OPT family, the dense configs and MoE at full width: "
           f"{time.monotonic() - t0:.1f}s", flush=True)
     t0 = time.monotonic()
-    counts_ssm, at_ssm = ssm_families(dev, detail)
+    counts_ssm, at_ssm = ssm_families(dev, detail, tp_keep)
     print(f"[phase] 11, Mamba-2 and Jamba-1.5-Large at full width: {time.monotonic() - t0:.1f}s",
+          flush=True)
+    t0 = time.monotonic()
+    counts_tpf, at_tpf = tp_families(detail, ranks, tp_keep)
+    shutil.rmtree(tp_dir, ignore_errors=True)
+    print(f"[phase] 13 (d), OLMoE and Jamba on a \"model\" axis of 2: {time.monotonic() - t0:.1f}s",
           flush=True)
     t0 = time.monotonic()
     counts_enc, at_enc = encdec_families(dev, detail)
@@ -4921,7 +5278,8 @@ def main() -> None:
     # Each path's counts were read just after it ran, from 0.
     paths = dict(ptq=counts_ptq, train=counts_train, serving=counts_serve, quality=counts_quality,
                  cli=counts_cli, speculation=counts_spec, tune=counts_tune, families=counts_fam,
-                 ssm=counts_ssm, encdec=counts_enc, sharded=counts_sharded, fsdp=counts_fsdp)
+                 ssm=counts_ssm, encdec=counts_enc, sharded=counts_sharded, fsdp=counts_fsdp,
+                 tp_families=counts_tpf)
     counts = {k: sum(c[k] for c in paths.values()) for k in counts_ptq}
     detail["launches"] = paths
 
@@ -4944,6 +5302,8 @@ def main() -> None:
                       for cfg, c in at_fam.items()},
             sharded_launches=counts_sharded[name],
             sharded_calls_checked=at_sharded.get(name.replace("quantease_", ""), {}).get("calls", 0),
+            tp_families_launches=counts_tpf.get(name, 0),
+            tp_families_calls_checked=at_tpf.get(name.replace("quantease_", ""), {}).get("calls", 0),
         ))
     detail["kernels"] = kernels
     detail["seconds"] = time.monotonic() - t_start

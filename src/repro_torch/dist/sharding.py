@@ -51,8 +51,6 @@ __all__ = [
     "model_axis",
     "shard_tree",
     "TP_TRAIN_ROADMAP",
-    "TP_MOE_ROADMAP",
-    "TP_MAMBA_ROADMAP",
     "TP_ENCDEC_ROADMAP",
     "TP_SPEC_ROADMAP",
 ]
@@ -61,14 +59,11 @@ __all__ = [
 # ("pod", "data")), or None (replicated).
 _Entry = Union[str, tuple, None]
 
-# Under a "model" axis the port serves token-only dense attention decoders;
-# the rest is queued in ROADMAP.md queue 1, and each refusal names its item.
+# Under a "model" axis the port serves token-only decoders (attention,
+# mixture-of-experts and Mamba-2 blocks); the rest is queued in ROADMAP.md
+# queue 1, and each refusal names its item.
 TP_TRAIN_ROADMAP = ("training under a \"model\" axis (backward collectives) is ROADMAP.md "
                     "queue 1 item 8.1.1")
-TP_MOE_ROADMAP = ("mixture-of-experts layers under a \"model\" axis (experts or expert_ffn) "
-                  "are ROADMAP.md queue 1 item 8.1.2")
-TP_MAMBA_ROADMAP = ("Mamba-2 blocks under a \"model\" axis (ssm_heads) are ROADMAP.md queue 1 "
-                    "item 8.1.3")
 TP_ENCDEC_ROADMAP = ("the encoder-decoder and prefix families under a \"model\" axis are "
                      "ROADMAP.md queue 1 item 8.1.4")
 TP_SPEC_ROADMAP = ("speculative serving and deadlines under a \"model\" axis are ROADMAP.md "
@@ -310,10 +305,12 @@ def _coo_part(idx, vals, p: int, owned, rebase):
 
 
 def _shard_qt(qt, axes: dict, rules: Rules, n: int, rank: int, mesh_axis: str, path: str):
-    """One rank's QuantizedTensor: a column-parallel leaf (out rows on the
-    axis) keeps its rows of codes, grid and outlier planes; a row-parallel
-    leaf (in columns on the axis) keeps its columns of codes, its grid's
-    groups (a per-channel grid whole) and its COO entries, re-based."""
+    """One rank's QuantizedTensor: a leaf cut on a lead axis (an MoE
+    matrix's experts) keeps its block of every plane; a column-parallel leaf
+    (out rows on the axis) keeps its rows of codes, grid and outlier planes;
+    a row-parallel leaf (in columns on the axis) keeps its columns of codes,
+    its grid's groups (a per-channel grid whole) and its COO entries,
+    re-based."""
     import dataclasses
 
     dim = rules.shard_dim(tuple(axes["codes"]), mesh_axis)
@@ -321,6 +318,11 @@ def _shard_qt(qt, axes: dict, rules: Rules, n: int, rank: int, mesh_axis: str, p
         return qt
     nd = qt.codes.dim()
     q, p = qt.shape[-2:]
+    if dim < nd - 2:  # a lead axis (the experts): every plane keeps the rank's block of it
+        el = _split(qt.codes.shape[dim], n, path, f"dimension {dim}")
+        return dataclasses.replace(qt, **{
+            f.name: _rows(getattr(qt, f.name), rank * el, el, dim)
+            for f in dataclasses.fields(qt) if isinstance(getattr(qt, f.name), torch.Tensor)})
     if qt.pack_layout != "linear":
         raise ValueError(f"{path}: tile-native codes; shard the linear layout "
                          "(quant.as_linear_layout)")
@@ -376,8 +378,9 @@ def shard_tree(tree, axes_tree, rules: Rules, *, rank: Optional[int] = None,
     ``axes_tree`` is :func:`repro_torch.models.model.param_axes` for dense
     params, :func:`repro_torch.serve.qparams.qt_param_axes` for a serving
     artifact, whose QuantizedTensor leaves it describes by ``{"codes",
-    "scale", "zero"}``.  Such a leaf shards as :func:`_shard_qt` says:
-    column-parallel leaves (out rows on "heads_fused", "kv_fused", "ffn",
+    "scale", "zero"}``.  Such a leaf shards as :func:`_shard_qt` says: an
+    MoE matrix on its experts by its block of every plane, column-parallel
+    leaves (out rows on "heads_fused", "kv_fused", "ffn",
     ...) by rows of codes, grid and outlier planes; row-parallel ones
     (``wo``, ``wd``: in columns on "heads_fused" or "ffn") by columns of
     codes, with a per-channel grid whole and a grouped one cut into whole

@@ -15,6 +15,15 @@ The state is a dict of three leaves (the reference's ``MambaCache``):
 ``conv_x (B, k−1, nh, hd)`` and ``conv_bc (B, k−1, 2GN)`` in the model's
 dtype, ``ssm (B, nh, hd, N)`` fp32.  :func:`mamba_apply` and
 :func:`mamba_decode` return a new state; the model writes it into its cache.
+
+On a rank of a "model" axis (``shard``, the model's ``_SSMShard``) the
+block runs the heads ``shard.heads`` gives, ``h0 .. h0 + nh − 1``: its
+``wz``/``wx``/``wdt`` outputs, convolution weights, norm scale, state and
+``out_proj`` rows are those heads' (the whole ``a_log``, ``dt_bias`` and
+``d_skip`` are sliced here), each head reads the B/C group of its global
+index (:func:`_local_groups`), and the projections, the gated norm's sum
+of squares and ``out_proj`` go through ``shard``, which holds the
+collectives.
 """
 
 from __future__ import annotations
@@ -27,6 +36,22 @@ import torch.nn.functional as F
 from repro_torch.models.common import apply_linear, rmsnorm
 
 __all__ = ["mamba_apply", "mamba_decode"]
+
+
+def _local_groups(b: torch.Tensor, c: torch.Tensor, h0: int, nh: int, nh_all: int):
+    """B and C (groups on dim −2) for heads ``h0 .. h0 + nh − 1`` of
+    ``nh_all``, head h reading group ``h // (nh_all / G)``: the groups those
+    heads span where each holds the same number of them (whole groups, or a
+    part of one), else one group a head."""
+    G = b.shape[-2]
+    if nh == nh_all or G == 1:
+        return b, c
+    hpg = nh_all // G
+    g0, g1 = h0 // hpg, (h0 + nh - 1) // hpg
+    if g0 == g1 or (h0 % hpg == 0 and nh % hpg == 0):
+        return b[..., g0 : g1 + 1, :], c[..., g0 : g1 + 1, :]
+    idx = torch.arange(h0, h0 + nh, device=b.device) // hpg
+    return b.index_select(-2, idx), c.index_select(-2, idx)
 
 
 def _dw_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -115,40 +140,55 @@ def _ssd_chunked(
     return y[:, :L], h
 
 
-def _dt_a(p: dict, dt_raw: torch.Tensor):
-    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"].to(torch.float32))
-    return dt, -torch.exp(p["a_log"].to(torch.float32))
+def _dt_a(p: dict, dt_raw: torch.Tensor, h0: int, nh: int):
+    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"][h0 : h0 + nh].to(torch.float32))
+    return dt, -torch.exp(p["a_log"][h0 : h0 + nh].to(torch.float32))
 
 
-def _gate_out(p: dict, y: torch.Tensor, xin: torch.Tensor, z: torch.Tensor, dtype) -> torch.Tensor:
+def _heads(cfg, shard) -> tuple:
+    return (0, cfg.ssm_nheads) if shard is None else shard.heads
+
+
+def _project(shard, w, x, out_shape: tuple, name: str) -> torch.Tensor:
+    if shard is None:
+        return apply_linear(w, x, out_shape=out_shape, name=name)
+    return shard.project(w, x, out_shape, name)
+
+
+def _gate_out(p: dict, y: torch.Tensor, xin: torch.Tensor, z: torch.Tensor, dtype, shard,
+              h0: int) -> torch.Tensor:
     """D skip, SiLU(z) gate, RMSNorm over (nh·hd), out_proj."""
-    skip = p["d_skip"].to(torch.float32)
+    skip = p["d_skip"][h0 : h0 + y.shape[-2]].to(torch.float32)
     y = y + xin.to(torch.float32) * skip.reshape(*([1] * (y.dim() - 2)), -1, 1)
     y = (y.to(dtype) * F.silu(z)).reshape(*y.shape[:-2], -1)
-    y = rmsnorm(y, p["norm_scale"].reshape(-1))
-    return apply_linear(p["out_proj"], y, name="out_proj")
+    if shard is None:
+        return apply_linear(p["out_proj"], rmsnorm(y, p["norm_scale"].reshape(-1)),
+                            name="out_proj")
+    return shard.out_proj(p["out_proj"], shard.rmsnorm(y, p["norm_scale"].reshape(-1)))
 
 
-def mamba_apply(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128, return_cache: bool = False):
+def mamba_apply(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128, return_cache: bool = False,
+                shard=None):
     """Full-sequence SSD block (train, prefill).  x: (B, L, D), the block's
     normed input.  Returns ``(out (B, L, D), state or None)``; the state
     starts from zero, as the reference's prefill does."""
     B, L, _ = x.shape
-    nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
+    h0, nh = _heads(cfg, shard)
+    hd = cfg.ssm_headdim
     G, N = cfg.ssm_ngroups, cfg.ssm_state
 
-    z = apply_linear(p["wz"], x, out_shape=(nh, hd), name="wz")  # gate
-    xin_pre = apply_linear(p["wx"], x, out_shape=(nh, hd), name="wx")  # before the conv
+    z = _project(shard, p["wz"], x, (nh, hd), "wz")  # gate
+    xin_pre = _project(shard, p["wx"], x, (nh, hd), "wx")  # before the conv
     bc_pre = apply_linear(p["wbc"], x, name="wbc")  # (B, L, 2GN)
     dt_raw = apply_linear(p["wdt"], x, name="wdt")  # (B, L, nh)
 
     xin = F.silu(_dw_conv(xin_pre, p["conv_x_w"], p["conv_x_b"]))
     bcv = F.silu(_dw_conv(bc_pre, p["conv_bc_w"], p["conv_bc_b"]))
-    b, c = bcv.reshape(B, L, 2 * G, N).split(G, dim=2)
-    dt, a = _dt_a(p, dt_raw)
+    b, c = _local_groups(*bcv.reshape(B, L, 2 * G, N).split(G, dim=2), h0, nh, cfg.ssm_nheads)
+    dt, a = _dt_a(p, dt_raw, h0, nh)
 
     y, h_final = _ssd_chunked(xin, dt, a, b, c, chunk=chunk)
-    out = _gate_out(p, y, xin, z, x.dtype)
+    out = _gate_out(p, y, xin, z, x.dtype, shard, h0)
     if not return_cache:
         return out, None
     k = cfg.ssm_conv
@@ -164,19 +204,20 @@ def _last_k(x: torch.Tensor, k: int) -> torch.Tensor:
     return x[:, x.shape[1] - k :]
 
 
-def mamba_decode(p: dict, x: torch.Tensor, cfg, cache: dict):
+def mamba_decode(p: dict, x: torch.Tensor, cfg, cache: dict, *, shard=None):
     """One recurrent step.  x: (B, 1, D); ``cache`` the block's state.
     Returns ``(out (B, 1, D), new state)``.  The convolution over the rolling
     buffer is one contraction (fp32 sum, rounded once to the buffer's
     dtype), as the reference's einsum; prefill's :func:`_dw_conv` rounds
     after each product instead."""
     B = x.shape[0]
-    nh, hd = cfg.ssm_nheads, cfg.ssm_headdim
+    h0, nh = _heads(cfg, shard)
+    hd = cfg.ssm_headdim
     G, N = cfg.ssm_ngroups, cfg.ssm_state
     xt = x[:, 0]
 
-    z = apply_linear(p["wz"], xt, out_shape=(nh, hd), name="wz")
-    xin_new = apply_linear(p["wx"], xt, out_shape=(nh, hd), name="wx")
+    z = _project(shard, p["wz"], xt, (nh, hd), "wz")
+    xin_new = _project(shard, p["wx"], xt, (nh, hd), "wx")
     bc_new = apply_linear(p["wbc"], xt, name="wbc")
     dt_raw = apply_linear(p["wdt"], xt, name="wdt")
 
@@ -184,17 +225,17 @@ def mamba_decode(p: dict, x: torch.Tensor, cfg, cache: dict):
     conv_bc_hist = torch.cat([cache["conv_bc"], bc_new[:, None]], 1)  # (B, k, 2GN)
     xin = F.silu(_contract_time(conv_x_hist, p["conv_x_w"]) + p["conv_x_b"])
     bc = F.silu(_contract_time(conv_bc_hist, p["conv_bc_w"]) + p["conv_bc_b"])
-    b, c = bc.reshape(B, 2 * G, N).split(G, dim=1)
+    b, c = _local_groups(*bc.reshape(B, 2 * G, N).split(G, dim=1), h0, nh, cfg.ssm_nheads)
 
-    dt, a = _dt_a(p, dt_raw)
+    dt, a = _dt_a(p, dt_raw, h0, nh)
     da = torch.exp(dt * a[None, :])  # (B, nh)
     xin32 = xin.to(torch.float32)
-    bh = b.repeat_interleave(nh // G, dim=1).to(torch.float32)  # (B, nh, N)
-    ch = c.repeat_interleave(nh // G, dim=1).to(torch.float32)
+    bh = b.repeat_interleave(nh // b.shape[1], dim=1).to(torch.float32)  # (B, nh, N)
+    ch = c.repeat_interleave(nh // c.shape[1], dim=1).to(torch.float32)
     ssm = cache["ssm"] * da[:, :, None, None] + (
         dt[:, :, None, None] * xin32[:, :, :, None] * bh[:, :, None, :])
     y = torch.einsum("bhdn,bhn->bhd", ssm, ch)
-    out = _gate_out(p, y, xin, z, x.dtype)[:, None]
+    out = _gate_out(p, y, xin, z, x.dtype, shard, h0)[:, None]
     return out, {"conv_x": conv_x_hist[:, 1:], "conv_bc": conv_bc_hist[:, 1:], "ssm": ssm}
 
 

@@ -57,8 +57,6 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.collectives import all_reduce, axis_rank, axis_size, gather_dim
 from repro_torch.dist.sharding import (
     TP_ENCDEC_ROADMAP,
-    TP_MAMBA_ROADMAP,
-    TP_MOE_ROADMAP,
     TP_TRAIN_ROADMAP,
     current_rules,
     model_axis,
@@ -73,12 +71,13 @@ from repro_torch.models.common import (
     flash_attention,
     make_head_plan,
     rope,
+    rmsnorm,
     softcap,
     _outlier_adds,
     _record_linear,
 )
 from repro_torch.models.mamba2 import mamba_apply, mamba_decode
-from repro_torch.models.moe import moe_apply, router_aux_loss
+from repro_torch.models.moe import ExpertShard, moe_apply, router_aux_loss
 from repro_torch.quant import QuantizedTensor, kv_pack_int4, kv_unpack_int4
 
 __all__ = [
@@ -186,9 +185,10 @@ def tp_rules(plan: ModelPlan):
     local params (:func:`repro_torch.dist.sharding.shard_tree`), and each
     leaf's layout is the rules' (:meth:`Rules.shard_dim` of its logical
     axes, :data:`_TP_AXES`).  The plan must be padded for the axis, the
-    rules must cut the (padded) heads over it, and only token-only dense
-    attention decoders run (the others raise ``NotImplementedError`` naming
-    their ROADMAP item)."""
+    rules must cut the (padded) attention heads over it where the model has
+    attention blocks, and only token-only decoders run: attention, Mamba-2
+    and mixture-of-experts blocks (the encoder-decoder and prefix families
+    raise ``NotImplementedError`` naming their ROADMAP item)."""
     mesh = model_axis()
     if mesh is None:
         return None
@@ -198,12 +198,9 @@ def tp_rules(plan: ModelPlan):
                          f"rules' is {n}: make_plan(cfg, axis_n={n})")
     if cfg.family == "encdec" or cfg.n_prefix:
         raise NotImplementedError(f"{cfg.name}: {TP_ENCDEC_ROADMAP}")
-    if any(b.kind == "mamba" for b in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: {TP_MAMBA_ROADMAP}")
-    if any(b.mlp == "moe" for b in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: {TP_MOE_ROADMAP}")
     rules = current_rules()
-    if rules.shard_dim(("heads",), "model") is None:
+    if (any(b.kind == "attn" for b in cfg.pattern)
+            and rules.shard_dim(("heads",), "model") is None):
         raise ValueError("the rules keep the attention heads whole: a rank of a \"model\" axis "
                          "holds its kv slots (serve.qparams.serving_rules)")
     return rules
@@ -218,15 +215,18 @@ def _kv_slots(plan: ModelPlan) -> int:
 
 # The logical axes of the leaves whose layout the tensor-parallel forward
 # reads, per period (without "layers"): a dense leaf's as param_axes gives
-# them, and a quantized leaf's codes matrix (out, in) as
-# serve.qparams.qt_param_axes gives it (q and wo follow the heads, which a
-# padded plan always cuts).
+# them, and a quantized leaf's codes matrix (out, in), behind its experts
+# for an MoE matrix, as serve.qparams.qt_param_axes gives it (q and wo
+# follow the heads, which a padded plan always cuts).
 _TP_AXES = {
     "wk": (("embed", "kv_heads", "head_dim"), ("kv_fused", "embed")),
     "bk": (("kv_heads", "head_dim"), None),
     "wd": (("ffn", "embed"), (None, "ffn")),
     "embed": (("vocab", "embed"), None),
     "lm_head": (("embed", "vocab"), ("vocab", "embed")),
+    "w_gate": (("experts", "embed", "expert_ffn"), ("experts", "expert_ffn", "embed")),
+    "wz": (("embed", "ssm_heads", None), ("ssm_fused", "embed")),
+    "out_proj": (("ssm_heads", None, "embed"), (None, "ssm_fused")),
 }
 
 
@@ -239,6 +239,82 @@ def _cut(tp, leaf: str, w) -> Optional[int]:
     dense, quantized = _TP_AXES[leaf]
     return tp.shard_dim(quantized if isinstance(w, (QuantizedTensor, HoistedDequant)) else dense,
                         "model")
+
+
+def _expert_shard(tp, p) -> Optional[ExpertShard]:
+    """The MoE layer's layout on this rank (:class:`~repro_torch.models.moe.ExpertShard`):
+    expert-parallel where the rules cut ``w_gate`` on its experts,
+    ffn-parallel where they cut its per-expert ffn, None where the layer is
+    whole (no model axis, or neither divides it) and every rank computes
+    all of it with no collective."""
+    d = _cut(tp, "w_gate", p["w_gate"])
+    if d is None:
+        return None
+    psum = lambda t: all_reduce(t, tp.mesh, "model")
+    if d == 0:
+        n_local = p["w_gate"].shape[0]
+        return ExpertShard("experts", psum, axis_rank(tp.mesh, "model") * n_local, n_local)
+    return ExpertShard("ffn", psum)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SSMShard:
+    """A Mamba-2 block's layout on one rank of a model axis, what
+    :mod:`.mamba2` calls for its projections, its gated norm and
+    ``out_proj``.  Where the rules cut ``ssm_heads`` the rank runs its
+    heads (``heads``: first and count), its dense leaves, quantized rows
+    and cache state are theirs, the norm's sum of squares is all-reduced
+    and ``out_proj`` is row-parallel (:func:`_row_parallel`).  Where they
+    keep the heads whole the rank runs every head: a quantized ``wz``/``wx``
+    cut on its fused rows inside a head is projected on the rank's rows and
+    all-gathered whole (as :func:`_kv` gathers ``wk``/``wv``), and a
+    quantized ``out_proj`` cut on its columns reads the rank's columns of
+    the normed output, row-parallel."""
+
+    tp: object
+    heads: tuple
+    channels: int  # nh·hd: the gated norm's width over every head
+    split: bool
+
+    def project(self, w, x, out_shape: tuple, name: str):
+        if self.split or _cut(self.tp, "wz", w) is None:
+            return apply_linear(w, x, out_shape=out_shape, name=name)
+        y = _whole(apply_linear(w, x, name=name), -1, self.tp)
+        return y.reshape(*x.shape[:-1], *out_shape)
+
+    def rmsnorm(self, y, scale, eps: float = 1e-6):
+        if not self.split:
+            return rmsnorm(y, scale)
+        y32 = y.to(torch.float32)
+        ss = all_reduce((y32 * y32).sum(-1, keepdim=True), self.tp.mesh, "model")
+        out = y32 * torch.rsqrt(ss / self.channels + eps)
+        return (out * (1.0 + scale.to(torch.float32))).to(y.dtype)
+
+    def out_proj(self, w, y):
+        if _cut(self.tp, "out_proj", w) is None:
+            return apply_linear(w, y, name="out_proj")
+        if not self.split:
+            cols = w.shape[-1]
+            y = y[..., axis_rank(self.tp.mesh, "model") * cols :][..., :cols]
+        return _row_parallel(w, y, self.tp, "out_proj")
+
+
+def _ssm_heads(plan: ModelPlan, tp) -> tuple:
+    """``(first head, heads)`` a rank runs: its share where the rules cut
+    ``ssm_heads``, else all of them."""
+    nh = plan.cfg.ssm_nheads
+    if tp is None or tp.shard_dim(("ssm_heads",), "model") is None:
+        return 0, nh
+    n = axis_size(tp.mesh, "model")
+    return axis_rank(tp.mesh, "model") * (nh // n), nh // n
+
+
+def _ssm_shard(plan: ModelPlan, tp) -> Optional[_SSMShard]:
+    if tp is None:
+        return None
+    cfg = plan.cfg
+    heads = _ssm_heads(plan, tp)
+    return _SSMShard(tp, heads, cfg.ssm_nheads * cfg.ssm_headdim, heads[1] < cfg.ssm_nheads)
 
 
 def _row_parallel(w, x, tp, name: str):
@@ -707,14 +783,15 @@ def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None, tp=None):
     """Dense or MoE MLP; an MoE block appends its router's load-balancing
     loss to ``aux`` when one is given (training).  Under a model axis whose
     rules cut "ffn", ``wg``/``wu`` are column-parallel and ``wd``
-    row-parallel (:func:`_row_parallel`); else the MLP is replicated."""
+    row-parallel (:func:`_row_parallel`); else the MLP is replicated.  An
+    MoE layer takes the rank's layout (:func:`_expert_shard`)."""
     if b.mlp == "none":
         return x
     h = apply_norm(p["ln2"], x, cfg.norm)
     if b.mlp == "moe":
         y, probs = moe_apply(p, h, n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
                              gated=cfg.gated_mlp, norm_topk=cfg.router_norm_topk,
-                             return_aux=aux is not None)
+                             return_aux=aux is not None, shard=_expert_shard(tp, p))
         if aux is not None:
             aux.append(router_aux_loss(probs))
     else:
@@ -730,25 +807,26 @@ def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None, tp=None):
     return x + y
 
 
-def _mamba_sublayer(cfg, p, x, *, mode="train", cache=None):
+def _mamba_sublayer(cfg, p, x, *, mode="train", cache=None, shard=None):
     """The SSD block on the normed input.  In ``prefill`` and ``decode``
     mode the new state replaces ``cache``'s entries (:func:`_run_stack`
-    writes them into the stacked cache)."""
+    writes them into the stacked cache).  Under a model axis ``shard`` is
+    the rank's layout (:class:`_SSMShard`)."""
     h = apply_norm(p["ln"], x, cfg.norm)
     if mode == "decode":
-        y, state = mamba_decode(p, h, cfg, cache)
+        y, state = mamba_decode(p, h, cfg, cache, shard=shard)
     else:
-        y, state = mamba_apply(p, h, cfg, return_cache=mode == "prefill")
+        y, state = mamba_apply(p, h, cfg, return_cache=mode == "prefill", shard=shard)
     if state is not None:
         cache.update(state)
     return x + y
 
 
 def _block_apply(cfg, hp, b, p, x, *, pos_ids, aux: Optional[list] = None, tp=None,
-                 **attn_kw):
+                 ssm=None, **attn_kw):
     if b.kind == "mamba":
         x = _mamba_sublayer(cfg, p, x, mode=attn_kw.get("mode", "train"),
-                            cache=attn_kw.get("cache"))
+                            cache=attn_kw.get("cache"), shard=ssm)
     else:
         x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids, tp=tp, **attn_kw)
     return _mlp_sublayer(cfg, b, p, x, aux, tp=tp)
@@ -780,6 +858,7 @@ def _run_stack(plan: ModelPlan, stack_params: dict, stack: str, x, *, mode: str,
     router losses; ``enc_out`` is what a cross block attends."""
     cfg, hp = plan.cfg, plan.heads
     tp = tp_rules(plan)
+    ssm = _ssm_shard(plan, tp)
     pattern, n_periods = stack_layout(cfg, stack)
     for period in range(n_periods):
         p_period = period_slice(stack_params, period)
@@ -788,7 +867,8 @@ def _run_stack(plan: ModelPlan, stack_params: dict, stack: str, x, *, mode: str,
         for i, b in enumerate(pattern):
             cache = None if caches is None else {k: t[period] for k, t in caches[f"b{i}"].items()}
             x = _block_apply(cfg, hp, b, p_period[f"b{i}"], x, mode=mode, pos_ids=pos_ids,
-                             cache=cache, kv_dtype=plan.kv_cache_dtype, tp=tp, **attn_kw)
+                             cache=cache, kv_dtype=plan.kv_cache_dtype, tp=tp, ssm=ssm,
+                             **attn_kw)
             if b.kind == "mamba" and cache is not None:
                 _store_state(caches[f"b{i}"], period, cache)
     return x
@@ -1004,8 +1084,8 @@ def train_loss(plan: ModelPlan, params, batch: dict) -> torch.Tensor:
 
 def _block_cache_shape(plan: ModelPlan, b: BlockDef, B: int, cap: int) -> dict:
     cfg, hp = plan.cfg, plan.heads
-    if b.kind == "mamba":  # the recurrent state: no sequence axis
-        k, nh = cfg.ssm_conv, cfg.ssm_nheads
+    if b.kind == "mamba":  # the recurrent state (a rank's heads): no sequence axis
+        k, nh = cfg.ssm_conv, _ssm_heads(plan, tp_rules(plan))[1]
         return {"conv_x": ((B, k - 1, nh, cfg.ssm_headdim), torch.bfloat16),
                 "conv_bc": ((B, k - 1, 2 * cfg.ssm_ngroups * cfg.ssm_state), torch.bfloat16),
                 "ssm": ((B, nh, cfg.ssm_headdim, cfg.ssm_state), torch.float32)}
@@ -1036,7 +1116,8 @@ def _stacked(plan: ModelPlan, per_block: dict) -> dict:
 
 def cache_shapes(plan: ModelPlan, B: int, cap: int) -> dict:
     """``{"b<i>": {leaf: (shape, dtype)}}`` of the contiguous decode cache,
-    stacked over periods (under a model axis, a rank's kv slots)."""
+    stacked over periods (under a model axis, a rank's kv slots and SSD
+    heads: :func:`cache_axes`' layout)."""
     tp_rules(plan)  # refuses a family the model axis does not run
     return _stacked(plan, {f"b{i}": _block_cache_shape(plan, b, B, cap)
                            for i, b in enumerate(plan.cfg.pattern)})

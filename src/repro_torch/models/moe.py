@@ -20,37 +20,77 @@ empty slot.  The port copies this on purpose (``ROADMAP.md`` §3).
 A quantized expert weight runs through the dequant-GEMM once per expert
 (``kernels.ops.dequant_matmul_experts``).  Its outlier planes are not
 applied, as in the reference's expert product (``ROADMAP.md`` §3).
+
+On a rank of a "model" axis (``shard``, an :class:`ExpertShard`) the
+router and the dispatch table stay global: they run on the replicated
+activations, so every rank routes alike.  Expert-parallel, the rank runs
+the slots of its experts alone, combines its own copies (the others read
+the zero row) and the (N, D) fp32 sums are all-reduced, then cast once.
+Ffn-parallel, ``w_gate``/``w_up`` hold the rank's columns and ``w_down``
+its rows: the (E·C, D) products are fp32 partial sums, all-reduced before
+the per-slot cast, so the layer rounds where the one-rank layer does.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.models.common import HoistedDequant, _record_linear, activation
 from repro_torch.quant import QuantizedTensor
 
-__all__ = ["moe_apply", "router_aux_loss", "CAPACITY_FACTOR"]
+__all__ = ["moe_apply", "router_aux_loss", "CAPACITY_FACTOR", "ExpertShard"]
 
 CAPACITY_FACTOR = 1.25  # slots an expert = tokens·k/E times this (the reference's default)
 
 
-def _expert_matmul(w, xs: torch.Tensor, name: str) -> torch.Tensor:
-    """xs: (E, C, d_in) × stacked expert weights → (E, C, d_out).
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """One rank's layout of an MoE layer on a "model" axis: ``"experts"``
+    (experts ``first .. first + n_local − 1``) or ``"ffn"`` (each expert's
+    ffn block), and ``psum``, the in-place fp32 sum over the axis."""
+
+    kind: str
+    psum: Callable
+    first: int = 0
+    n_local: Optional[int] = None
+
+
+def _expert_matmul(w, xs: torch.Tensor, name: str, out_dtype=None) -> torch.Tensor:
+    """xs: (E, C, d_in) × stacked expert weights → (E, C, d_out), formed in
+    ``out_dtype`` (default xs's).
 
     ``w`` is dense ``(E, d_in, d_out)``, a QuantizedTensor with codes
     ``(E, d_out, d_in)`` (per-expert grids stacked on the leading axis), or
     a HoistedDequant of one."""
     _record_linear(name, xs, expert_stacked=True)
+    out_dtype = out_dtype or xs.dtype
     if isinstance(w, QuantizedTensor):
         from repro_torch.kernels import ops
 
         return ops.dequant_matmul_experts(
             xs.contiguous(), w.codes, w.scale, w.zero, packed4=w.packed and w.bits == 4,
-            out_dtype=xs.dtype, group_size=w.group_size,
+            out_dtype=out_dtype, group_size=w.group_size,
         )
     if isinstance(w, HoistedDequant):
-        return (xs.to(torch.float32) @ w.w.transpose(-1, -2)).to(xs.dtype)
+        return (xs.to(torch.float32) @ w.w.transpose(-1, -2)).to(out_dtype)
+    if out_dtype != xs.dtype:
+        return torch.bmm(xs.to(out_dtype), w.to(out_dtype))
     return torch.bmm(xs, w)
+
+
+def _route(router: torch.Tensor, xf: torch.Tensor, top_k: int, norm_topk: bool):
+    """(n, D) tokens → (router probs (n, E) fp32, top-k weights, top-k
+    expert ids (n, k))."""
+    probs = torch.softmax(xf.to(torch.float32) @ router.to(torch.float32), -1)
+    # lax.top_k's order: descending, ties to the lower index.
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :top_k], top_e[:, :top_k]
+    if norm_topk:
+        top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    return probs, top_w, top_e
 
 
 def _dispatch_table(expert_ids: torch.Tensor, n_experts: int, capacity: int):
@@ -73,20 +113,15 @@ def _dispatch_table(expert_ids: torch.Tensor, n_experts: int, capacity: int):
 
 
 def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, act: str, gated: bool,
-              norm_topk: bool, return_aux: bool = False):
+              norm_topk: bool, return_aux: bool = False, shard: Optional[ExpertShard] = None):
     """x: (B, S, D) → ``(y, router probs or None)``; the B·S tokens form one
     dispatch group (the reference's ``dispatch_groups=1``, which its model
-    passes unless a mesh splits the batch)."""
+    passes unless a mesh splits the batch).  ``shard``: this rank's layout
+    on a "model" axis (None: the whole layer)."""
     B, S, D = x.shape
     n = B * S
     xf = x.reshape(n, D)
-    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
-    probs = torch.softmax(logits, -1)
-    # lax.top_k's order: descending, ties to the lower index.
-    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_w, top_e = top_w[:, :top_k], top_e[:, :top_k]
-    if norm_topk:
-        top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    probs, top_w, top_e = _route(p["router"], xf, top_k, norm_topk)
 
     capacity = max(int(n * top_k / n_experts * CAPACITY_FACTOR), 8)
     copy_for_slot, slot_of_copy = _dispatch_table(top_e.reshape(-1), n_experts, capacity)
@@ -94,20 +129,30 @@ def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, act: str,
     token_for_slot = torch.where(filled, copy_for_slot // top_k, 0)
     w_for_slot = torch.where(filled, top_w.reshape(-1)[copy_for_slot.clamp_min(0)], 0.0)
 
-    xs = xf[token_for_slot].reshape(n_experts, capacity, D)
+    kind = shard.kind if shard is not None else None
+    e0, ne = (shard.first, shard.n_local) if kind == "experts" else (0, n_experts)
+    s0, ns = e0 * capacity, ne * capacity  # this rank's slots
+    xs = xf[token_for_slot[s0 : s0 + ns]].reshape(ne, capacity, D)
     h = activation(_expert_matmul(p["w_gate"], xs, "w_gate"), act)
     if gated:
         h = h * _expert_matmul(p["w_up"], xs, "w_up")
-    ys = _expert_matmul(p["w_down"], h, "w_down").reshape(n_experts * capacity, D)
-    ys = ys * w_for_slot[:, None].to(ys.dtype)
+    if kind == "ffn":
+        ys = shard.psum(_expert_matmul(p["w_down"], h, "w_down", torch.float32)).to(xs.dtype)
+    else:
+        ys = _expert_matmul(p["w_down"], h, "w_down")
+    ys = ys.reshape(ns, D) * w_for_slot[s0 : s0 + ns, None].to(ys.dtype)
 
-    # Each token's copies in slot order; a dropped copy reads the zero row
-    # appended at slot E·C.
+    # Each token's copies in slot order; a dropped copy, and on an
+    # expert-parallel rank another rank's, reads the zero row appended at
+    # the rank's last slot.
     ys32 = torch.cat([ys.to(torch.float32), ys.new_zeros(1, D, dtype=torch.float32)])
-    contrib = ys32[slot_of_copy.reshape(n, top_k).sort(-1).values]  # (n, k, D)
+    slots = slot_of_copy.reshape(n, top_k).sort(-1).values - s0
+    contrib = ys32[torch.where((slots >= 0) & (slots < ns), slots, ns)]  # (n, k, D)
     y = contrib[:, 0]
     for i in range(1, top_k):
         y = y + contrib[:, i]
+    if kind == "experts":
+        y = shard.psum(y)
     return y.reshape(B, S, D).to(x.dtype), (probs if return_aux else None)
 
 

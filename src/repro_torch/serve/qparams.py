@@ -163,13 +163,22 @@ def serving_rules(plan, mesh):
     vocabulary at their padded sizes, and :func:`qt_rules_extra`'s fused
     names, so :func:`repro_torch.dist.sharding.shard_tree` cuts dense params
     by :func:`~repro_torch.models.model.param_axes` and an artifact by
-    :func:`qt_param_axes` consistently."""
+    :func:`qt_param_axes` consistently.
+
+    It departs from the reference's table on purpose (``ROADMAP.md`` §3) in
+    two entries: it passes the per-expert ffn (``moe_ff``) and the SSD head
+    count (``ssm_heads``), which the reference's ``launch.specs._rules_for``
+    leaves at 0.  So ``expert_ffn`` stays whole where neither the experts
+    nor the per-expert ffn divide the axis (the reference puts it on
+    "model", which cannot split), and ``ssm_heads`` cuts the dense Mamba
+    leaves and the Mamba cache on the heads ``ssm_fused`` cuts the quantized
+    ``wz``/``wx`` rows on."""
     from repro_torch.dist.sharding import axis_sizes, make_rules
 
     cfg, hp = plan.cfg, plan.heads
     return make_rules(mesh, n_heads=hp.h_pad, n_kv_heads=hp.n_kv, head_dim=cfg.hd,
                       d_ff=cfg.d_ff, n_experts=cfg.n_experts, vocab=plan.vocab_pad,
-                      d_model=cfg.d_model,
+                      d_model=cfg.d_model, moe_ff=cfg.moe_ff, ssm_heads=cfg.ssm_nheads,
                       extra=qt_rules_extra(plan, axis_sizes(mesh).get("model", 1)))
 
 

@@ -379,20 +379,21 @@ def tp_serve(plan, params, case, cache):
     on the case's prompts (logits recorded): what the tensor-parallel test
     compares, run the same way on one rank or on a model axis."""
     from repro_torch.models import model as M
-    from repro_torch.serve import PagedServingEngine, Request, ServingEngine
+    from repro_torch.serve import PagedServingEngine, Request
 
     tokens = case["tokens"]
     fresh = M.init_cache(plan, tokens.shape[0], case["cap"], device="cpu")
     l1, _ = M.prefill(plan, params, {"tokens": tokens}, fresh)
     l2, cache = M.decode_step(plan, params, case["next"], cache, tokens.shape[1])
     # The cache entries the decode step wrote (bf16), one (k, v) per period
-    # and block: (B, kv slots, hd).
+    # and attention block: (B, kv slots, hd).
     wrote = [(c["k"][i, :, tokens.shape[1]].float().numpy(),
               c["v"][i, :, tokens.shape[1]].float().numpy())
-             for c in (cache[k] for k in sorted(cache)) for i in range(c["k"].shape[0])]
+             for c in (cache[k] for k in sorted(cache)) if "k" in c
+             for i in range(c["k"].shape[0])]
     out = {"prefill": l1.float().numpy(), "decode": l2.float().numpy(), "wrote": wrote}
     for eng_name, kw in case["engines"].items():
-        cls = PagedServingEngine if eng_name.startswith("paged") else ServingEngine
+        cls = PagedServingEngine if eng_name.startswith("paged") else _admissions()
         eplan = dataclasses.replace(plan, kv_cache_dtype="int8") if eng_name == "paged_int8" \
             else plan
         eng = cls(eplan, params, record_logits=True, device="cpu", **kw)
@@ -400,7 +401,37 @@ def tp_serve(plan, params, case, cache):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=case["max_new"]))
         eng.run()
         out[eng_name] = ({r.rid: r.output for r in eng.finished}, eng.logit_trace)
+        if eng_name == "contiguous":
+            out[f"{eng_name}_admitted"] = eng.admitted
     return out
+
+
+def _admissions():
+    from repro_torch.serve import ServingEngine
+
+    class Admissions(ServingEngine):
+        """The contiguous engine, recording per request the bf16 Mamba
+        convolution states its admission copied into the slot: the copy
+        rounds an fp32 model's prefill state to the cache's bf16 (as the
+        reference's engine does), where a state one fp32 ulp apart can land
+        on the next bf16 value."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.admitted = {}
+
+        def _admit(self):
+            free = [r is None for r in self.slot_req]
+            super()._admit()
+            for slot, req in enumerate(self.slot_req):
+                if free[slot] and req is not None:
+                    self.admitted[req.rid] = {
+                        (blk, k): t[:, slot].view(torch.int16).numpy().copy()
+                        for blk, leaves in self.cache.items() for k, t in leaves.items()
+                        if k in ("conv_x", "conv_bc") and t.dtype == torch.bfloat16}
+
+    return Admissions
+
 
 
 def tp_rank(rank, world, cases):
@@ -409,17 +440,22 @@ def tp_rank(rank, world, cases):
     ``dist.sharding.shard_tree`` under ``serve.qparams.serving_rules``, then
     :func:`tp_serve` inside the rules; each case's storage bytes per leaf
     and collectives (the forward pass' ``all_reduce`` and ``gather_dim``
-    calls and bytes, counted by wrapping them) come back with its
-    outputs."""
+    calls and bytes, counted by wrapping them: over the whole case, and
+    those of its decode step alone under ``"decode"``) come back with its
+    outputs, with the MoE routers' top-k expert ids of every call
+    (``"routes"``: their count and the digest of their bytes)."""
+    import hashlib
+
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.dist.sharding import axis_rules, shard_tree
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.serve.qparams import qt_param_axes, serving_rules
 
     mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("model",))
-    comm = {}
+    comm, routes = {}, []
 
     def counted(kind, fn):
         def call(t, *a, **k):  # the bytes a rank sends: its tensor, or its shard
@@ -428,9 +464,22 @@ def tp_rank(rank, world, cases):
             return fn(t, *a, **k)
         return call
 
-    originals = {"all_reduce": M.all_reduce, "gather_dim": M.gather_dim}
+    def decode_counted(*a, **k):
+        before = {kind: comm[kind][0] for kind in ("all_reduce", "all_gather")}
+        out = originals["decode_step"](*a, **k)
+        comm.setdefault("decode", {kind: comm[kind][0] - n for kind, n in before.items()})
+        return out
+
+    def routed(*a, **k):
+        out = originals["_route"](*a, **k)
+        routes.append(out[2].numpy().tobytes())
+        return out
+
+    originals = {"all_reduce": M.all_reduce, "gather_dim": M.gather_dim,
+                 "decode_step": M.decode_step, "_route": moe._route}
     M.all_reduce = counted("all_reduce", originals["all_reduce"])
     M.gather_dim = counted("all_gather", originals["gather_dim"])
+    M.decode_step, moe._route = decode_counted, routed
     out = {}
     try:
         for name, case in cases.items():
@@ -439,13 +488,17 @@ def tp_rank(rank, world, cases):
             axes = qt_param_axes(plan) if case["quantized"] else M.param_axes(plan)
             local = shard_tree(case["params"], axes, rules)
             cache = shard_tree(case["cache"], M.cache_axes(plan), rules)
+            comm.clear()
             comm.update(all_reduce=[0, 0], all_gather=[0, 0])
+            routes.clear()
             with axis_rules(rules):
                 res = tp_serve(plan, local, case, cache)
             res["bytes"] = storage_bytes(local)
-            res["comm"] = {k: list(v) for k, v in comm.items()}
+            res["comm"] = {k: (dict(v) if k == "decode" else list(v)) for k, v in comm.items()}
+            res["routes"] = (len(routes), hashlib.sha256(b"".join(routes)).hexdigest())
             out[name] = res
     finally:
         M.all_reduce, M.gather_dim = originals["all_reduce"], originals["gather_dim"]
+        M.decode_step, moe._route = originals["decode_step"], originals["_route"]
     dist.barrier()
     return out

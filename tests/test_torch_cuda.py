@@ -413,6 +413,58 @@ def test_dequant_matmul_row_parallel_partials(cuda, q, p, m):
     assert float((total - y_ref).abs().max()) <= 1e-4 * float(y_ref.abs().max())
 
 
+@pytest.mark.parametrize("C", [8, 20])
+def test_dequant_matmul_experts_on_a_ranks_shard(cuda, C):
+    """An MoE layer's expert GEMMs on one rank of a model axis of 2, cut
+    by ``dist.sharding.shard_tree`` from an expert-stacked packed 4-bit
+    per-channel QuantizedTensor (8 experts of (384, 256); C slots an
+    expert: 8 at a decode step, 20 on a prefill chunk): expert-parallel,
+    each rank's 4 experts, one launch each, bf16 out; ffn-parallel, each
+    rank's half of the in columns (``w_down``'s row shard) with fp32 out,
+    and the two partials' sum against the whole product's plain version
+    within 1e-4 of max |y|."""
+    from repro_torch.dist.sharding import make_rules, shard_tree
+    from repro_torch.quant import QuantizedTensor
+
+    E, q, p = 8, 384, 256
+    per = [_gemm(e + 31 * C, C, q, p, 1, cuda, torch.bfloat16) for e in range(E)]
+    xs, codes, scale, zero = (torch.stack([t[i] for t in per]) for i in range(4))
+    qt = QuantizedTensor(codes=pack_codes(codes, 4), scale=scale, zero=zero, bits=4, packed=True)
+    whole = torch.stack([ref.dequant_matmul_ref(xs[e], codes[e], scale[e], zero[e],
+                                                out_dtype=torch.float32) for e in range(E)])
+    experts = {"codes": ("experts", None, None), "scale": ("experts", None, None),
+               "zero": ("experts", None, None)}
+    ffn = {"codes": (None, None, "expert_ffn"), "scale": (None, None, None),
+           "zero": (None, None, None)}
+    partials = []
+    for rank in range(2):
+        part = shard_tree({"w": qt}, {"w": experts}, make_rules({"model": 2}, n_experts=E),
+                          rank=rank)["w"]
+        assert part.codes.shape == (E // 2, q, p // 2)
+        mine = slice(rank * E // 2, (rank + 1) * E // 2)
+        before = ops.launch_counts()["dequant_matmul"]
+        y = ops.dequant_matmul_experts(xs[mine].contiguous(), part.codes, part.scale, part.zero,
+                                       packed4=True, out_dtype=torch.bfloat16)
+        assert ops.launch_counts()["dequant_matmul"] == before + E // 2
+        for e in range(E // 2):
+            _dq_check(y[e], whole[mine][e], torch.bfloat16)
+        part = shard_tree({"w": qt}, {"w": ffn}, make_rules({"model": 2}, moe_ff=p),
+                          rank=rank)["w"]
+        assert part.codes.shape == (E, q, p // 4) and part.scale.data_ptr() == scale.data_ptr()
+        xr = xs[..., rank * p // 2 : (rank + 1) * p // 2].contiguous()
+        before = ops.launch_counts()["dequant_matmul"]
+        y = ops.dequant_matmul_experts(xr, part.codes, part.scale, part.zero, packed4=True,
+                                       out_dtype=torch.float32)
+        assert ops.launch_counts()["dequant_matmul"] == before + E and y.dtype == torch.float32
+        unpacked = part.unpacked_codes()
+        for e in range(E):
+            _dq_check(y[e], ref.dequant_matmul_ref(xr[e], unpacked[e], scale[e], zero[e],
+                                                   out_dtype=torch.float32), torch.float32)
+        partials.append(y)
+    total = partials[0] + partials[1]
+    assert float((total - whole).abs().max()) <= 1e-4 * float(whole.abs().max())
+
+
 @pytest.mark.parametrize("m,x_dtype,gsz,variant", [
     (8, torch.bfloat16, None, "tc_small"),
     (64, torch.bfloat16, 128, "tc_small"),
