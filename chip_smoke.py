@@ -73,10 +73,9 @@ Phases (any failed check exits non-zero; no phase is skipped):
    (repeat: same tokens), on bf16 with 40 % of the pages (preemption), and on
    the contiguous engine; paged and contiguous first-decode logits must agree,
    kernel 5 must launch once per decode step and period, and the decode
-   steps' GEMMs must run tc_small (no simt launch); then 8 users at
-   3584-4032 tokens of context (16 new tokens each) under the profiler:
-   decode ms per step, busy share, kernel 5's device time against the
-   dequant-GEMM's, and kernel 5's launches held to decode steps x periods;
+   steps' GEMMs must run tc_small (no simt launch) (its profiled runs, a
+   paged bf16 run of 8 requests and 8 users at 3584-4032 tokens of
+   context, were cut for time: PERF.md §4);
 7. the quality table (the reference's ``benchmarks/bench_eval.py`` at its
    full budget): ``bench_opt_s`` trained 1,600 steps at batch 16 x 96, then
    ``run_grid`` over RTN, GPTQ and QuantEase at 4 and 3 bits and qe_outlier
@@ -259,7 +258,22 @@ Phases (any failed check exits non-zero; no phase is skipped):
    token parting above the one-rank run's top-2 margin rule; every kernel-3
    and kernel-5 signature held against its plain version once; kernel 3's
    launches a decode step against one rank's, the collectives, ms per
-   decode step and peak memory a rank printed.
+   decode step and peak memory a rank printed; (e) then the same ranks, as
+   a ("model",) axis of 2, train 2 steps each (``Trainer(mesh=)``: the
+   model axis' collectives in the forward and backward passes, the
+   vocabulary-parallel cross-entropy) of phase 5b's model (held against
+   phase 5b's first 2 steps), OLMoE-1B-7B at one layer (32 of 64 experts a
+   rank) and Mamba-2-2.7B at 2 of 64 layers (40 of 80 SSD heads a rank),
+   from the seeded whole params of the one-rank run, which the parent
+   trains for the last two while the ranks work: losses and gradient
+   norms within 5e-3 relative of the one-rank run's, the params after step
+   2 off its by at most 5 % of how far it moved them beyond a control's
+   distance (the one-rank run again with its heads and ffn units permuted:
+   bf16 params round apart under any other summation order), the loss and
+   every leaf held whole the same bits on both ranks before each step and
+   after the last, every rank's storage its shard; the `[tp-train]` lines
+   print those, ms per step against one rank, peak memory and the
+   collectives' calls, bytes and seconds.
    A failed collective or rank fails the phase.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
@@ -385,8 +399,31 @@ TP_LOGIT_RTOL = 2e-2  # first-decode logits against the one-rank run's, of max |
 # boundary whose one-rank probability gap is under TP_ROUTER_GAP, on which
 # the ranks' top-k ids part from the one-rank run's.
 TP_FAMILIES = ("olmoe", "jamba")
-TP_WAIT_S = 1800  # how long the ranks wait after (c) for (d)
+TP_WAIT_S = 1800  # how long the ranks wait after (c) for (d), and after (d) for (e)
 TP_ROUTER_GAP = 1e-2
+# (e) Training on the axis: after (d) the same ranks, as a ("model",) axis of
+# 2, train TP_TRAIN_STEPS steps of each model of TP_TRAIN (bf16 params, fp32
+# AdamW moments, TRAIN_OPT, TRAIN_BATCH x TRAIN_SEQ batches of the synthetic
+# corpus) from the seeded whole params its one-rank run starts from: phase
+# 5b's model (32 heads and the 32,064-token vocabulary in halves: no
+# padding), held against phase 5b's first steps; OLMoE-1B-7B at one layer
+# (64 experts, 32 a rank: expert-parallel) and Mamba-2-2.7B at 2 of 64
+# layers (80 SSD heads, 40 a rank), whose one-rank runs the parent trains
+# while the ranks work.  Losses and gradient norms within TP_TRAIN_LOSS_RTOL
+# (bf16 sums in another order); the params after the last step off the
+# one-rank run's by at most TP_TRAIN_UPDATE_RTOL of how far that run moved
+# them beyond the noise floor of bf16 params: the distance of a control, the
+# one-rank run again from the same params with its heads and ffn units
+# permuted (the same model, every reduction over them in another order;
+# measured 3.3-6.5 % of the movement, the ranks 4.0-7.7 %: NVIDIA H100 80GB
+# HBM3, PERF.md §6), as phase 13 (a) bounds perplexity beyond its
+# controls; the loss and every leaf the ranks hold whole the same bits on
+# both ranks.
+TP_TRAIN_STEPS = 2
+TP_TRAIN = {"phi3": ("phi3_mini_3_8b", MAIN_OVERRIDES), "olmoe": ("olmoe_1b_7b", dict(n_periods=1)),
+            "mamba": ("mamba2_2_7b", dict(n_periods=2))}
+TP_TRAIN_LOSS_RTOL = 5e-3
+TP_TRAIN_UPDATE_RTOL = 0.05
 # Phase 7: the reference's quality table (benchmarks/bench_eval.py, its full
 # budget): bench_opt_s trained 1,600 steps at batch 16 x 96, then the grid.
 QUALITY_TRAIN = dict(steps=1600, batch=16, seq=96)
@@ -443,8 +480,8 @@ PAGED_SHAPES = (
     ("long", 32, 32, 1, 96, 4096, (4096, 4096), None, None, ("bf16", "int4")),
     ("gqa", 8, 8, 4, 128, 1536, (1, 1536), 256, 50.0, ("bf16", "int8", "int4")),
     ("single", 1, 32, 1, 96, 4096, (4096, 4096), None, None, ("bf16", "int4")),  # one user at 4k
-    # Phase 6's long-context run: 8 lanes of a 4096-token table at the
-    # lengths its decode steps reach (prompts of 3584-4032 + 16 new tokens).
+    # A long-context deployment's decode: 8 lanes of a 4096-token table at
+    # the lengths 8 users' prompts of 3584-4032 tokens reach with 16 new ones.
     ("longctx", 8, 32, 1, 96, 4096, (3584, 4048), None, None, ("bf16",)),
 )
 PAGED_ATOL = 2e-2  # the kernel keeps p in fp32, the plain version rounds it to bf16
@@ -471,10 +508,6 @@ SERVE_PREFIX, SERVE_N_SHARED = 256, 4
 SERVE_PAGED = dict(max_batch=8, max_seq=1536, page_size=PAGE, prefill_chunk=128)
 SERVE_CONTIG = dict(max_batch=8, max_seq=1536)
 SERVE_SMALL_POOL = 0.3  # of the ample page count: forces preemption (0.4 does not)
-# Phase 6's long-context run: 8 users of a 4k-context deployment, each near
-# the full context, where kernel 5 reads the most per decode step.
-LONG_REQUESTS, LONG_PROMPT_LO, LONG_PROMPT_HI, LONG_NEW_TOKENS = 8, 3584, 4032, 16
-SERVE_LONG = dict(max_batch=8, max_seq=4096, page_size=PAGE, prefill_chunk=128)
 # First-decode logits, paged bf16 against contiguous bf16, as a share of the
 # contiguous run's max |logit| (bf16 activations; kernel 5 keeps p in fp32
 # where decode_attention rounds it to bf16); also the margin below which
@@ -1952,7 +1985,11 @@ def train_full_width(dev, detail):
     the card) trained ``TRAIN_STEPS`` steps with fp32 AdamW moments on the
     synthetic corpus; then one checkpoint of that state saved and restored,
     held bit for bit.  Returns the kernels' launch counts (the dense
-    training path runs none of them)."""
+    training path runs none of them) and phase 13 (e)'s one-rank run of
+    this model: the first TP_TRAIN_STEPS steps' losses, gradient norms and
+    times, the seeded params' leaf sums, and the params before the first
+    step and after step TP_TRAIN_STEPS on the CPU (their copy's seconds
+    left out of the step times)."""
     import shutil
     import tempfile
 
@@ -1978,13 +2015,18 @@ def train_full_width(dev, detail):
                                         ckpt_every=TRAIN_STEPS + 1, ckpt_dir=ckpt_dir, log_every=1),
                           device=dev)
         built = torch.cuda.memory_allocated() - base
-        stamps, peaks = [], []
+        stamps, peaks, copying = [], [], [0.0]
+        one = dict(init=tree_to(trainer.params, "cpu"), sums=leaf_sums(trainer.params))
 
         def stamp(step=None):  # runs before each step: the card has finished the one before
             torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
+            stamps.append(time.perf_counter() - copying[0])
             peaks.append(torch.cuda.max_memory_allocated() - base)  # since the last stamp
             torch.cuda.reset_peak_memory_stats()
+            if step == TP_TRAIN_STEPS:
+                t = time.perf_counter()
+                one["after"] = tree_to(trainer.params, "cpu")
+                copying[0] += time.perf_counter() - t
 
         ops.reset_launch_counts()
         out = trainer.run(fault_hook=stamp)
@@ -2031,7 +2073,10 @@ def train_full_width(dev, detail):
                            base_bytes=base, base_bytes_before_gc=before_gc, trainer_bytes=built,
                            cyclic_bytes=cyclic, checkpoint_bytes=n_bytes,
                            save_s=t_save, restore_s=t_restore, launches=counts)
-    return counts
+    log = out["log"][:TP_TRAIN_STEPS]
+    one.update(losses=[m["loss"] for m in log], grad_norms=[m["grad_norm"] for m in log],
+               ms=[(b - a) * 1e3 for a, b in zip(stamps, stamps[1:TP_TRAIN_STEPS + 1])])
+    return counts, one
 
 
 # ---------------------------------------------------------------------------
@@ -2149,14 +2194,6 @@ def serving(dev, detail, plan, artifact):
     variants = dict(dequant_matmul_cuda.launches_by_variant)
     print(f"[serve] launches during serving: {counts}; dequant_matmul by variant {variants}  "
           f"({t_serve:.1f}s)", flush=True)
-    # Where a paged bf16 run's time goes: its first 8 requests under the
-    # profiler (device busy share, device time by kernel); not counted above.
-    prof = device_profile(lambda: serve_run("paged bf16, 8 requests, profiled", paged("bf16"),
-                                            prompts[:SERVE_PAGED["max_batch"]]))
-    print("[profile] paged bf16 serving: " + (
-        "no device time in the trace" if not prof else
-        f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms (busy {prof['busy']:.3f}): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(prof["by_kernel"].items()))), flush=True)
 
     for label, (stats, outputs, eng) in res.items():
         allowed = {"completed", "preempted_resumed"} if "pages" in label else {"completed"}
@@ -2197,122 +2234,11 @@ def serving(dev, detail, plan, artifact):
     detail["serving"] = dict(
         runs=[r[0] for r in res.values()], seconds=t_serve, launches=counts, gemm_variants=variants,
         first_decode_max_diff_contiguous=d_ct, logit_scale=scale, identical_share=float(same),
-        kv_quant_max_diff=d_q, prompt_lengths=[len(p) for p in prompts], profile=prof,
-        long_context=long_context(dev, cfg, plans["bf16"], artifact,
-                                  next(r for r in detail["paged_attention"]
-                                       if (r["shape"], r["kind"]) == ("longctx", "bf16"))),
+        kv_quant_max_diff=d_q, prompt_lengths=[len(p) for p in prompts],
     )
     for eng in (r[2] for r in res.values()):
         eng.logit_trace.clear()
     return counts
-
-
-def replay_device_ms(calls, batch: int = 32) -> list:
-    """Device ms of each recorded kernel-5 call, replayed on its own inputs:
-    ``batch`` calls at a time behind a sleep (:func:`behind_sleep`), each
-    between two events, L2 flushed before each (as the run's GEMMs flush it
-    between calls), so each time is the split and combine kernels' alone."""
-    import torch
-
-    from repro_torch.kernels.paged_attention import paged_attention_cuda
-
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=calls[0][0].device)
-    times = []
-    for i in range(0, len(calls), batch):
-        part = calls[i:i + batch]
-        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                  for _ in part]
-
-        def enqueue():
-            for (a, b), (q, k_pages, v_pages, table, lengths, kw) in zip(events, part):
-                flush.zero_()
-                a.record()
-                paged_attention_cuda(q, k_pages, v_pages, table, lengths, **kw)
-                b.record()
-
-        behind_sleep(enqueue)
-        times += [a.elapsed_time(b) for a, b in events]
-    return times
-
-
-def long_context(dev, cfg, plan, artifact, k5_row):
-    """Eight users of a 4k-context deployment (prompts of 3584-4032 tokens,
-    numpy seed 0; 16 new tokens each) on the paged bf16 engine, under the
-    profiler: decode ms per step, the card's busy share, and device time by
-    kernel, kernel 5's against the dequant-GEMM's.  The profiler's kernel
-    sums are lower bounds (phase 3 found them below event times), so each
-    kernel-5 call of the run is recorded (its table and lengths copied)
-    and replayed after it, timed by events (:func:`replay_device_ms`);
-    phase 3's time at the run's shape with all 8 lanes decoding
-    (``k5_row``) stands beside.  Its launches are counted from 0 for this
-    run alone and held to decode steps x periods."""
-    import numpy as np
-
-    from repro_torch.kernels import ops
-    from repro_torch.serve import PagedServingEngine
-
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
-               for n in rng.integers(LONG_PROMPT_LO, LONG_PROMPT_HI + 1, LONG_REQUESTS)]
-    calls, dispatch = [], ops.paged_attention
-
-    def recording(q, k_pages, v_pages, table, lengths, **kw):
-        calls.append((q, k_pages, v_pages, table.clone(), lengths.clone(), kw))
-        return dispatch(q, k_pages, v_pages, table, lengths, **kw)
-
-    out = {}
-
-    def run():  # from a clean count: device_profile runs it again if the trace was lost
-        calls.clear()
-        ops.reset_launch_counts()
-        out["run"] = serve_run("paged bf16, 8 users at 3.6-4k tokens, profiled",
-                               lambda: PagedServingEngine(plan, artifact, device=dev, **SERVE_LONG),
-                               prompts, new_tokens=LONG_NEW_TOKENS)
-
-    ops.paged_attention = recording
-    try:
-        prof = device_profile(run)
-    finally:
-        ops.paged_attention = dispatch
-    counts = ops.launch_counts()
-    stats, outputs, _ = out["run"]
-    check(stats["requests"] == LONG_REQUESTS and stats["statuses"] == ["completed"]
-          and all(len(o) == LONG_NEW_TOKENS for o in outputs.values()),
-          f"long-context run: requests {stats['requests']}, statuses {stats['statuses']}")
-    layers = cfg.n_periods * len(cfg.pattern)
-    check(counts["paged_attention"] == stats["decode_steps"] * layers,
-          f"long-context run: paged_attention launched {counts['paged_attention']} times for "
-          f"{stats['decode_steps']} decode steps x {layers} layers")
-    check(bool(prof), "long-context run: the profile holds no device time")
-    by = prof["by_kernel"]
-    k5 = sum(by.get(k, 0.0) for k in PAGED_KERNELS)
-    gemm = sum(v for k, v in by.items() if k.startswith("dequant_matmul"))
-    check(len(calls) == counts["paged_attention"],
-          f"long-context run: {len(calls)} kernel-5 calls recorded, {counts['paged_attention']} launched")
-    replay = replay_device_ms(calls)
-    k5_events = sum(replay)
-    lanes = [int((c[4] > 1).sum()) for c in calls]  # idle lanes attend over 1 position
-    per_call_bytes = stats["kv_read_bytes"] / len(calls)
-    k5_bound = bound(per_call_bytes, 0)[0]
-    del calls
-    print(f"[profile] long context: decode {stats['ms_per_step']:.2f} ms/step over "
-          f"{stats['decode_steps']} steps, TTFT p50 {stats['ttft_p50_ms']:.0f} ms; wall "
-          f"{prof['wall_ms']:.1f} ms; profiler kernel sums (lower bounds): device "
-          f"{prof['device_ms']:.1f} ms (busy {prof['busy']:.3f}), kernel 5 {k5:.2f} ms "
-          f"({k5 / prof['device_ms']:.1%} of device time, {k5 / max(counts['paged_attention'], 1):.4f} "
-          f"ms per call), dequant-GEMM {gemm:.2f} ms ({gemm / prof['device_ms']:.1%}); "
-          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by.items())), flush=True)
-    print(f"[profile] long context, kernel 5 by events (its {len(replay)} calls replayed): "
-          f"{k5_events:.2f} ms, {k5_events / len(replay):.4f} ms per call (median "
-          f"{statistics.median(replay):.4f}), {k5_events / prof['wall_ms']:.1%} of the run's wall time, "
-          f"{k5_events / stats['decode_steps']:.4f} ms per decode step of {stats['ms_per_step']:.2f}; "
-          f"lanes decoding per call: mean {np.mean(lanes):.2f}, max {max(lanes)}; KV bytes per call "
-          f"{per_call_bytes:.0f} (the engine's count), bound {k5_bound:.4f} ms "
-          f"({k5_bound * len(replay) / k5_events:.0%} of it); with all 8 lanes decoding (phase 3 "
-          f"longctx): {k5_row['device_ms']:.4f} ms per call, {k5_row['bytes']} bytes", flush=True)
-    return dict(stats=stats, profile=prof, launches=counts, kernel5_ms=k5, gemm_ms=gemm,
-                kernel5_event_ms=k5_events, kernel5_replay_ms=replay, lanes_per_call=lanes,
-                prompt_lengths=[len(p) for p in prompts])
 
 
 # ---------------------------------------------------------------------------
@@ -4166,7 +4092,9 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue, go):
     collectives and the digests of its artifact, Σ's and params, with (c)'s
     results (:func:`tp_serve_rank`).  Then the rank frees the card and
     waits on ``go`` for (d)'s message (None: stop), serves each family of
-    TP_FAMILIES (:func:`tp_family_rank`) and reports again."""
+    TP_FAMILIES (:func:`tp_family_rank`) and reports again; then waits for
+    (e)'s, trains each model of TP_TRAIN (:func:`tp_train_rank`) and
+    reports once more."""
     import traceback
 
     import torch
@@ -4262,6 +4190,13 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue, go):
                 out = {name: tp_family_rank(rank, world, msg[name], dev) for name in TP_FAMILIES}
                 dist.barrier()
                 queue.put((rank, True, out))
+                del out
+                _free()
+                msg = go.get(timeout=TP_WAIT_S)
+            if msg is not None:
+                out = {name: tp_train_rank(rank, world, name, msg, dev) for name in TP_TRAIN}
+                dist.barrier()
+                queue.put((rank, True, out))
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -4308,12 +4243,13 @@ def tp_shard_bytes(whole, local, axes, rules, n: int) -> tuple:
 
 @contextlib.contextmanager
 def counted_collectives():
-    """While open, the tensor-parallel forward pass' collectives
-    (``models.model.all_reduce``, ``gather_dim``) are counted into the dict
-    it yields: per kind the calls, the bytes a rank sends (its tensor, or
-    its shard) and the seconds each holds the host (gloo returns once the
-    data has arrived)."""
-    from repro_torch.models import model as M
+    """While open, the tensor-parallel collectives of the forward and
+    backward passes (``dist.collectives.all_reduce``, ``gather_dim``,
+    through which ``copy_to``, ``reduce_from``, ``gather_from`` and
+    ``max_over`` run) are counted into the dict it yields: per kind the
+    calls, the bytes a rank sends (its tensor, or its shard) and the
+    seconds each holds the host (gloo returns once the data has arrived)."""
+    from repro_torch.dist import collectives as M
 
     comm = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
 
@@ -4605,8 +4541,9 @@ def tp_families(detail, ranks: "Ranks", keep: dict) -> tuple:
     a lane past it allowed only at a router crossing (a top-k boundary
     whose one-rank probability gap is under TP_ROUTER_GAP, where the ranks'
     top-k ids part from the one-rank run's; each printed); their tokens
-    equal to its up to its first top-2 margin below that bound.  Returns
-    the kernels' launches (both ranks) and the calls checked."""
+    equal to its up to its first top-2 margin below that bound.  The ranks
+    stay up for (e) (:func:`tp_train`).  Returns the kernels' launches
+    (both ranks) and the calls checked."""
     import numpy as np
 
     msg = {name: {k: keep[name][k] for k in ("path", "engine", "prompts", "new")}
@@ -4614,7 +4551,6 @@ def tp_families(detail, ranks: "Ranks", keep: dict) -> tuple:
     t0 = time.monotonic()
     ranks.send(msg)
     got = ranks.collect(timeout=TP_WAIT_S)
-    ranks.close()
     print(f"[tp] (d) the ranks' loads, runs and checks: {time.monotonic() - t0:.1f}s", flush=True)
     counts, checked, out = {}, {}, {}
     for name in TP_FAMILIES:
@@ -4700,6 +4636,321 @@ def tp_families(detail, ranks: "Ranks", keep: dict) -> tuple:
                          peak_gib=[r["peak_gib"] for r in rows], layouts=r0["layouts"])
     detail.setdefault("sharded", {})["tp_families"] = out
     return counts, checked
+
+
+def tp_train_cfg(name: str):
+    from repro_torch.configs import get_config
+
+    arch, over = TP_TRAIN[name]
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def leaf_sums(tree) -> list:
+    """Each leaf's fp64 sum: what two seeded inits must agree on."""
+    from repro_torch.tree import tree_leaves
+
+    return [float(t.double().sum()) for t in tree_leaves(tree)]
+
+
+def whole_leaves_digest(params, shards) -> str:
+    """The digest of the leaves a rank holds whole on "model"."""
+    from repro_torch.tree import tree_leaves
+
+    return _tree_bytes([t for t, d in zip(tree_leaves(params), shards.model_dims) if d is None])
+
+
+def _train_settings(ckpt_dir: str):
+    from repro_torch.train import AdamWConfig, TrainerConfig
+
+    return AdamWConfig(**TRAIN_OPT), TrainerConfig(
+        steps=TP_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_every=TP_TRAIN_STEPS + 1,
+        ckpt_dir=ckpt_dir, log_every=1)
+
+
+# The leaves a unit permutation moves, by block leaf, and the dimension
+# (behind the period's): attention heads (kv slots with their query groups),
+# a dense MLP's ffn units, each expert's ffn units, Mamba-2's SSD heads.
+_UNIT_DIMS = {
+    "heads": {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1, "bv": 1},
+    "ffn": {"wg": 2, "wu": 2, "wd": 1},
+    "expert_ffn": {"w_gate": 3, "w_up": 3, "w_down": 2},
+    "ssm_heads": {"wz": 2, "wx": 2, "wdt": 2, "conv_x_w": 1, "conv_x_b": 1, "a_log": 1,
+                  "d_skip": 1, "dt_bias": 1, "norm_scale": 1, "out_proj": 1},
+}
+
+
+def permute_units(params, cfg, inverse: bool = False) -> dict:
+    """``params`` of the same model with each block's attention heads, ffn
+    units (dense or each expert's) and SSD heads in another order (numpy
+    seed 0; ``inverse`` puts them back): every reduction over those units
+    runs in another fp32 order, the math unchanged.  Heads move where no
+    kv slot is duplicated or padded, SSD heads where one B/C group serves
+    them all."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+
+    hp = M.make_plan(cfg).heads
+    moved = {"ffn", "expert_ffn"} | ({"heads"} if hp.kv_pad == hp.n_kv else set()) \
+        | ({"ssm_heads"} if cfg.ssm_ngroups == 1 else set())
+    rng = np.random.default_rng(0)
+    out = dict(params, dec={})
+    for blk, leaves in params["dec"].items():
+        new, perms = dict(leaves), {}
+        for unit in sorted(moved):
+            for leaf, dim in _UNIT_DIMS[unit].items():
+                if leaf not in leaves:
+                    continue
+                t = leaves[leaf]
+                if unit not in perms:
+                    perms[unit] = torch.from_numpy(rng.permutation(t.shape[dim]))
+                perm = perms[unit]
+                if inverse:
+                    perm = torch.argsort(perm)
+                new[leaf] = t.index_select(dim, perm.to(t.device))
+        out["dec"][blk] = new
+    return out
+
+
+def tp_train_control(name: str, dev, one: dict) -> float:
+    """(e)'s noise floor for ``name``: its one-rank run again from the same
+    seeded params with their units permuted (:func:`permute_units`), the
+    same model with every reduction over heads and ffn units in another
+    order; the distance of its params after the last step, put back, from
+    the one-rank run's ``one["after"]``."""
+    import shutil
+
+    from repro_torch.models import model as M
+    from repro_torch.train import Trainer
+
+    cfg = tp_train_cfg(name)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_control_")
+    try:
+        opt_cfg, tcfg = _train_settings(ckpt_dir)
+        init = permute_units(M.init_params(M.make_plan(cfg), 0, device=dev), cfg)
+        tr = Trainer(cfg, opt_cfg, tcfg, params=init, device=dev)
+        del init
+        tr.run()
+        after = permute_units(tr.params, cfg, inverse=True)
+        del tr
+        off, _ = update_distance(after, one["after"], one["init"], dev)
+        del after
+        _free()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return off
+
+
+def tp_train_rank(rank, world, name, spec, dev) -> dict:
+    """Phase 13 (e) on one rank, one model of TP_TRAIN: the seeded whole
+    params of the padded plan on the card (their leaf sums kept), cut by
+    ``Trainer(mesh=<("model",) of world>)``, which trains TP_TRAIN_STEPS
+    steps; the bytes the rank holds against its shard, each step's loss,
+    gradient norm, time and the digest of the leaves held whole (before
+    each step and after the last), the collectives of the run, its peak
+    device memory and kernel launches.  Rank 0 saves the whole params the
+    ranks gather after the run under ``spec["dir"]``."""
+    import shutil
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import Trainer
+
+    cfg = tp_train_cfg(name)
+    mesh = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("model",))
+    plan = M.make_plan(cfg, world)
+    shapes = lambda p: [tuple(t.shape) for t in _leaves(M.param_shapes(p))]
+    check(shapes(plan) == shapes(M.make_plan(cfg)),
+          f"phase 13 (e) {cfg.name}: the axis pads the plan")
+    whole = M.init_params(plan, 0, device=dev)
+    sums = leaf_sums(whole)
+    ckpt_dir = tempfile.mkdtemp(prefix=f"chip_smoke_tp_train_{rank}_")
+    try:
+        opt_cfg, tcfg = _train_settings(ckpt_dir)
+        tr = Trainer(cfg, opt_cfg, tcfg, mesh=mesh, params=whole, device=dev)
+        bad, held, total = tp_shard_bytes(whole, tr.params, M.param_axes(plan), tr.rules, world)
+        del whole
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        marks, peers = [], []  # (before, after) the digest of the whole-held leaves
+
+        def stamp(step=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            peers.append(whole_leaves_digest(tr.params, tr.shards))
+            marks.append((t, time.perf_counter()))
+
+        ops.reset_launch_counts()
+        with counted_collectives() as comm:
+            log = tr.run(fault_hook=stamp)["log"]
+            stamp()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        moments = sum(t.untyped_storage().nbytes() for t in _leaves(tr.opt_state))
+        params = tr._whole(tr.params, tr.shards)
+        if rank == 0:
+            torch.save(tree_to(params, "cpu"), os.path.join(spec["dir"], f"tp_train_{name}.pt"))
+        del params, tr
+        _free()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return dict(losses=[m["loss"] for m in log], grad_norms=[m["grad_norm"] for m in log],
+                ms=[(b[0] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])], peers=peers, sums=sums,
+                comm=comm, peak_gib=(peak - base) / 2**30, base_gib=base / 2**30,
+                bytes_bad=bad, bytes_held=held, bytes_whole=total, moments_bytes=moments,
+                launches=counts)
+
+
+def _leaves(tree) -> list:
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def tp_train_one_rank(name: str, dev) -> dict:
+    """(e)'s one-rank run of TP_TRAIN's model ``name`` on the card (the
+    parent's, while the ranks train): each step's loss, gradient norm and
+    time, the seeded params' leaf sums, and the params before the first
+    step and after the last, on the CPU."""
+    import shutil
+
+    import torch
+
+    from repro_torch.train import Trainer
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_one_")
+    try:
+        opt_cfg, tcfg = _train_settings(ckpt_dir)
+        tr = Trainer(tp_train_cfg(name), opt_cfg, tcfg, device=dev)
+        init, sums = tree_to(tr.params, "cpu"), leaf_sums(tr.params)
+        stamps = []
+
+        def stamp(step=None):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        log = tr.run(fault_hook=stamp)["log"]
+        stamp()
+        after = tree_to(tr.params, "cpu")
+        del tr
+        _free()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return dict(losses=[m["loss"] for m in log], grad_norms=[m["grad_norm"] for m in log],
+                ms=[(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])], sums=sums, init=init,
+                after=after)
+
+
+def update_distance(got, want, init, dev) -> tuple:
+    """``(‖got − want‖, ‖want − init‖)`` over every leaf, in fp64 on the card."""
+    import torch
+
+    off = moved = 0.0
+    for g, w, i in zip(_leaves(got), _leaves(want), _leaves(init)):
+        w64 = w.to(dev, torch.float64)
+        off += float(((g.to(dev, torch.float64) - w64) ** 2).sum())
+        moved += float(((w64 - i.to(dev, torch.float64)) ** 2).sum())
+    return math.sqrt(off), math.sqrt(moved)
+
+
+def tp_train(dev, detail, ranks: "Ranks", keep: dict, base: dict) -> None:
+    """Phase 13 (e) in the parent: the ranks train each model of TP_TRAIN
+    (:func:`tp_train_rank`) while the parent trains the one-rank runs of
+    those without one (phase 5b's first steps are Phi-3's) and each model's
+    control (:func:`tp_train_control`), then stop.  Per model: the seeded
+    params the same on both sides (leaf sums); every rank holding exactly
+    its shard; the losses and gradient norms within TP_TRAIN_LOSS_RTOL of
+    the one-rank run's; the ranks' losses, gradient norms and whole-held
+    leaves the same bits before each step and after the last; the params
+    the ranks gathered off the one-rank run's after the last step by at
+    most TP_TRAIN_UPDATE_RTOL of how far that run moved them beyond the
+    control's distance; no kernel launched (dense training runs none)."""
+    import torch
+
+    t0 = time.monotonic()
+    ranks.send({"dir": keep["dir"]})
+    one = {"phi3": base}
+    for name in TP_TRAIN:
+        if name not in one:
+            one[name] = tp_train_one_rank(name, dev)
+        one[name]["control_off"] = tp_train_control(name, dev, one[name])
+    t_one = time.monotonic() - t0
+    got = ranks.collect(timeout=TP_WAIT_S)
+    ranks.close()
+    print(f"[tp-train] the ranks' runs and the parent's one-rank runs and controls beside them: "
+          f"{time.monotonic() - t0:.1f}s (the one-rank runs and controls {t_one:.1f}s)", flush=True)
+    out = {}
+    for name in TP_TRAIN:
+        rows, ref = [g[name] for g in got], one[name]
+        label = tp_train_cfg(name).name
+        path = os.path.join(keep["dir"], f"tp_train_{name}.pt")
+        params = torch.load(path, map_location="cpu", mmap=True, weights_only=False)
+        off, moved = update_distance(params, ref["after"], ref["init"], dev)
+        ctrl = ref["control_off"]
+        del params
+        os.remove(path)
+        r0 = rows[0]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
+        norm_rel = [abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"], ref["grad_norms"])]
+        same_loss = all(r["losses"] == r0["losses"] and r["grad_norms"] == r0["grad_norms"]
+                        for r in rows)
+        same_leaves = [all(r["peers"][i] == r0["peers"][i] for r in rows)
+                       for i in range(len(r0["peers"]))]
+        for r, row in enumerate(rows):
+            print(f"[tp-train] {label} rank {r}: holds {row['bytes_held'] / 2**30:.3f} GiB of the "
+                  f"whole params' {row['bytes_whole'] / 2**30:.3f} GiB "
+                  f"({row['bytes_held'] / row['bytes_whole']:.1%}), every leaf its shard: "
+                  f"{not row['bytes_bad']}; moments {row['moments_bytes'] / 2**30:.3f} GiB; peak "
+                  f"{row['peak_gib']:.2f} GiB above the {row['base_gib']:.2f} GiB held before the "
+                  f"steps; ms per step {', '.join(f'{x:.1f}' for x in row['ms'])}; " + "; ".join(
+                      f"{k} {n} calls {b / 2**20:.2f} MiB {t:.3f}s"
+                      for k, (n, b, t) in row["comm"].items())
+                  + f"; launches {sum(row['launches'].values())}", flush=True)
+        print(f"[tp-train] {label} on a \"model\" axis of {len(rows)}: losses "
+              + ", ".join(f"{a:.6f}" for a in r0["losses"]) + " against one rank's "
+              + ", ".join(f"{b:.6f}" for b in ref["losses"])
+              + f" (rel {', '.join(f'{x:.3g}' for x in loss_rel)}; bound {TP_TRAIN_LOSS_RTOL}); "
+              f"gradient norms " + ", ".join(f"{a:.5g}" for a in r0["grad_norms"]) + " against "
+              + ", ".join(f"{b:.5g}" for b in ref["grad_norms"])
+              + f" (rel {', '.join(f'{x:.3g}' for x in norm_rel)}); params after step "
+              f"{TP_TRAIN_STEPS} off the one-rank run's by {off:.6g}, {off / moved:.4g} of its "
+              f"movement {moved:.6g}, against the control's {ctrl:.6g}, {ctrl / moved:.4g} (bound "
+              f"{TP_TRAIN_UPDATE_RTOL} of the movement beyond the control's); the ranks' losses "
+              f"and "
+              f"gradient norms the same bits: {same_loss}; whole-held leaves the same bits before "
+              f"each step and after the last: {same_leaves}; ms per step "
+              f"{[round(x, 1) for x in r0['ms']]} on the ranks against "
+              f"{[round(x, 1) for x in ref['ms']]} on one rank (two ranks share one card over "
+              f"gloo; the one-rank runs of OLMoE and Mamba-2 share it with the ranks)", flush=True)
+        check(all(r["sums"] == ref["sums"] for r in rows),
+              f"(e) {label}: the ranks' seeded params differ from the one-rank run's")
+        check(not any(r["bytes_bad"] for r in rows),
+              f"(e) {label}: a rank holds other bytes than its shard: {r0['bytes_bad'][:4]}")
+        check(len(r0["losses"]) == TP_TRAIN_STEPS
+              and max(loss_rel + norm_rel) <= TP_TRAIN_LOSS_RTOL,
+              f"(e) {label}: losses {r0['losses']} and gradient norms {r0['grad_norms']} against "
+              f"one rank's {ref['losses']}, {ref['grad_norms']}")
+        check(moved > 0 and off <= TP_TRAIN_UPDATE_RTOL * moved + ctrl,
+              f"(e) {label}: params {off / moved:.4g} of the movement off the one-rank run's, "
+              f"the control {ctrl / moved:.4g}")
+        check(same_loss and all(same_leaves), f"(e) {label}: the ranks' losses or whole-held "
+              f"leaves differ ({same_loss}, {same_leaves})")
+        check(all(sum(r["launches"].values()) == 0 for r in rows),
+              f"(e) {label}: dense training launched a kernel: {[r['launches'] for r in rows]}")
+        out[name] = dict(label=label, losses=r0["losses"], losses_one=ref["losses"],
+                         grad_norms=r0["grad_norms"], grad_norms_one=ref["grad_norms"],
+                         loss_rel=loss_rel, norm_rel=norm_rel, update_off=off, update_moved=moved,
+                         control_off=ctrl,
+                         ms_ranks=[r["ms"] for r in rows], ms_one=ref["ms"],
+                         comm=[r["comm"] for r in rows], peak_gib=[r["peak_gib"] for r in rows],
+                         bytes_held=[r["bytes_held"] for r in rows], bytes_whole=r0["bytes_whole"],
+                         moments_bytes=[r["moments_bytes"] for r in rows])
+    detail.setdefault("sharded", {})["tp_train"] = out
 
 
 class Ranks:
@@ -5210,7 +5461,7 @@ def main() -> None:
           f"sum of phase 3's launches per shape", flush=True)
     torch.cuda.empty_cache()
     t0 = time.monotonic()
-    counts_train = train_full_width(dev, detail)
+    counts_train, tp_train_base = train_full_width(dev, detail)
     print(f"[phase] 5b, training at full width: {time.monotonic() - t0:.1f}s", flush=True)
     torch.cuda.empty_cache()
     t0 = time.monotonic()
@@ -5266,9 +5517,15 @@ def main() -> None:
           flush=True)
     t0 = time.monotonic()
     counts_tpf, at_tpf = tp_families(detail, ranks, tp_keep)
-    shutil.rmtree(tp_dir, ignore_errors=True)
     print(f"[phase] 13 (d), OLMoE and Jamba on a \"model\" axis of 2: {time.monotonic() - t0:.1f}s",
           flush=True)
+    t0 = time.monotonic()
+    tp_train(dev, detail, ranks, tp_keep, tp_train_base)
+    del tp_train_base
+    shutil.rmtree(tp_dir, ignore_errors=True)
+    _free()
+    print(f"[phase] 13 (e), Phi-3-mini, OLMoE and Mamba-2 trained on a \"model\" axis of 2: "
+          f"{time.monotonic() - t0:.1f}s", flush=True)
     t0 = time.monotonic()
     counts_enc, at_enc = encdec_families(dev, detail)
     print(f"[phase] 12, Whisper-large-v3 and LLaVA-NeXT-34B at full width: "

@@ -16,15 +16,16 @@ This module owns the one mapping from those names to mesh axes:
   reference's ``PartitionSpec``: a mesh axis, a tuple of them, or None) and
   to DTensor placements (``Shard(d)`` / ``Replicate()``, one per mesh dim).
   A mesh axis is used at most once per spec; a later use resolves to None.
-* :meth:`Rules.tree_shards` gives a whole tree's layout over the data dim
-  (:class:`TreeShards`: the dimension each flattened leaf is sharded on),
-  what the data-parallel trainer, its train step and AdamW read.
+* :meth:`Rules.tree_shards` gives a whole tree's layout over the data and
+  model dims (:class:`TreeShards`: the dimension each flattened leaf is
+  sharded on over each), what the trainer, its train step and AdamW read.
 * :func:`axis_rules` installs a Rules as the ambient table;
   :func:`logical_constraint` is the model-side entry point.  Under explicit
   collectives a rank's tensor already is its shard (its data block, or its
   model-axis slice), so the constraint is the identity.
 * :func:`model_axis` reads the ambient rules' mesh for the
-  tensor-parallel forward pass (None where its "model" axis is 1), and
+  tensor-parallel forward pass (None where its "model" axis is 1),
+  :func:`data_axis` for the batch split over "data", and
   :func:`shard_tree` cuts a whole params tree (dense or a quantized
   serving artifact) into one rank's local tree under a Rules.
 """
@@ -49,8 +50,8 @@ __all__ = [
     "axis_sizes",
     "TreeShards",
     "model_axis",
+    "data_axis",
     "shard_tree",
-    "TP_TRAIN_ROADMAP",
     "TP_ENCDEC_ROADMAP",
     "TP_SPEC_ROADMAP",
 ]
@@ -59,11 +60,9 @@ __all__ = [
 # ("pod", "data")), or None (replicated).
 _Entry = Union[str, tuple, None]
 
-# Under a "model" axis the port serves token-only decoders (attention,
-# mixture-of-experts and Mamba-2 blocks); the rest is queued in ROADMAP.md
-# queue 1, and each refusal names its item.
-TP_TRAIN_ROADMAP = ("training under a \"model\" axis (backward collectives) is ROADMAP.md "
-                    "queue 1 item 8.1.1")
+# Under a "model" axis the port serves and trains token-only decoders
+# (attention, mixture-of-experts and Mamba-2 blocks); the rest is queued in
+# ROADMAP.md queue 1, and each refusal names its item.
 TP_ENCDEC_ROADMAP = ("the encoder-decoder and prefix families under a \"model\" axis are "
                      "ROADMAP.md queue 1 item 8.1.4")
 TP_SPEC_ROADMAP = ("speculative serving and deadlines under a \"model\" axis are ROADMAP.md "
@@ -99,14 +98,27 @@ def mesh_axis_size(mesh, axes) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TreeShards:
-    """A tree's layout over the mesh dim ``axis``: ``dims[i]`` is the
-    dimension leaf i (in :func:`repro_torch.tree.tree_flatten` order) is
-    sharded on, in equal contiguous blocks in rank order, or None where
-    every rank holds it whole."""
+    """A tree's layout over the mesh dim ``axis`` (the data dim) and the
+    "model" dim: ``dims[i]`` and ``model_dims[i]`` are the dimensions leaf i
+    (in :func:`repro_torch.tree.tree_flatten` order) is sharded on over
+    each, in equal contiguous blocks in rank order, or None where every
+    rank of that dim holds it whole.  ``model_dims`` is None where the mesh
+    has no "model" dim larger than 1.  A leaf is cut on "model" first, then
+    on the data dim, and gathered in the reverse order."""
 
     mesh: object
     dims: tuple
     axis: str = "data"
+    model_dims: Optional[tuple] = None
+
+    def cuts(self) -> list:
+        """``[(mesh dim, dims)]`` of the dims larger than 1 the tree is laid
+        out over, the data dim first."""
+        sizes = axis_sizes(self.mesh)
+        out = [(self.axis, self.dims)] if sizes.get(self.axis, 1) > 1 else []
+        if self.model_dims is not None:
+            out.append(("model", self.model_dims))
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,13 +173,17 @@ class Rules:
         return None
 
     def tree_shards(self, axes_tree, mesh_axis: str = "data") -> TreeShards:
-        """The layout over ``mesh_axis`` of a tree whose leaves have the
-        logical axes of ``axes_tree`` (tuples as leaves)."""
+        """The layout over ``mesh_axis`` and "model" of a tree whose leaves
+        have the logical axes of ``axes_tree`` (tuples as leaves)."""
         from repro_torch.tree import tree_flatten
 
         flat = tree_flatten(axes_tree, is_leaf=lambda x: isinstance(x, tuple))[0]
-        return TreeShards(self.mesh, tuple(self.shard_dim(tuple(a), mesh_axis) for a in flat),
-                          mesh_axis)
+        flat = [tuple(a) for a in flat]
+        model = None
+        if axis_sizes(self.mesh).get("model", 1) > 1:
+            model = tuple(self.shard_dim(a, "model") for a in flat)
+        return TreeShards(self.mesh, tuple(self.shard_dim(a, mesh_axis) for a in flat), mesh_axis,
+                          model)
 
 
 def make_rules(
@@ -270,6 +286,17 @@ def model_axis():
     if not hasattr(rules.mesh, "get_group"):
         raise ValueError(f"a \"model\" axis of {n} runs on a DeviceMesh with named dims, "
                          f"whose process group carries the collectives; got {rules.mesh!r}")
+    return rules.mesh
+
+
+def data_axis():
+    """The ambient rules' mesh where its "data" axis is larger than 1, else
+    None.  The batch is then split over it (data-parallel training), and a
+    layer that mixes tokens across the batch (the MoE layer's dispatch and
+    router loss) reads the whole batch through that axis."""
+    rules = current_rules()
+    if rules is None or axis_sizes(rules.mesh).get("data", 1) <= 1:
+        return None
     return rules.mesh
 
 

@@ -23,7 +23,12 @@ block runs the heads ``shard.heads`` gives, ``h0 .. h0 + nh − 1``: its
 ``d_skip`` are sliced here), each head reads the B/C group of its global
 index (:func:`_local_groups`), and the projections, the gated norm's sum
 of squares and ``out_proj`` go through ``shard``, which holds the
-collectives.
+collectives.  Under autograd the replicated tensors that feed the rank's
+heads alone (the block's input to its own projections, the B/C
+activations after their convolution, the whole ``a_log``, ``dt_bias`` and
+``d_skip``) pass through ``shard.enter`` / ``shard.heads_of``, so their
+gradients, and those of the replicated leaves behind them (``wbc``,
+``conv_bc_*``), sum every rank's heads.
 """
 
 from __future__ import annotations
@@ -140,25 +145,40 @@ def _ssd_chunked(
     return y[:, :L], h
 
 
-def _dt_a(p: dict, dt_raw: torch.Tensor, h0: int, nh: int):
-    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"][h0 : h0 + nh].to(torch.float32))
-    return dt, -torch.exp(p["a_log"][h0 : h0 + nh].to(torch.float32))
+def _mine(shard, t: torch.Tensor) -> torch.Tensor:
+    """A tensor every rank holds whole, about to be cut to the rank's heads."""
+    return t if shard is None else shard.heads_of(t)
+
+
+def _dt_a(p: dict, dt_raw: torch.Tensor, h0: int, nh: int, shard=None):
+    dt_bias, a_log = _mine(shard, p["dt_bias"]), _mine(shard, p["a_log"])
+    dt = F.softplus(dt_raw.to(torch.float32) + dt_bias[h0 : h0 + nh].to(torch.float32))
+    return dt, -torch.exp(a_log[h0 : h0 + nh].to(torch.float32))
 
 
 def _heads(cfg, shard) -> tuple:
     return (0, cfg.ssm_nheads) if shard is None else shard.heads
 
 
-def _project(shard, w, x, out_shape: tuple, name: str) -> torch.Tensor:
+def _projections(p: dict, x: torch.Tensor, nh: int, hd: int, shard):
+    """``z``, ``x`` before the convolution, B/C before theirs and dt before
+    the softplus: ``wz``/``wx``/``wdt`` on the heads the rank runs, ``wbc``
+    whole on every rank."""
     if shard is None:
-        return apply_linear(w, x, out_shape=out_shape, name=name)
-    return shard.project(w, x, out_shape, name)
+        proj = lambda w, shape, name: apply_linear(w, x, out_shape=shape, name=name)
+        dt_in = x
+    else:
+        xf = shard.enter(x)
+        proj = lambda w, shape, name: shard.project(w, x, xf, shape, name)
+        dt_in = xf if shard.split else x
+    return (proj(p["wz"], (nh, hd), "wz"), proj(p["wx"], (nh, hd), "wx"),
+            apply_linear(p["wbc"], x, name="wbc"), apply_linear(p["wdt"], dt_in, name="wdt"))
 
 
 def _gate_out(p: dict, y: torch.Tensor, xin: torch.Tensor, z: torch.Tensor, dtype, shard,
               h0: int) -> torch.Tensor:
     """D skip, SiLU(z) gate, RMSNorm over (nh·hd), out_proj."""
-    skip = p["d_skip"][h0 : h0 + y.shape[-2]].to(torch.float32)
+    skip = _mine(shard, p["d_skip"])[h0 : h0 + y.shape[-2]].to(torch.float32)
     y = y + xin.to(torch.float32) * skip.reshape(*([1] * (y.dim() - 2)), -1, 1)
     y = (y.to(dtype) * F.silu(z)).reshape(*y.shape[:-2], -1)
     if shard is None:
@@ -177,15 +197,13 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg, *, chunk: int = 128, return_cache
     hd = cfg.ssm_headdim
     G, N = cfg.ssm_ngroups, cfg.ssm_state
 
-    z = _project(shard, p["wz"], x, (nh, hd), "wz")  # gate
-    xin_pre = _project(shard, p["wx"], x, (nh, hd), "wx")  # before the conv
-    bc_pre = apply_linear(p["wbc"], x, name="wbc")  # (B, L, 2GN)
-    dt_raw = apply_linear(p["wdt"], x, name="wdt")  # (B, L, nh)
+    # z the gate, xin_pre before the conv, bc_pre (B, L, 2GN), dt_raw (B, L, nh)
+    z, xin_pre, bc_pre, dt_raw = _projections(p, x, nh, hd, shard)
 
     xin = F.silu(_dw_conv(xin_pre, p["conv_x_w"], p["conv_x_b"]))
-    bcv = F.silu(_dw_conv(bc_pre, p["conv_bc_w"], p["conv_bc_b"]))
+    bcv = _mine(shard, F.silu(_dw_conv(bc_pre, p["conv_bc_w"], p["conv_bc_b"])))
     b, c = _local_groups(*bcv.reshape(B, L, 2 * G, N).split(G, dim=2), h0, nh, cfg.ssm_nheads)
-    dt, a = _dt_a(p, dt_raw, h0, nh)
+    dt, a = _dt_a(p, dt_raw, h0, nh, shard)
 
     y, h_final = _ssd_chunked(xin, dt, a, b, c, chunk=chunk)
     out = _gate_out(p, y, xin, z, x.dtype, shard, h0)
@@ -216,10 +234,7 @@ def mamba_decode(p: dict, x: torch.Tensor, cfg, cache: dict, *, shard=None):
     G, N = cfg.ssm_ngroups, cfg.ssm_state
     xt = x[:, 0]
 
-    z = _project(shard, p["wz"], xt, (nh, hd), "wz")
-    xin_new = _project(shard, p["wx"], xt, (nh, hd), "wx")
-    bc_new = apply_linear(p["wbc"], xt, name="wbc")
-    dt_raw = apply_linear(p["wdt"], xt, name="wdt")
+    z, xin_new, bc_new, dt_raw = _projections(p, xt, nh, hd, shard)
 
     conv_x_hist = torch.cat([cache["conv_x"], xin_new[:, None]], 1)  # (B, k, nh, hd)
     conv_bc_hist = torch.cat([cache["conv_bc"], bc_new[:, None]], 1)  # (B, k, 2GN)
@@ -227,7 +242,7 @@ def mamba_decode(p: dict, x: torch.Tensor, cfg, cache: dict, *, shard=None):
     bc = F.silu(_contract_time(conv_bc_hist, p["conv_bc_w"]) + p["conv_bc_b"])
     b, c = _local_groups(*bc.reshape(B, 2 * G, N).split(G, dim=1), h0, nh, cfg.ssm_nheads)
 
-    dt, a = _dt_a(p, dt_raw, h0, nh)
+    dt, a = _dt_a(p, dt_raw, h0, nh, shard)
     da = torch.exp(dt * a[None, :])  # (B, nh)
     xin32 = xin.to(torch.float32)
     bh = b.repeat_interleave(nh // b.shape[1], dim=1).to(torch.float32)  # (B, nh, N)

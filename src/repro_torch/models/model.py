@@ -54,13 +54,17 @@ import torch
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.collectives import all_reduce, axis_rank, axis_size, gather_dim
-from repro_torch.dist.sharding import (
-    TP_ENCDEC_ROADMAP,
-    TP_TRAIN_ROADMAP,
-    current_rules,
-    model_axis,
+from repro_torch.dist.collectives import (
+    axis_rank,
+    axis_size,
+    copy_to,
+    gather_dim,
+    gather_dim_grad,
+    gather_from,
+    max_over,
+    reduce_from,
 )
+from repro_torch.dist.sharding import TP_ENCDEC_ROADMAP, current_rules, data_axis, model_axis
 from repro_torch.models.common import (
     HeadPlan,
     HoistedDequant,
@@ -77,7 +81,7 @@ from repro_torch.models.common import (
     _record_linear,
 )
 from repro_torch.models.mamba2 import mamba_apply, mamba_decode
-from repro_torch.models.moe import ExpertShard, moe_apply, router_aux_loss
+from repro_torch.models.moe import BatchShard, ExpertShard, moe_apply, router_aux_loss
 from repro_torch.quant import QuantizedTensor, kv_pack_int4, kv_unpack_int4
 
 __all__ = [
@@ -250,11 +254,24 @@ def _expert_shard(tp, p) -> Optional[ExpertShard]:
     d = _cut(tp, "w_gate", p["w_gate"])
     if d is None:
         return None
-    psum = lambda t: all_reduce(t, tp.mesh, "model")
+    kw = dict(psum=lambda t: reduce_from(t, tp.mesh, "model"),
+              enter=lambda t: copy_to(t, tp.mesh, "model"))
     if d == 0:
         n_local = p["w_gate"].shape[0]
-        return ExpertShard("experts", psum, axis_rank(tp.mesh, "model") * n_local, n_local)
-    return ExpertShard("ffn", psum)
+        return ExpertShard("experts", first=axis_rank(tp.mesh, "model") * n_local,
+                           n_local=n_local, **kw)
+    return ExpertShard("ffn", **kw)
+
+
+def _batch_shard() -> Optional[BatchShard]:
+    """The rank's block of a batch the ambient rules split over "data"
+    (data-parallel training), for the MoE layers, or None."""
+    mesh = data_axis()
+    if mesh is None:
+        return None
+    return BatchShard(axis_rank(mesh, "data"), axis_size(mesh, "data"),
+                      gather=lambda t: gather_dim(t, 0, mesh, "data"),
+                      psum=lambda t: copy_to(reduce_from(t, mesh, "data"), mesh, "data"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,26 +284,44 @@ class _SSMShard:
     and ``out_proj`` is row-parallel (:func:`_row_parallel`).  Where they
     keep the heads whole the rank runs every head: a quantized ``wz``/``wx``
     cut on its fused rows inside a head is projected on the rank's rows and
-    all-gathered whole (as :func:`_kv` gathers ``wk``/``wv``), and a
-    quantized ``out_proj`` cut on its columns reads the rank's columns of
-    the normed output, row-parallel."""
+    all-gathered whole, and a quantized ``out_proj`` cut on its columns
+    reads the rank's columns of the normed output, row-parallel.
+
+    Under autograd a replicated tensor that enters the rank's own work
+    (the block's input before a cut projection, the B/C activations, the
+    whole ``a_log``/``dt_bias``/``d_skip`` sliced to the rank's heads)
+    goes through :meth:`enter` (``copy_to``: its gradient summed over the
+    axis); one that replicated work consumes does not."""
 
     tp: object
     heads: tuple
     channels: int  # nh·hd: the gated norm's width over every head
     split: bool
 
-    def project(self, w, x, out_shape: tuple, name: str):
-        if self.split or _cut(self.tp, "wz", w) is None:
+    def enter(self, t):
+        return copy_to(t, self.tp.mesh, "model")
+
+    def heads_of(self, t):
+        """A tensor every rank holds whole, on its way to the rank's heads
+        (through :meth:`enter` where those are a share of them)."""
+        return self.enter(t) if self.split else t
+
+    def project(self, w, x, xf, out_shape: tuple, name: str):
+        """``x`` projected by ``wz``/``wx``/``wdt`` onto the heads the rank
+        runs; ``xf`` is ``enter(x)``, what a rank-local product reads."""
+        if self.split:
+            return apply_linear(w, xf, out_shape=out_shape, name=name)
+        if _cut(self.tp, "wz", w) is None:
             return apply_linear(w, x, out_shape=out_shape, name=name)
-        y = _whole(apply_linear(w, x, name=name), -1, self.tp)
+        y = gather_from(apply_linear(w, xf, name=name), -1, self.tp.mesh, "model").contiguous()
         return y.reshape(*x.shape[:-1], *out_shape)
 
     def rmsnorm(self, y, scale, eps: float = 1e-6):
         if not self.split:
             return rmsnorm(y, scale)
         y32 = y.to(torch.float32)
-        ss = all_reduce((y32 * y32).sum(-1, keepdim=True), self.tp.mesh, "model")
+        # The whole sum of squares feeds each rank's own heads: summed both ways.
+        ss = self.enter(reduce_from((y32 * y32).sum(-1, keepdim=True), self.tp.mesh, "model"))
         out = y32 * torch.rsqrt(ss / self.channels + eps)
         return (out * (1.0 + scale.to(torch.float32))).to(y.dtype)
 
@@ -295,7 +330,7 @@ class _SSMShard:
             return apply_linear(w, y, name="out_proj")
         if not self.split:
             cols = w.shape[-1]
-            y = y[..., axis_rank(self.tp.mesh, "model") * cols :][..., :cols]
+            y = self.enter(y)[..., axis_rank(self.tp.mesh, "model") * cols :][..., :cols]
         return _row_parallel(w, y, self.tp, "out_proj")
 
 
@@ -320,7 +355,7 @@ def _ssm_shard(plan: ModelPlan, tp) -> Optional[_SSMShard]:
 def _row_parallel(w, x, tp, name: str):
     """y = x @ W for a row-parallel weight (``wo``'s kv slots, ``wd``'s ffn
     block): this rank's product is a partial sum, formed in fp32,
-    all-reduced over "model" in fp32 and cast once, to x's dtype for a
+    all-reduced over "model" in fp32 (``reduce_from``) and cast once, to x's dtype for a
     quantized weight and to a dense weight's own (a bf16 ``o`` from bf16
     pages meets an fp32 ``wo`` upcast, as :func:`_apply_out_proj` does).
     Where the one-rank product rounds twice (a quantized weight with
@@ -332,14 +367,14 @@ def _row_parallel(w, x, tp, name: str):
     outliers = quantized and (w.outlier_values is not None or w.outlier_col_idx is not None)
     if not outliers or dt == torch.float32:
         y = apply_linear(w, x.to(dt), name=name, out_dtype=torch.float32)
-        return all_reduce(y, tp.mesh, "model").to(dt)
+        return reduce_from(y, tp.mesh, "model").to(dt)
     plain = dataclasses.replace(w, outlier_values=None, outlier_idx=None, outlier_col_idx=None,
                                 outlier_col_vals=None)
-    y = all_reduce(apply_linear(plain, x, name=name, out_dtype=torch.float32), tp.mesh, "model")
+    y = reduce_from(apply_linear(plain, x, name=name, out_dtype=torch.float32), tp.mesh, "model")
     x2 = x.reshape(-1, x.shape[-1])
     adds = _outlier_adds(w, x2, x2.new_zeros(x2.shape[0], y.shape[-1], dtype=torch.float32),
                          torch.float32)
-    adds = all_reduce(adds, tp.mesh, "model").reshape(y.shape)
+    adds = reduce_from(adds, tp.mesh, "model").reshape(y.shape)
     return (y.to(dt).to(torch.float32) + adds).to(dt)
 
 
@@ -551,12 +586,15 @@ def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
 
 def _qkv(cfg, hp: HeadPlan, p, h, tp=None):
     """q on this rank's kv slots (all of them without a model axis), k and v
-    expanded into the same slots (:func:`_kv`)."""
+    expanded into the same slots (:func:`_kv`).  Under a model axis the
+    rank's projections read ``copy_to(h)``: the gradient of the replicated
+    ``h`` sums every rank's heads."""
     kv_slots = hp.kv_pad // (axis_size(tp.mesh, "model") if tp else 1)
-    q = apply_linear(p["wq"], h, out_shape=(kv_slots, hp.g_pad, hp.head_dim), name="wq")
+    hf = h if tp is None else copy_to(h, tp.mesh, "model")
+    q = apply_linear(p["wq"], hf, out_shape=(kv_slots, hp.g_pad, hp.head_dim), name="wq")
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return (q, *_kv(hp, p, h, bias=cfg.qkv_bias, tp=tp))
+    return (q, *_kv(hp, p, h, bias=cfg.qkv_bias, tp=tp, hf=hf))
 
 
 def _expand_kv(hp: HeadPlan, k):
@@ -570,12 +608,17 @@ def _expand_kv(hp: HeadPlan, k):
 
 
 def _whole(t, dim: Optional[int], tp):
-    """``t`` all-gathered over "model" on ``dim`` (counted from the end), or
-    ``t`` itself where ``dim`` is None (a whole leaf's output)."""
-    return t if dim is None else gather_dim(t, dim, tp.mesh, "model").contiguous()
+    """The whole of ``t`` before a rank takes its own kv slots of it: the
+    rank's part all-gathered over "model" on ``dim`` (counted from the
+    end; the gradient reduce-scattered back), or, where ``dim`` is None,
+    ``t`` itself, a whole leaf's output, through ``copy_to`` (the slots the
+    ranks take from it sum its gradient)."""
+    if dim is None:
+        return copy_to(t, tp.mesh, "model")
+    return gather_dim_grad(t, dim, tp.mesh, "model").contiguous()
 
 
-def _kv(hp: HeadPlan, p, h, suffix: str = "", bias: bool = False, tp=None):
+def _kv(hp: HeadPlan, p, h, suffix: str = "", bias: bool = False, tp=None, hf=None):
     """k and v (plus ``bk``/``bv`` when ``bias``) in this rank's kv slots.
 
     Under a model axis ``wk``/``wv`` are stored as the rules lay them out
@@ -587,7 +630,9 @@ def _kv(hp: HeadPlan, p, h, suffix: str = "", bias: bool = False, tp=None):
     all-gathered into the whole (…, KV, hd), and the rank expands that and
     keeps its slots.  The gather, not a replicated copy of ``wk``/``wv``:
     each rank stores exactly its shard of the artifact, and the gathered
-    k/v (tokens × KV × hd) are small beside the weights."""
+    k/v (tokens × KV × hd) are small beside the weights.  A projection on
+    the rank's part of ``wk``/``wv`` reads ``hf`` (``copy_to(h)``), a whole
+    one reads ``h``."""
     full = (hp.n_kv, hp.head_dim)
     out = []
     for w in "kv":
@@ -599,7 +644,8 @@ def _kv(hp: HeadPlan, p, h, suffix: str = "", bias: bool = False, tp=None):
         quantized = isinstance(wt, (QuantizedTensor, HoistedDequant))
         d = _cut(tp, "wk", wt)
         kv_slots = hp.kv_pad // axis_size(tp.mesh, "model")
-        y = apply_linear(wt, h, name=f"w{w}{suffix}")  # (…, rows) quantized, (…, KV', hd') dense
+        # (…, rows) quantized, (…, KV', hd') dense
+        y = apply_linear(wt, h if d is None else hf, name=f"w{w}{suffix}")
         if hp.kv_pad == hp.n_kv and d == (0 if quantized else 1):
             y = y.reshape(*h.shape[:-1], kv_slots, hp.head_dim)
             out.append(y if b is None else y + b)
@@ -783,22 +829,28 @@ def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None, tp=None):
     """Dense or MoE MLP; an MoE block appends its router's load-balancing
     loss to ``aux`` when one is given (training).  Under a model axis whose
     rules cut "ffn", ``wg``/``wu`` are column-parallel and ``wd``
-    row-parallel (:func:`_row_parallel`); else the MLP is replicated.  An
-    MoE layer takes the rank's layout (:func:`_expert_shard`)."""
+    row-parallel (:func:`_row_parallel`), reading ``copy_to(h)``; else the
+    MLP is replicated.  An MoE layer takes the rank's layout
+    (:func:`_expert_shard`) and, where "data" splits the batch, routes the
+    whole batch (:func:`_batch_shard`)."""
     if b.mlp == "none":
         return x
     h = apply_norm(p["ln2"], x, cfg.norm)
     if b.mlp == "moe":
+        batch = _batch_shard()
         y, probs = moe_apply(p, h, n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
                              gated=cfg.gated_mlp, norm_topk=cfg.router_norm_topk,
-                             return_aux=aux is not None, shard=_expert_shard(tp, p))
+                             return_aux=aux is not None, shard=_expert_shard(tp, p), batch=batch)
         if aux is not None:
-            aux.append(router_aux_loss(probs))
+            aux.append(router_aux_loss(probs, batch))
     else:
+        split = _cut(tp, "wd", p["wd"]) is not None
+        if split:
+            h = copy_to(h, tp.mesh, "model")
         u = activation(apply_linear(p["wg"], h, name="wg"), cfg.act)
         if cfg.gated_mlp:
             u = u * apply_linear(p["wu"], h, name="wu")
-        if _cut(tp, "wd", p["wd"]) is not None:
+        if split:
             y = _row_parallel(p["wd"], u, tp, "wd")
         else:
             y = apply_linear(p["wd"], u, name="wd")
@@ -890,21 +942,31 @@ def _store_state(stack: dict, period: int, state: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _local_logits(xc, head):
+    """fp32 logits of the vocabulary the head (``lm_head``, or the tied
+    embedding) holds: all of it, or on a rank of a model axis whose rules
+    cut the vocabulary its block."""
+    if isinstance(head, tuple) and head[0] == "tied":
+        return xc.to(torch.float32) @ head[1].to(torch.float32).T
+    if isinstance(head, QuantizedTensor):
+        return apply_linear(head, xc).to(torch.float32)
+    return xc.to(torch.float32) @ head.to(torch.float32)
+
+
+def _head_cut(tp, head) -> bool:
+    tied = isinstance(head, tuple) and head[0] == "tied"
+    return _cut(tp, "embed" if tied else "lm_head", head[1] if tied else head) is not None
+
+
 def _head_logits(xc, head, tp=None):
     """fp32 logits over the vocabulary.  Under a model axis whose rules cut
     the vocabulary, a rank's head (``lm_head``, or the tied embedding)
-    holds its block of it: its logits are all-gathered on the vocabulary."""
-    if isinstance(head, tuple) and head[0] == "tied":
-        leaf, w = "embed", head[1]
-        y = xc.to(torch.float32) @ w.to(torch.float32).T
-    elif isinstance(head, QuantizedTensor):
-        leaf, w = "lm_head", head
-        y = apply_linear(head, xc).to(torch.float32)
-    else:
-        leaf, w = "lm_head", head
-        y = xc.to(torch.float32) @ head.to(torch.float32)
-    cut = _cut(tp, leaf, w)
-    return _whole(y, None if cut is None else -1, tp)
+    holds its block of it: its logits are all-gathered on the vocabulary,
+    which every rank then uses alike (serving, the eval scorer)."""
+    if not _head_cut(tp, head):
+        return _local_logits(xc, head)
+    xf = copy_to(xc, tp.mesh, "model")
+    return gather_from(_local_logits(xf, head), -1, tp.mesh, "model").contiguous()
 
 
 def _logit_head(plan, params):
@@ -924,7 +986,7 @@ def _embed_tokens(plan, params, tokens: torch.Tensor) -> torch.Tensor:
         local = ids - axis_rank(tp.mesh, "model") * emb.shape[0]
         inside = (local >= 0) & (local < emb.shape[0])
         rows = emb[torch.clamp(local, 0, emb.shape[0] - 1)].to(torch.float32)
-        x = all_reduce(torch.where(inside[..., None], rows, 0.0), tp.mesh, "model").to(plan.dtype)
+        x = reduce_from(torch.where(inside[..., None], rows, 0.0), tp.mesh, "model").to(plan.dtype)
     else:
         x = emb[ids].to(plan.dtype)
     if plan.cfg.name.startswith("gemma"):
@@ -1004,8 +1066,13 @@ def as_tokens(tokens, device) -> torch.Tensor:
 
 
 def chunked_cross_entropy(x, head, labels, mask, *, real_vocab: int, chunk: int = 512,
-                          logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """Mean masked LM cross-entropy, logits formed one sequence chunk at a time."""
+                          logit_softcap: Optional[float] = None, tp=None) -> torch.Tensor:
+    """Mean masked LM cross-entropy, logits formed one sequence chunk at a
+    time.  Under a model axis whose rules cut the vocabulary the logits stay
+    in the ranks' blocks (:func:`_vocab_parallel_ce`)."""
+    if _head_cut(tp, head):
+        return _vocab_parallel_ce(x, head, labels, mask, real_vocab=real_vocab, chunk=chunk,
+                                  logit_softcap=logit_softcap, tp=tp)
     S = x.shape[1]
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -1017,6 +1084,39 @@ def chunked_cross_entropy(x, head, labels, mask, *, real_vocab: int, chunk: int 
             logits = logits + bias
         lse = torch.logsumexp(logits, -1)
         gold = torch.gather(logits, -1, labels[:, s0 : s0 + chunk, None])[..., 0]
+        mc = mask[:, s0 : s0 + chunk]
+        tot = tot + ((lse - gold) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _vocab_parallel_ce(x, head, labels, mask, *, real_vocab: int, chunk: int,
+                       logit_softcap: Optional[float], tp) -> torch.Tensor:
+    """:func:`chunked_cross_entropy` with each rank's logits those of its
+    vocabulary block (softcapped, then the pad columns past ``real_vocab``
+    biased by −1e30): per chunk the row max is all-reduced (no gradient),
+    then the sum of exponentials and the gold logit, which the rank owning
+    the label contributes, are all-reduced together.  The loss is the same
+    on every rank; the gradient of the replicated ``x`` sums the blocks'."""
+    S = x.shape[1]
+    xf = copy_to(x, tp.mesh, "model")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        logits = softcap(_local_logits(xf[:, s0 : s0 + chunk], head), logit_softcap)
+        vl = logits.shape[-1]
+        v0 = axis_rank(tp.mesh, "model") * vl
+        col = torch.arange(v0, v0 + vl, device=x.device)
+        if v0 + vl > real_vocab:
+            logits = logits + torch.where(col < real_vocab, 0.0, -1e30)
+        m = max_over(logits.amax(-1), tp.mesh, "model")
+        lab = labels[:, s0 : s0 + chunk] - v0
+        inside = (lab >= 0) & (lab < vl)
+        gold = torch.gather(logits, -1, torch.clamp(lab, 0, vl - 1)[..., None])[..., 0]
+        parts = torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                             torch.where(inside, gold, 0.0)])
+        sum_exp, gold = reduce_from(parts, tp.mesh, "model").unbind(0)
+        lse = m + torch.log(sum_exp)
         mc = mask[:, s0 : s0 + chunk]
         tot = tot + ((lse - gold) * mc).sum()
         cnt = cnt + mc.sum()
@@ -1050,10 +1150,15 @@ def train_loss(plan: ModelPlan, params, batch: dict) -> torch.Tensor:
     """batch: {"tokens": (B, S)} (with ``"frames"`` (B, n_frames, d) for an
     encoder-decoder model, ``"patches"`` (B, n_prefix, d) for a prefix
     model) → scalar next-token loss, plus ``0.01 · Σ router losses /
-    n_layers`` for MoE models.  The prefix's positions carry no loss."""
+    n_layers`` for MoE models.  The prefix's positions carry no loss.
+
+    Under a model axis (:func:`tp_rules`) ``params`` are the rank's shards
+    and the loss, the same on every rank, is the padded plan's: its
+    backward pass runs the conjugate collectives of the forward
+    (``dist.collectives.copy_to``/``reduce_from``), the cross-entropy is
+    vocabulary-parallel, and every rank backpropagates the one loss."""
     cfg = plan.cfg
-    if tp_rules(plan) is not None:
-        raise NotImplementedError(f"train_loss: {TP_TRAIN_ROADMAP}")
+    tp = tp_rules(plan)
     tokens = as_tokens(batch["tokens"], params["embed"].device)
     aux = [] if any(b.mlp == "moe" for b in cfg.pattern) else None
     x = _hidden(plan, params, tokens, batch, aux)
@@ -1067,7 +1172,7 @@ def train_loss(plan: ModelPlan, params, batch: dict) -> torch.Tensor:
     mask[:, -1] = 0.0
     loss = chunked_cross_entropy(
         x, _logit_head(plan, params), labels, mask,
-        real_vocab=cfg.vocab, logit_softcap=cfg.logit_softcap,
+        real_vocab=cfg.vocab, logit_softcap=cfg.logit_softcap, tp=tp,
     )
     if aux is not None:
         total = torch.zeros((), dtype=torch.float32, device=x.device)

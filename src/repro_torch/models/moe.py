@@ -29,6 +29,18 @@ the zero row) and the (N, D) fp32 sums are all-reduced, then cast once.
 Ffn-parallel, ``w_gate``/``w_up`` hold the rank's columns and ``w_down``
 its rows: the (E·C, D) products are fp32 partial sums, all-reduced before
 the per-slot cast, so the layer rounds where the one-rank layer does.
+Under autograd the tokens the rank's experts read pass through
+``shard.enter`` (their gradient summed over the axis), and so do, where
+the experts split, the top-k weights that combine the rank's copies: the
+router's gradient then holds every expert's share, while the router loss,
+computed whole on every rank, is not summed again.
+
+Where a "data" axis splits the batch (``batch``, a :class:`BatchShard`:
+data-parallel training) the rank's tokens are a block of one dispatch
+group, the whole batch's, as the reference's one-device step routes it:
+the ranks' top-k ids are all-gathered, every rank builds the whole
+dispatch table (the capacity the whole batch's) and keeps the slots of its
+own copies.  The router loss's means run over the whole batch too.
 """
 
 from __future__ import annotations
@@ -41,7 +53,7 @@ import torch
 from repro_torch.models.common import HoistedDequant, _record_linear, activation
 from repro_torch.quant import QuantizedTensor
 
-__all__ = ["moe_apply", "router_aux_loss", "CAPACITY_FACTOR", "ExpertShard"]
+__all__ = ["moe_apply", "router_aux_loss", "CAPACITY_FACTOR", "ExpertShard", "BatchShard"]
 
 CAPACITY_FACTOR = 1.25  # slots an expert = tokens·k/E times this (the reference's default)
 
@@ -50,12 +62,30 @@ CAPACITY_FACTOR = 1.25  # slots an expert = tokens·k/E times this (the referenc
 class ExpertShard:
     """One rank's layout of an MoE layer on a "model" axis: ``"experts"``
     (experts ``first .. first + n_local − 1``) or ``"ffn"`` (each expert's
-    ffn block), and ``psum``, the in-place fp32 sum over the axis."""
+    ffn block); ``psum``, the fp32 sum of the ranks' partials over the axis
+    (``dist.collectives.reduce_from``), and ``enter``, the identity whose
+    gradient is summed over it (``copy_to``), for a replicated tensor that
+    enters the rank's own work."""
 
     kind: str
     psum: Callable
+    enter: Callable
     first: int = 0
     n_local: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """A rank's block of a batch split over a "data" axis: block ``rank`` of
+    ``n`` equal ones, in rank order; ``gather`` all-gathers a tensor's rows
+    over the axis, ``psum`` sums a tensor over it, its gradient summed too
+    (every rank's loss reads the sum, and the trainer sums the ranks'
+    gradients)."""
+
+    rank: int
+    n: int
+    gather: Callable
+    psum: Callable
 
 
 def _expert_matmul(w, xs: torch.Tensor, name: str, out_dtype=None) -> torch.Tensor:
@@ -113,23 +143,35 @@ def _dispatch_table(expert_ids: torch.Tensor, n_experts: int, capacity: int):
 
 
 def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, act: str, gated: bool,
-              norm_topk: bool, return_aux: bool = False, shard: Optional[ExpertShard] = None):
-    """x: (B, S, D) → ``(y, router probs or None)``; the B·S tokens form one
-    dispatch group (the reference's ``dispatch_groups=1``, which its model
-    passes unless a mesh splits the batch).  ``shard``: this rank's layout
-    on a "model" axis (None: the whole layer)."""
+              norm_topk: bool, return_aux: bool = False, shard: Optional[ExpertShard] = None,
+              batch: Optional[BatchShard] = None):
+    """x: (B, S, D) → ``(y, router probs or None)``; the batch's tokens form
+    one dispatch group (the reference's ``dispatch_groups=1``, which its
+    trainer passes).  ``shard``: this rank's layout on a "model" axis (None:
+    the whole layer); ``batch``: x is this rank's block of a batch split
+    over a "data" axis (None: x is the whole batch)."""
     B, S, D = x.shape
     n = B * S
     xf = x.reshape(n, D)
     probs, top_w, top_e = _route(p["router"], xf, top_k, norm_topk)
 
-    capacity = max(int(n * top_k / n_experts * CAPACITY_FACTOR), 8)
-    copy_for_slot, slot_of_copy = _dispatch_table(top_e.reshape(-1), n_experts, capacity)
+    ids = top_e.reshape(-1) if batch is None else batch.gather(top_e.reshape(-1))
+    capacity = max(int(ids.shape[0] / n_experts * CAPACITY_FACTOR), 8)
+    copy_for_slot, slot_of_copy = _dispatch_table(ids, n_experts, capacity)
+    if batch is not None:  # the whole batch's table: the slots of this rank's copies
+        c0 = batch.rank * n * top_k
+        slot_of_copy = slot_of_copy[c0 : c0 + n * top_k]
+        mine = (copy_for_slot >= c0) & (copy_for_slot < c0 + n * top_k)
+        copy_for_slot = torch.where(mine, copy_for_slot - c0, -1)
+    kind = shard.kind if shard is not None else None
+    if kind is not None:
+        xf = shard.enter(xf)
+        if kind == "experts":
+            top_w = shard.enter(top_w)
     filled = copy_for_slot >= 0
     token_for_slot = torch.where(filled, copy_for_slot // top_k, 0)
     w_for_slot = torch.where(filled, top_w.reshape(-1)[copy_for_slot.clamp_min(0)], 0.0)
 
-    kind = shard.kind if shard is not None else None
     e0, ne = (shard.first, shard.n_local) if kind == "experts" else (0, n_experts)
     s0, ns = e0 * capacity, ne * capacity  # this rank's slots
     xs = xf[token_for_slot[s0 : s0 + ns]].reshape(ne, capacity, D)
@@ -156,9 +198,14 @@ def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, act: str,
     return y.reshape(B, S, D).to(x.dtype), (probs if return_aux else None)
 
 
-def router_aux_loss(probs: torch.Tensor) -> torch.Tensor:
-    """Switch-style load-balancing loss: E · Σ_e f_e · P_e."""
+def router_aux_loss(probs: torch.Tensor, batch: Optional[BatchShard] = None) -> torch.Tensor:
+    """Switch-style load-balancing loss: E · Σ_e f_e · P_e, the means over
+    the whole batch (over every rank's block where ``batch`` splits it)."""
     e = probs.shape[1]
-    pe = probs.mean(0)
-    fe = (probs == probs.amax(-1, keepdim=True)).to(torch.float32).mean(0)
+    top = (probs == probs.amax(-1, keepdim=True)).to(torch.float32)
+    if batch is None:
+        pe, fe = probs.mean(0), top.mean(0)
+    else:
+        n_all = probs.shape[0] * batch.n
+        pe, fe = batch.psum(probs.sum(0)) / n_all, batch.psum(top.sum(0)) / n_all
     return e * torch.sum(fe * pe)

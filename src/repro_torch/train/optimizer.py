@@ -12,13 +12,15 @@ the reference's structure, so :mod:`repro_torch.dist.checkpoint` writes it
 leaf for leaf as the reference does.  The update runs in fp32 and casts the
 new params back to their dtype, as the reference does.
 
-Data-parallel / FSDP: ``shards`` (a :class:`repro_torch.dist.sharding.TreeShards`
-of the params) says which leaves each rank holds a block of.  The update is
-elementwise, so a rank updates its block; the two reductions over whole
-leaves are made global: the gradient norm (the sharded leaves' squared sums
-all-reduced) and an 8-bit moment's row grid where the rows' last axis is
-the sharded one (its row minimum and maximum all-reduced).  With one rank
-the result is the local update's, bit for bit.
+Data- and tensor-parallel / FSDP: ``shards`` (a
+:class:`repro_torch.dist.sharding.TreeShards` of the params) says which
+leaves each rank holds a block of, over the data dim and the "model" dim.
+The update is elementwise, so a rank updates its block; the two reductions
+over whole leaves are made global: the gradient norm (a leaf's squared sum
+all-reduced over each dim that cuts it, the data dim first; a leaf whole
+on a dim counted once) and an 8-bit moment's row grid where the rows' last
+axis is a cut one (its row minimum and maximum all-reduced over that dim).
+With one rank the result is the local update's, bit for bit.
 """
 
 from __future__ import annotations
@@ -121,22 +123,25 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tree, shards=None) -> torch.Tensor:
     """√(Σ g²) over every leaf, in fp32, summed in the reference's leaf order;
-    with ``shards``, a sharded leaf's squared sum is taken over all ranks."""
+    with ``shards``, a sharded leaf's squared sum is taken over the ranks of
+    each dim that cuts it."""
     sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)]
-    split = [i for i, d in enumerate(shards.dims) if d is not None] if shards else []
-    if split:
-        part = all_reduce(torch.stack([sq[i] for i in split]), shards.mesh, shards.axis)
-        for j, i in enumerate(split):
-            sq[i] = part[j]
+    for axis, dims in shards.cuts() if shards else ():
+        split = [i for i, d in enumerate(dims) if d is not None]
+        if split:
+            part = all_reduce(torch.stack([sq[i] for i in split]), shards.mesh, axis)
+            for j, i in enumerate(split):
+                sq[i] = part[j]
     return torch.sqrt(sum(sq))
 
 
 def _row_reduce(shards, i: int, ndim: int):
-    """The row-statistic reduction of leaf ``i``: over the ranks where its
-    last axis is the sharded one, else None."""
-    if shards is None or shards.dims[i] != ndim - 1:
+    """The row-statistic reduction of leaf ``i``: over the ranks of the dim
+    that cuts its last axis, else None."""
+    axes = [axis for axis, dims in (shards.cuts() if shards else ()) if dims[i] == ndim - 1]
+    if not axes:
         return None
-    return lambda t, op: all_reduce(t, shards.mesh, shards.axis, op)
+    return lambda t, op: all_reduce(t, shards.mesh, axes[0], op)
 
 
 @torch.no_grad()

@@ -15,6 +15,14 @@ leaves' gradients are all-reduced; every gradient and the loss are then
 divided by the rank count, the mean over the global batch where the ranks
 hold equal token counts.  With one rank this is the local step, bit for
 bit.
+
+Tensor parallelism (a "model" dim beside the data dim, the rules installed
+by the caller with :func:`repro_torch.dist.sharding.axis_rules`): each rank
+passes its shards of the params on "model" and the batch block of its data
+coordinate.  ``train_loss`` runs the model axis' collectives in its
+forward and backward passes, so every rank of one data coordinate gets the
+same loss and, for each leaf, the gradient of its own shard (whole where
+it holds the leaf whole); the mean above runs over the data dim alone.
 """
 
 from __future__ import annotations
@@ -51,9 +59,11 @@ def _value_and_grad(plan, params, batch, shards=None):
 
 
 def _data_parallel_mean(loss, grads, shards):
-    """Sum the replicated leaves' gradients and the loss over the ranks (the
-    sharded leaves' arrive summed), then divide all by the rank count."""
+    """Sum the replicated leaves' gradients and the loss over the data ranks
+    (the sharded leaves' arrive summed), then divide all by their count."""
     n = axis_size(shards.mesh, shards.axis)
+    if n == 1:
+        return loss, grads
     flat, treedef = tree_flatten(grads)
     for g, d in zip(flat, shards.dims, strict=True):
         if d is None:
@@ -67,7 +77,7 @@ def loss_and_grads(plan, params, batch: dict, n_microbatches: int = 1, shards=No
     dtypes at one microbatch; the fp32 mean of the microbatches' gradients,
     and the mean loss, otherwise).  ``shards``: the params' layout over a
     data mesh; ``params`` and ``batch`` are then this rank's blocks and the
-    result is the mean over every rank's batch (module docstring)."""
+    result is the mean over every data rank's batch (module docstring)."""
     if n_microbatches == 1:
         loss, grads = _value_and_grad(plan, params, batch, shards)
     else:
@@ -89,7 +99,7 @@ def make_train_step(plan, opt_cfg: AdamWConfig, n_microbatches: int = 1, grad_sh
     """Returns ``train_step(params, opt_state, batch) → (params', state',
     metrics)``; metrics hold ``loss``, ``grad_norm`` and ``lr`` as tensors.
     ``grad_shardings``: the params' :class:`~repro_torch.dist.sharding.TreeShards`
-    over a data mesh (the FSDP layout; see the module docstring)."""
+    over a data (and model) mesh (see the module docstring)."""
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(plan, params, batch, n_microbatches, grad_shardings)

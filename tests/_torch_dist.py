@@ -439,9 +439,11 @@ def tp_rank(rank, world, cases):
     whole params (dense or a serving artifact) cut by
     ``dist.sharding.shard_tree`` under ``serve.qparams.serving_rules``, then
     :func:`tp_serve` inside the rules; each case's storage bytes per leaf
-    and collectives (the forward pass' ``all_reduce`` and ``gather_dim``
-    calls and bytes, counted by wrapping them: over the whole case, and
-    those of its decode step alone under ``"decode"``) come back with its
+    and collectives (the forward pass' all-reduce and all-gather calls and
+    bytes, counted by wrapping ``dist.collectives.all_reduce`` and
+    ``gather_dim``, through which the model's collectives run: over the
+    whole case, and those of its decode step alone under ``"decode"``)
+    come back with its
     outputs, with the MoE routers' top-k expert ids of every call
     (``"routes"``: their count and the digest of their bytes)."""
     import hashlib
@@ -449,6 +451,7 @@ def tp_rank(rank, world, cases):
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
+    from repro_torch.dist import collectives as C
     from repro_torch.dist.sharding import axis_rules, shard_tree
     from repro_torch.models import model as M
     from repro_torch.models import moe
@@ -475,10 +478,10 @@ def tp_rank(rank, world, cases):
         routes.append(out[2].numpy().tobytes())
         return out
 
-    originals = {"all_reduce": M.all_reduce, "gather_dim": M.gather_dim,
+    originals = {"all_reduce": C.all_reduce, "gather_dim": C.gather_dim,
                  "decode_step": M.decode_step, "_route": moe._route}
-    M.all_reduce = counted("all_reduce", originals["all_reduce"])
-    M.gather_dim = counted("all_gather", originals["gather_dim"])
+    C.all_reduce = counted("all_reduce", originals["all_reduce"])
+    C.gather_dim = counted("all_gather", originals["gather_dim"])
     M.decode_step, moe._route = decode_counted, routed
     out = {}
     try:
@@ -498,7 +501,129 @@ def tp_rank(rank, world, cases):
             res["routes"] = (len(routes), hashlib.sha256(b"".join(routes)).hexdigest())
             out[name] = res
     finally:
-        M.all_reduce, M.gather_dim = originals["all_reduce"], originals["gather_dim"]
+        C.all_reduce, C.gather_dim = originals["all_reduce"], originals["gather_dim"]
         M.decode_step, moe._route = originals["decode_step"], originals["_route"]
+    dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rank functions of tests/test_torch_tp_train.py
+# ---------------------------------------------------------------------------
+
+
+def collective_inputs(world: int, rank: int) -> dict:
+    """The seeded fp32 inputs of :func:`collectives_rank` on one rank: ``x``
+    (the same on every rank), ``w`` (the rank's own), ``part`` (the rank's
+    shard or partial), ``v`` (the same on every rank, gathered shape)."""
+    import numpy as np
+
+    same, own = np.random.default_rng(7), np.random.default_rng(100 + rank)
+    return dict(x=same.standard_normal((3, 4)).astype(np.float32),
+                v=same.standard_normal((3, 4 * world)).astype(np.float32),
+                w=own.standard_normal((3, 4 * world)).astype(np.float32),
+                part=own.standard_normal((3, 4)).astype(np.float32))
+
+
+def collectives_rank(mesh, world: int, rank: int) -> dict:
+    """Each collective of ``dist.collectives`` on the mesh's "model" dim,
+    forward and backward: ``{name: (forward, gradient of the input)}``."""
+    from repro_torch.dist import collectives as C
+
+    a = {k: torch.from_numpy(v) for k, v in collective_inputs(world, rank).items()}
+    out = {}
+
+    def run(name, fn, t, use):
+        t = t.clone().requires_grad_(True)
+        y = fn(t)
+        use(y).backward()
+        out[name] = (y.detach().numpy().copy(), t.grad.numpy().copy())
+
+    xw = a["x"].repeat(1, world)  # (3, 4·world): x entering the rank's own work w
+    run("copy_to", lambda t: C.copy_to(t, mesh, "model"), xw, lambda y: (y * a["w"]).sum())
+    run("reduce_from", lambda t: C.reduce_from(t, mesh, "model"), a["w"],
+        lambda y: (y * a["v"]).sum())
+    run("gather_from", lambda t: C.gather_from(t, -1, mesh, "model"), a["part"],
+        lambda y: (y * a["v"]).sum())
+    run("gather_dim_grad", lambda t: C.gather_dim_grad(t, 1, mesh, "model"), a["part"],
+        lambda y: (y * a["w"]).sum())
+    m = C.max_over(a["w"].requires_grad_(True), mesh, "model")
+    out["max_over"] = (m.numpy().copy(), m.requires_grad)
+    with torch.no_grad():
+        out["no_grad_bits"] = {
+            "copy_to": tree_bits([C.copy_to(xw, mesh, "model")]) == tree_bits([xw]),
+            "reduce_from": tree_bits([C.reduce_from(a["w"], mesh, "model")])
+            == tree_bits([C.all_reduce(a["w"].clone(), mesh, "model")]),
+            "gather_from": tree_bits([C.gather_from(a["part"], -1, mesh, "model")])
+            == tree_bits([C.gather_dim(a["part"], -1, mesh, "model")])}
+    return out
+
+
+def _model_peers_bits(tree, shards) -> bytes:
+    """The bits of the leaves every rank of the "model" dim holds whole."""
+    from repro_torch.tree import tree_leaves
+
+    return tree_bits([t for t, d in zip(tree_leaves(tree), shards.model_dims) if d is None])
+
+
+def _tp_trainer(case, ckpt_dir, mesh, **tc):
+    from repro_torch import interop
+    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
+
+    return Trainer(case["cfg"], AdamWConfig(moments=case["moments"], **case["opt"]),
+                   TrainerConfig(ckpt_dir=ckpt_dir, **dict(case["tc"], **tc)), mesh=mesh,
+                   fsdp=case["fsdp"], params=interop.params_from_jax(case["params"], device="cpu"),
+                   device="cpu")
+
+
+def tp_train_rank(rank, world, cases, root, dims):
+    """Every case of ``cases`` trained by ``Trainer(mesh=)`` on a mesh of
+    ``dims`` (("model",), or ("data", "model") of 2 × 2) over all ranks: the
+    step-1 loss and gathered gradients (``loss_and_grads`` inside the
+    trainer's rules), each step's loss and gradient norm, the bits of the
+    leaves whole on "model" before each step and after the run, the whole
+    final params and state the ranks gather, whether ``restore`` of the
+    checkpoint the run wrote gives back each rank's blocks bit for bit, and
+    for a case with ``"resume"`` whether a run stopped after
+    ``resume`` steps and resumed ends with the uninterrupted run's bits.
+    On a ("model",) mesh also :func:`collectives_rank`."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import axis_rules
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import tree_leaves
+
+    shape = (2, world // 2) if len(dims) == 2 else (world,)
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(shape), mesh_dim_names=dims)
+    out = {"collectives": collectives_rank(mesh, world, rank)} if dims == ("model",) else {}
+    for label, case in cases.items():
+        tr = _tp_trainer(case, os.path.join(root, label), mesh)
+        batch = tr._put_batch(tr.batch_fn(0))
+        with axis_rules(tr.rules):
+            loss1, grads = loss_and_grads(tr.plan, tr.params, batch, tr.tcfg.n_microbatches,
+                                          tr.shards)
+        grads = tr._whole(grads, tr.shards)
+        peers = []
+        log = tr.run(fault_hook=lambda step: peers.append(_model_peers_bits(tr.params,
+                                                                              tr.shards)))["log"]
+        peers.append(_model_peers_bits(tr.params, tr.shards))
+        before = tree_bits({"p": tr.params, "o": tr.opt_state})
+        params = tr._whole(tr.params, tr.shards)
+        whole = tree_bits({"params": params, "opt": tr._whole(tr.opt_state, tr.opt_shards)})
+        res = dict(losses=[m["loss"] for m in log], grad_norms=[m["grad_norm"] for m in log],
+                   loss1=float(loss1), grads=[g.numpy().copy() for g in tree_leaves(grads)],
+                   params=[t.numpy().copy() for t in tree_leaves(params)], whole=whole,
+                   peers=peers, coord=tuple(mesh.get_coordinate()),
+                   sharded={a: [d for d in ds if d is not None] for a, ds in tr.shards.cuts()})
+        res["restored"] = (tr.restore() == case["tc"]["steps"]
+                           and tree_bits({"p": tr.params, "o": tr.opt_state}) == before)
+        if case.get("resume"):
+            d = os.path.join(root, f"{label}_resume")
+            _tp_trainer(case, d, mesh, steps=case["resume"], ckpt_every=case["resume"]).run()
+            again = _tp_trainer(case, d, mesh, ckpt_every=case["tc"]["steps"] + 1)
+            again.run()
+            res["resumed"] = tree_bits({"p": again.params, "o": again.opt_state}) == before
+        out[label] = res
     dist.barrier()
     return out

@@ -30,9 +30,10 @@
   stays whole where neither the experts nor the per-expert ffn divide the
   axis, and ``ssm_heads`` splits where the SSD heads divide it.
 * Outside the slice a model axis refuses: the encoder-decoder and prefix
-  families, speculation, deadlines and ``Trainer(mesh=)``, each naming its
-  ROADMAP item.  The mixture-of-experts and Mamba-2 families serve on the
-  axis: ``tests/test_torch_tp_families.py``.
+  families, speculation and deadlines, each naming its ROADMAP item.  The
+  mixture-of-experts and Mamba-2 families serve on the axis:
+  ``tests/test_torch_tp_families.py``; every token-only family trains on
+  it: ``tests/test_torch_tp_train.py``.
 """
 
 import concurrent.futures
@@ -574,7 +575,6 @@ def test_families_outside_the_slice_refuse_a_model_axis(arch, item):
 def test_speculation_deadlines_training_and_plan_refuse_a_model_axis():
     from repro_torch.serve import PagedServingEngine, Request, ServingEngine
     from repro_torch.serve.spec import SpecConfig
-    from repro_torch.train import AdamWConfig, Trainer, TrainerConfig
 
     cfg = dataclasses.replace(reduce_cfg(tget("phi3_mini_3_8b")), dtype=torch.float32)
     plan = tmodel.make_plan(cfg, 2)
@@ -588,10 +588,5 @@ def test_speculation_deadlines_training_and_plan_refuse_a_model_axis():
             with pytest.raises(NotImplementedError, match="item 8.1.5"):
                 eng.submit(Request(rid=0, prompt=np.ones(3, np.int32), max_new_tokens=2,
                                    deadline_ms=50.0))
-        with pytest.raises(NotImplementedError, match="item 8.1.1"):
-            tmodel.train_loss(plan, params, {"tokens": np.zeros((1, 4), np.int32)})
         with pytest.raises(ValueError, match="axis_n=2"):
             tmodel.init_cache(tmodel.make_plan(cfg), 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8.1.1"):
-        Trainer(cfg, AdamWConfig(), TrainerConfig(steps=1, batch=1, seq=8),
-                mesh={"data": 1, "model": 2}, device="cpu")

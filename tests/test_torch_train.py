@@ -284,17 +284,20 @@ def test_trainer_leaves_no_tensor_in_reference_cycles(tmp_path):
 
 
 def test_trainer_refuses_a_mesh():
-    """Data meshes train (tests/test_torch_dist_train.py); a "model" axis
-    larger than 1 is tensor parallelism, which the port refuses by its
-    ROADMAP item, with or without FSDP.  fsdp=True without a mesh is the
-    local trainer, as in the reference.  The name is kept from when every
-    mesh was refused, so the test's record carries on."""
+    """Data meshes and "model" axes train (tests/test_torch_dist_train.py,
+    tests/test_torch_tp_train.py); under a "model" axis larger than 1 the
+    encoder-decoder and prefix families refuse by their ROADMAP item, with
+    or without FSDP.  fsdp=True without a mesh is the local trainer, as in
+    the reference.  The name is kept from when every mesh was refused, so
+    the test's record carries on."""
     _, tcfg = _cfgs()
-    for mesh in ({"data": 1, "model": 2}, {"data": 4, "model": 16}):
-        for fsdp in (False, True):
-            with pytest.raises(NotImplementedError, match=r"\"model\" axis.*item 8\.1"):
-                Trainer(tcfg, topt.AdamWConfig(), TrainerConfig(), mesh=mesh, fsdp=fsdp,
-                        device=CPU)
+    for arch in ("whisper_large_v3", "llava_next_34b"):
+        cfg = dataclasses.replace(reduce_cfg(tget(arch)), dtype=torch.float32)
+        for mesh in ({"data": 1, "model": 2}, {"data": 4, "model": 16}):
+            for fsdp in (False, True):
+                with pytest.raises(NotImplementedError, match=r"\"model\" axis.*item 8\.1\.4"):
+                    Trainer(cfg, topt.AdamWConfig(), TrainerConfig(), mesh=mesh, fsdp=fsdp,
+                            device=CPU)
     assert Trainer(tcfg, topt.AdamWConfig(), TrainerConfig(), fsdp=True, device=CPU).shards is None
 
 
