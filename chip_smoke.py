@@ -273,7 +273,24 @@ Phases (any failed check exits non-zero; no phase is skipped):
    every leaf held whole the same bits on both ranks before each step and
    after the last, every rank's storage its shard; the `[tp-train]` lines
    print those, ms per step against one rank, peak memory and the
-   collectives' calls, bytes and seconds.
+   collectives' calls, bytes and seconds; (f) the same ranks wait, their
+   card freed, through phase 12, which saves its two served QuantEase@4
+   artifacts with their batches and records its greedy runs' logits: then
+   each rank loads each artifact on the CPU, moves its shard alone to the
+   card (Whisper-large-v3 4 + 4 periods, both stacks quantized: 10 of 20
+   heads, cross caches (4, 1,500, 10, 64) a layer, 25,933 of 51,866
+   vocabulary rows; LLaVA-NeXT-34B 2 layers: 28 q and 4 kv heads, d_ff
+   10,240, 32,000 rows) and prefills and decodes the same inputs greedily
+   (4 × 32 and 2 × 16 steps), held against phase 12's runs as (d) holds
+   its families (logits 2 %, the margin rule, bytes, kernel 3's calls
+   against its plain version), one decode step's collectives counted (the
+   embedding's all-reduce, one a layer for ``wo``, ``wo_c`` and ``wd``,
+   the logits' gather); then they train 2 steps of Whisper at 1 + 1
+   periods (4 × 448 tokens with their frames) and LLaVA at one layer (2 ×
+   (2,880 patches + 512 tokens)) held as (e) holds its models, the parent
+   training the one-rank runs and controls (heads, cross-attention heads
+   and ffn units of both stacks permuted) beside them.  The ranks stop
+   after (f).
    A failed collective or rank fails the phase.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last line
@@ -399,7 +416,9 @@ TP_LOGIT_RTOL = 2e-2  # first-decode logits against the one-rank run's, of max |
 # boundary whose one-rank probability gap is under TP_ROUTER_GAP, on which
 # the ranks' top-k ids part from the one-rank run's.
 TP_FAMILIES = ("olmoe", "jamba")
-TP_WAIT_S = 1800  # how long the ranks wait after (c) for (d), and after (d) for (e)
+# How long the ranks wait after (c) for (d), after (d) for (e), and through
+# phase 12 for (f).
+TP_WAIT_S = 1800
 TP_ROUTER_GAP = 1e-2
 # (e) Training on the axis: after (d) the same ranks, as a ("model",) axis of
 # 2, train TP_TRAIN_STEPS steps of each model of TP_TRAIN (bf16 params, fp32
@@ -424,6 +443,26 @@ TP_TRAIN = {"phi3": ("phi3_mini_3_8b", MAIN_OVERRIDES), "olmoe": ("olmoe_1b_7b",
             "mamba": ("mamba2_2_7b", dict(n_periods=2))}
 TP_TRAIN_LOSS_RTOL = 5e-3
 TP_TRAIN_UPDATE_RTOL = 0.05
+# (f) The encoder-decoder and prefix families on the axis.  The ranks wait,
+# their card freed, through phase 12, which saves its two served QuantEase@4
+# artifacts (Whisper-large-v3 at 4 + 4 periods with both stacks quantized;
+# LLaVA-NeXT-34B at 2 of 60 layers) with their batches and records its own
+# greedy runs, logits included, as the one-rank baselines.  (i) The same
+# ranks, as a ("model",) axis of 2, load each artifact on the CPU, move
+# their shard alone to the card (Whisper: 10 of 20 heads, 25,933 of 51,866
+# vocabulary rows; LLaVA: 28 of 56 q heads, 4 of 8 kv heads, d_ff 10,240 of
+# 20,480, 32,000 of 64,000 rows) and prefill and decode the same inputs
+# greedily, held as (d) holds its families (first-decode logits within
+# TP_LOGIT_RTOL, tokens up to the margin rule, bytes, kernel 3's calls
+# against its plain version), with one decode step's collectives counted:
+# the embedding's all-reduce, one a layer for wo, wo_c (Whisper) and wd,
+# and the logits' gather.  (ii) They train TP_TRAIN_STEPS steps of each model
+# of TP_TRAIN_F at full width (its depth cut, its batch × its tokens, with
+# their frames or patches), held as (e) holds its models; the parent
+# trains the one-rank runs and controls while the ranks work.
+TP_ENCDEC = ("whisper_large_v3", "llava_next_34b")
+TP_TRAIN_F = {"whisper": ("whisper_large_v3", dict(n_periods=1, n_enc_periods=1), (4, 448)),
+              "llava": ("llava_next_34b", dict(n_periods=1), (2, 512))}
 # Phase 7: the reference's quality table (benchmarks/bench_eval.py, its full
 # budget): bench_opt_s trained 1,600 steps at batch 16 x 96, then the grid.
 QUALITY_TRAIN = dict(steps=1600, batch=16, seq=96)
@@ -3836,16 +3875,21 @@ def ssm_families(dev, detail, tp_keep):
     return counts, checked
 
 
-def greedy_decode(label, plan, params, batch, n_new, cap, dev) -> tuple:
+def greedy_decode(label, plan, params, batch, n_new, cap, dev, keep: dict) -> tuple:
     """Prefill ``batch`` (tokens with their frames or patches), then
     ``n_new`` greedy decode steps at the positions after the prompt (after
     the patches for a prefix model).  Every logit must be finite.  Returns
     the run's numbers and a function that holds the first step's logits
     within DECODE_PREFILL_TOL of max |logit| of a prefill over the prompt
     and that step's token: it launches kernels of its own, so the caller
-    reads the path's launch counts before it calls it."""
+    reads the path's launch counts before it calls it.  Each decode step's
+    logits (kept on the card until the steps are timed, then cast to fp32)
+    and tokens go into ``keep`` as an engine records them, ``trace`` and
+    ``outputs`` by row, with the run's numbers under ``stats``: phase 13
+    (f)'s baseline and each rank's run."""
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
@@ -3858,21 +3902,31 @@ def greedy_decode(label, plan, params, batch, n_new, cap, dev) -> tuple:
     t_prefill = time.monotonic() - t0
     finite = torch.isfinite(logits).all()
     tok = logits.argmax(-1)
-    first_tok, first = tok, None
+    first_tok, first, steps, toks = tok, None, [], []
+    k3 = ops.launch_counts()["dequant_matmul"]
     t1 = time.monotonic()
     for step in range(n_new):
         logits, cache = M.decode_step(plan, params, tok[:, None], cache, pos0 + step)
         first = logits.float().clone() if first is None else first
         finite &= torch.isfinite(logits).all()
         tok = logits.argmax(-1)
+        steps.append(logits)
+        toks.append(tok)
     torch.cuda.synchronize()
     t_decode = time.monotonic() - t1
+    k3 = ops.launch_counts()["dequant_matmul"] - k3
     del cache
     check(bool(finite), f"{label}: a logit is not finite")
     out = dict(sequences=B, prompt_positions=pos0, decode_steps=n_new, prefill_s=t_prefill,
-               ms_per_step=t_decode / n_new * 1e3)
+               ms_per_step=t_decode / n_new * 1e3, kernel3_per_step=k3 / n_new)
     print(f"[encdec] {label}: prefill {B} x {pos0} positions {t_prefill:.2f}s; {n_new} greedy "
-          f"decode steps {out['ms_per_step']:.2f} ms per step", flush=True)
+          f"decode steps {out['ms_per_step']:.2f} ms per step, kernel 3 {k3 / n_new:g} launches "
+          f"a step", flush=True)
+    trace = torch.stack(steps, 1).float().cpu().numpy()  # (B, n_new, V)
+    outs = torch.stack(toks, 1).cpu().tolist()
+    keep.update(trace={b: list(trace[b]) for b in range(B)},
+                outputs={b: outs[b] for b in range(B)}, stats=out)
+    del steps, toks, trace
 
     def against_prefill():
         ref, _ = M.prefill(plan, params, dict(batch, tokens=torch.cat([tokens, first_tok[:, None]], 1)),
@@ -3900,13 +3954,17 @@ def leaf_kind_means(report: dict, stack: str) -> dict:
     return out
 
 
-def encdec_config(dev, detail, name, cfg, runs, calib_shape, n_calib, stream, serve, served):
+def encdec_config(dev, detail, name, cfg, runs, calib_shape, n_calib, stream, serve, served,
+                  tp_keep: dict):
     """Phase 12, one config: each of ``runs`` (``emit="qt"``, the encoder
     first where there is one), both stacks restacked; then the ``served``
     artifact prefills and decodes greedily (:func:`greedy_decode`).  Every
     kernel call is held against its plain version, the CD calls right
     after each group solve, kernel 3 at the end.  Returns the launch counts
-    and the checked calls."""
+    and the checked calls.  The greedy run records its logits into
+    ``tp_keep[name]``, phase 13 (f)'s one-rank baseline, and the served
+    artifact, its batch and run settings are saved for (f)
+    (:func:`tp_save`)."""
     import numpy as np
     import torch
 
@@ -3964,13 +4022,16 @@ def encdec_config(dev, detail, name, cfg, runs, calib_shape, n_calib, stream, se
         B, S, n_new = serve
         batch = make_batch_fn(data, cfg, B, S, split="eval")[0](0)
         cap = -(-(S + cfg.n_prefix + n_new + 1) // 64) * 64
+        base = tp_keep.setdefault(name, {})
         stats, against_prefill = greedy_decode(f"{name} {served}", plan, kept, batch, n_new, cap,
-                                               dev)
+                                               dev, keep=base)
         torch.cuda.synchronize()
         counts = path_counts(st)
         variants = dict(dequant_matmul_cuda.launches_by_variant)
     # Outside the recording, after the counts: the check's own prefill.
     against_prefill()
+    base.update(batch=batch, n_new=n_new, cap=cap)
+    tp_save(tp_keep, name, f"{name} {served}", cfg, kept)
     del batch
     by_variant = {v: c - variants_ptq[v] for v, c in variants.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4025,18 +4086,26 @@ def encdec_config(dev, detail, name, cfg, runs, calib_shape, n_calib, stream, se
     return counts, checked
 
 
-def encdec_families(dev, detail):
+def encdec_cfg(name: str):
+    """Phase 12's config of Whisper-large-v3 or LLaVA-NeXT-34B: full width,
+    the depth ENC_WHISPER or PFX_LLAVA gives (both of Whisper's stacks)."""
+    from repro_torch.configs import get_config
+
+    if name == ENC_WHISPER[0]:
+        return dataclasses.replace(get_config(name), n_periods=ENC_WHISPER[1],
+                                   n_enc_periods=ENC_WHISPER[1])
+    return dataclasses.replace(get_config(name), n_periods=PFX_LLAVA[1])
+
+
+def encdec_families(dev, detail, tp_keep: dict):
     """Phase 12: (a) Whisper-large-v3, (b) LLaVA-NeXT-34B, at full width
     with their depth cut, seeded random bf16 weights, what the previous
     one left freed first.  Returns the kernels' launch counts summed over
     the two (each read just after its path ran, from 0) and the checked
-    calls per config."""
-    from repro_torch.configs import get_config
-
-    name, periods = ENC_WHISPER
-    whisper = dataclasses.replace(get_config(name), n_periods=periods, n_enc_periods=periods)
-    name_p, periods_p = PFX_LLAVA
-    llava = dataclasses.replace(get_config(name_p), n_periods=periods_p)
+    calls per config.  ``tp_keep`` takes phase 13 (f)'s baselines and
+    artifacts (:func:`encdec_config`)."""
+    name, name_p = ENC_WHISPER[0], PFX_LLAVA[0]
+    whisper, llava = encdec_cfg(name), encdec_cfg(name_p)
     per, checked = {}, {}
     for n, cfg, args in ((name, whisper, (ENC_RUNS, ENC_CALIB, ENC_CALIB_BATCHES, 0, ENC_SERVE,
                                           "quantease@4")),
@@ -4044,7 +4113,7 @@ def encdec_families(dev, detail):
                                           PFX_SERVE, "quantease@4"))):
         _free()
         t0 = time.monotonic()
-        per[n], checked[n] = encdec_config(dev, detail, n, cfg, *args)
+        per[n], checked[n] = encdec_config(dev, detail, n, cfg, *args, tp_keep=tp_keep)
         print(f"[phase] 12 {n}: {time.monotonic() - t0:.1f}s", flush=True)
     counts = {k: sum(c[k] for c in per.values()) for k in next(iter(per.values()))}
     return counts, checked
@@ -4091,10 +4160,7 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue, go):
     its artifact and each group's Σ; every rank reports its launches, its
     collectives and the digests of its artifact, Σ's and params, with (c)'s
     results (:func:`tp_serve_rank`).  Then the rank frees the card and
-    waits on ``go`` for (d)'s message (None: stop), serves each family of
-    TP_FAMILIES (:func:`tp_family_rank`) and reports again; then waits for
-    (e)'s, trains each model of TP_TRAIN (:func:`tp_train_rank`) and
-    reports once more."""
+    serves (d), (e) and (f) one message at a time (:func:`rank_messages`)."""
     import traceback
 
     import torch
@@ -4185,23 +4251,35 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue, go):
             queue.put((rank, True, out))
             del out, params, qparams, sigmas, calls, st, calib
             _free()
-            msg = go.get(timeout=TP_WAIT_S)
-            if msg is not None:
-                out = {name: tp_family_rank(rank, world, msg[name], dev) for name in TP_FAMILIES}
-                dist.barrier()
-                queue.put((rank, True, out))
-                del out
-                _free()
-                msg = go.get(timeout=TP_WAIT_S)
-            if msg is not None:
-                out = {name: tp_train_rank(rank, world, name, msg, dev) for name in TP_TRAIN}
-                dist.barrier()
-                queue.put((rank, True, out))
+            rank_messages(rank, world, dev, queue, go)
         finally:
             dist.destroy_process_group()
     except BaseException:
         queue.put((rank, False, traceback.format_exc()))
         raise
+
+
+def rank_messages(rank, world, dev, queue, go) -> None:
+    """A phase-13 rank's work after (c), one message at a time until None:
+    ``("families", ...)`` serves each family of TP_FAMILIES
+    (:func:`tp_family_rank`, (d)), ``("encdec", ...)`` each model of
+    TP_ENCDEC (:func:`tp_encdec_rank`, (f)), ``("train", ...)`` trains each
+    model it names (:func:`tp_train_rank`, (e) and (f)); the rank reports
+    after each and frees the card."""
+    import torch.distributed as dist
+
+    while (msg := go.get(timeout=TP_WAIT_S)) is not None:
+        kind, body = msg
+        if kind == "families":
+            out = {name: tp_family_rank(rank, world, body[name], dev) for name in TP_FAMILIES}
+        elif kind == "encdec":
+            out = {name: tp_encdec_rank(rank, world, body[name], dev) for name in TP_ENCDEC}
+        else:
+            out = {name: tp_train_rank(rank, world, name, body, dev) for name in body["names"]}
+        dist.barrier()
+        queue.put((rank, True, out))
+        del out
+        _free()
 
 
 def tp_shard_bytes(whole, local, axes, rules, n: int) -> tuple:
@@ -4297,7 +4375,7 @@ def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
     mesh = DeviceMesh(dev.type, torch.arange(TP_RANKS), mesh_dim_names=("model",))
     rules = serving_rules(tplan, mesh)
     whole = quantize_params_for_serving(plan, params, qdec, device=dev)
-    axes = qt_param_axes(tplan)
+    axes = qt_param_axes(tplan, whole)
     local = shard_tree(whole, axes, rules)
     bad, held, total = tp_shard_bytes(whole, local, axes, rules, TP_RANKS)
     del whole
@@ -4326,6 +4404,27 @@ def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
     return dict(runs=runs, counts=counts, comm=comm, variants=variants, checked=checked,
                 bytes_bad=bad, bytes_held=held, bytes_whole=total,
                 kv_slots=tplan.heads.kv_pad // TP_RANKS, prompts=[len(p) for p in prompts])
+
+
+def tokens_under_margin(trace: dict, outputs: dict, got: dict) -> tuple:
+    """The margin rule of phase 13's serving checks: per request, the
+    ranks' tokens ``got`` against the one-rank run's ``outputs`` while that
+    run's top-2 margin (``trace``, its logits a step) stays at or above
+    TP_LOGIT_RTOL of max |logit|.  Returns ``(tokens compared, [(request,
+    step) where a token parted])``."""
+    import numpy as np
+
+    compared, parted = 0, []
+    for rid, steps in trace.items():
+        for j, logits in enumerate(steps):
+            top2 = np.sort(logits)[-2:]
+            if top2[1] - top2[0] < TP_LOGIT_RTOL * np.abs(logits).max():
+                break
+            compared += 1
+            if got[rid][j] != outputs[rid][j]:
+                parted.append((rid, j))
+                break
+    return compared, parted
 
 
 def tp_against_one_rank(dev, detail, plan, served, ranks) -> None:
@@ -4362,16 +4461,7 @@ def tp_against_one_rank(dev, detail, plan, served, ranks) -> None:
         tp = runs[0]
         rel = max(float(np.abs(tp["first"][rid] - trace[rid][0]).max() / np.abs(trace[rid][0]).max())
                   for rid in trace)
-        compared, parted = 0, []
-        for rid, steps in trace.items():
-            for j, logits in enumerate(steps):
-                top2 = np.sort(logits)[-2:]
-                if top2[1] - top2[0] < TP_LOGIT_RTOL * np.abs(logits).max():
-                    break
-                compared += 1
-                if tp["outputs"][rid][j] != outputs[rid][j]:
-                    parted.append((rid, j))
-                    break
+        compared, parted = tokens_under_margin(trace, outputs, tp["outputs"])
         ms = [r["stats"]["ms_per_step"] for r in runs]
         print(f"[tp] {kv} KV: first-decode logits within {rel:.3g} of max |logit| of the one-rank "
               f"run (bound {TP_LOGIT_RTOL}); {compared} of {TP_PROMPTS * TP_NEW} tokens compared "
@@ -4391,16 +4481,18 @@ def tp_against_one_rank(dev, detail, plan, served, ranks) -> None:
 
 
 def tp_save(keep: dict, name: str, label: str, cfg, artifact) -> None:
-    """Phase 13 (d)'s input from phase 10 (a) or 11 (b)(ii): the served
-    artifact and its config, moved to the CPU and saved under
+    """Phase 13 (d)'s or (f)'s input from phase 10 (a), 11 (b)(ii) or 12:
+    the served artifact and its config (and for (f) the batch and the run's
+    settings in ``keep[name]``), moved to the CPU and saved under
     ``keep["dir"]``, whose path goes into ``keep[name]``."""
     import torch
 
     t0 = time.monotonic()
     path = os.path.join(keep["dir"], f"{name}.pt")
-    torch.save({"cfg": cfg, "params": tree_to(artifact, "cpu")}, path)
+    extra = {k: keep[name][k] for k in ("batch", "n_new", "cap") if k in keep[name]}
+    torch.save({"cfg": cfg, "params": tree_to(artifact, "cpu"), **extra}, path)
     keep[name].update(path=path, label=label)
-    print(f"[tp] {label}: artifact saved for phase 13 (d), {os.path.getsize(path) / 2**30:.2f} GiB "
+    print(f"[tp] {label}: artifact saved for phase 13, {os.path.getsize(path) / 2**30:.2f} GiB "
           f"in {time.monotonic() - t0:.1f}s", flush=True)
 
 
@@ -4456,12 +4548,43 @@ def first_decode_routes(prompts):
         E.decode_step, E.paged_decode_step, moe._route = originals
 
 
+def tp_load_shard(path: str, world: int, dev, part: str) -> tuple:
+    """A saved artifact (:func:`tp_save`) loaded on the CPU (memory-mapped)
+    and this rank's shard of it (``shard_tree`` under ``serving_rules`` of
+    a ("model",) axis of ``world``, the artifact's own axes) alone moved to
+    the card, held leaf by leaf against 1/world of each sharded leaf; the
+    axis must pad nothing.  Returns ``(cfg, plan, rules, local params, the
+    saved batch or None, {bytes_bad, bytes_held, bytes_whole, t_load})``."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import shard_tree
+    from repro_torch.models import model as M
+    from repro_torch.serve.qparams import qt_param_axes, serving_rules
+
+    t0 = time.monotonic()
+    saved = torch.load(path, map_location="cpu", mmap=True, weights_only=False)
+    cfg, whole = saved["cfg"], saved["params"]
+    tplan = M.make_plan(cfg, world)
+    check(tplan.heads.kv_pad == M.make_plan(cfg).heads.kv_pad and tplan.vocab_pad == cfg.vocab,
+          f"phase 13 {part} {cfg.name}: the axis pads the plan")
+    mesh = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("model",))
+    rules = serving_rules(tplan, mesh)
+    axes = qt_param_axes(tplan, whole)
+    local = tree_to(shard_tree(whole, axes, rules), dev)
+    torch.cuda.synchronize()
+    t_load = time.monotonic() - t0
+    bad, held, total = tp_shard_bytes(whole, local, axes, rules, world)
+    batch = saved.get("batch")
+    del saved, whole
+    gc.collect()
+    return cfg, tplan, rules, local, batch, dict(bytes_bad=bad, bytes_held=held,
+                                                 bytes_whole=total, t_load=t_load)
+
+
 def tp_family_rank(rank, world, spec, dev) -> dict:
-    """Phase 13 (d) on one rank, one family: the artifact ``spec["path"]``
-    loaded on the CPU (memory-mapped), the rank's shard
-    (``dist.sharding.shard_tree`` under ``serve.qparams.serving_rules``)
-    alone moved to the card and held leaf by leaf against 1/world of each
-    sharded leaf; then ``spec``'s requests on its engine (phase 10's paged
+    """Phase 13 (d) on one rank, one family: the rank's shard of the
+    artifact ``spec["path"]`` (:func:`tp_load_shard`); then ``spec``'s requests on its engine (phase 10's paged
     or phase 11's contiguous settings) inside the axis' rules, logits
     recorded, kernel 5 launched once a decode step and attention layer on
     the paged engine; then every kernel-3 and kernel-5 signature of the run
@@ -4471,31 +4594,14 @@ def tp_family_rank(rank, world, spec, dev) -> dict:
     memory."""
     import numpy as np
     import torch
-    from torch.distributed.device_mesh import DeviceMesh
 
-    from repro_torch.dist.sharding import axis_rules, shard_tree
+    from repro_torch.dist.sharding import axis_rules
     from repro_torch.kernels import ops
     from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
-    from repro_torch.models import model as M
     from repro_torch.serve import PagedServingEngine, ServingEngine
-    from repro_torch.serve.qparams import qt_param_axes, serving_rules
 
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    saved = torch.load(spec["path"], map_location="cpu", mmap=True, weights_only=False)
-    cfg, whole = saved["cfg"], saved["params"]
-    tplan = M.make_plan(cfg, world)
-    check(tplan.heads.kv_pad == M.make_plan(cfg).heads.kv_pad and tplan.vocab_pad == cfg.vocab,
-          f"phase 13 (d) {cfg.name}: the axis pads the plan")
-    mesh = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("model",))
-    rules = serving_rules(tplan, mesh)
-    axes = qt_param_axes(tplan)
-    local = tree_to(shard_tree(whole, axes, rules), dev)
-    torch.cuda.synchronize()
-    t_load = time.monotonic() - t0
-    bad, held, total = tp_shard_bytes(whole, local, axes, rules, world)
-    del saved, whole
-    gc.collect()
+    cfg, tplan, rules, local, _, shard = tp_load_shard(spec["path"], world, dev, "(d)")
     if spec["engine"] == "paged":
         make = lambda: PagedServingEngine(tplan, local, **FAM_PAGED, record_logits=True, device=dev)
     else:
@@ -4526,7 +4632,7 @@ def tp_family_rank(rank, world, spec, dev) -> dict:
     return dict(outputs=outputs, first={rid: t[0] for rid, t in trace.items()}, routes=routes,
                 stats=stats, counts=counts, variants=variants,
                 kernel3_per_step=float(np.median(per_step)), comm=comm, checked=checked,
-                bytes_bad=bad, bytes_held=held, bytes_whole=total, t_load=t_load, peak_gib=peak,
+                peak_gib=peak, **shard,
                 layouts={k: rules.table[k] for k in ("heads", "kv_heads", "head_dim", "ffn",
                                                       "experts", "expert_ffn", "ssm_heads",
                                                       "ssm_fused", "vocab")})
@@ -4549,7 +4655,7 @@ def tp_families(detail, ranks: "Ranks", keep: dict) -> tuple:
     msg = {name: {k: keep[name][k] for k in ("path", "engine", "prompts", "new")}
            for name in TP_FAMILIES}
     t0 = time.monotonic()
-    ranks.send(msg)
+    ranks.send(("families", msg))
     got = ranks.collect(timeout=TP_WAIT_S)
     print(f"[tp] (d) the ranks' loads, runs and checks: {time.monotonic() - t0:.1f}s", flush=True)
     counts, checked, out = {}, {}, {}
@@ -4599,16 +4705,7 @@ def tp_families(detail, ranks: "Ranks", keep: dict) -> tuple:
                       f"the one-rank run's (past {TP_LOGIT_RTOL}) at a router crossing: MoE layer "
                       f"{i}, one rank's top-k {a}, the ranks' {b}, one-rank gap {gap:.3g} (under "
                       f"{TP_ROUTER_GAP})", flush=True)
-        compared, parted = 0, []
-        for rid, steps in trace.items():
-            for j, logits in enumerate(steps):
-                top2 = np.sort(logits)[-2:]
-                if top2[1] - top2[0] < TP_LOGIT_RTOL * np.abs(logits).max():
-                    break
-                compared += 1
-                if r0["outputs"][rid][j] != outputs[rid][j]:
-                    parted.append((rid, j))
-                    break
+        compared, parted = tokens_under_margin(trace, outputs, r0["outputs"])
         n_tok = sum(len(o) for o in outputs.values())
         ms = [r["stats"]["ms_per_step"] for r in rows]
         within = max((v for rid, v in lanes.items() if rid not in crossed), default=0.0)
@@ -4638,10 +4735,159 @@ def tp_families(detail, ranks: "Ranks", keep: dict) -> tuple:
     return counts, checked
 
 
+def tp_encdec_rank(rank, world, spec, dev) -> dict:
+    """Phase 13 (f) (i) on one rank, one model of TP_ENCDEC: the rank's
+    shard of phase 12's artifact ``spec["path"]`` (:func:`tp_load_shard`;
+    Whisper's encoder quantized); then phase 12's batch
+    prefilled and decoded greedily (:func:`greedy_decode`, logits recorded)
+    inside the axis' rules, the collectives of its first decode step
+    counted; then every kernel-3 signature of the run once against its
+    plain version.  Returns the outputs, the logit trace, the launches
+    (kernel 3 by variant and a decode step), the collectives, the step
+    times and the peak device memory."""
+    import torch
+
+    from repro_torch.dist.sharding import axis_rules
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.models import model as M
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tplan, rules, local, batch, shard = tp_load_shard(spec["path"], world, dev, "(f)")
+    enc_quantized = "enc" in local and any(
+        not isinstance(v, torch.Tensor) for blk in local["enc"].values() for v in blk.values())
+    ops.reset_launch_counts()
+    variants0 = dict(dequant_matmul_cuda.launches_by_variant)
+    keep, step_comm = {}, {}
+    decode = M.decode_step
+
+    def first_decode(*a, **k):
+        before = {kind: row[0] for kind, row in comm.items()}
+        out = decode(*a, **k)
+        step_comm.setdefault("calls", {kind: row[0] - before[kind] for kind, row in comm.items()})
+        return out
+
+    M.decode_step = first_decode
+    try:
+        with recording_calls() as calls, axis_rules(rules), counted_collectives() as comm:
+            stats, _ = greedy_decode(f"{cfg.name} rank {rank} of a \"model\" axis of {world}",
+                                     tplan, local, batch, spec["n_new"], spec["cap"], dev,
+                                     keep=keep)
+            torch.cuda.synchronize()
+            cross = [leaves["ck"][0] for leaves in M.cache_shapes(tplan, len(batch["tokens"]),
+                                                                  spec["cap"]).values()
+                     if "ck" in leaves]
+    finally:
+        M.decode_step = decode
+    counts = ops.launch_counts()
+    variants = {v: n - variants0[v] for v, n in dequant_matmul_cuda.launches_by_variant.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del local
+    _free()
+    checked = family_checks(f"tensor-parallel {cfg.name}", calls, variants, phase="phase 13 (f)")
+    del calls
+    _free()
+    return dict(outputs=keep["outputs"], trace=keep["trace"], stats=stats, counts=counts,
+                variants=variants, comm=comm, decode_comm=step_comm["calls"], checked=checked,
+                peak_gib=peak, **shard, enc_quantized=enc_quantized, cross_cache=[tuple(c) for c in cross],
+                layouts={k: rules.table[k] for k in ("heads", "kv_heads", "head_dim", "ffn",
+                                                      "heads_fused", "kv_fused", "vocab")})
+
+
+def tp_encdec(detail, ranks: "Ranks", keep: dict) -> tuple:
+    """Phase 13 (f) (i) in the parent: the ranks get phase 12's saved
+    artifacts and serve them (:func:`tp_encdec_rank`).  Per model: every
+    rank's storage its shard; the ranks' tokens the same; their first
+    decode step's logits within TP_LOGIT_RTOL of max |logit| of phase 12's
+    one-rank run's, and their tokens equal to its up to its first top-2
+    margin under that bound; one decode step's collectives: the
+    embedding's all-reduce, one a layer for ``wo``, ``wo_c`` (Whisper) and
+    ``wd``, and the logits' gather; kernel 3 launched on prefill
+    (``tc_large``) and decode (``tc_small``) shapes.  The ranks stay up.
+    Returns the kernels' launches (both ranks) and the calls checked."""
+    import numpy as np
+
+    msg = {name: {k: keep[name][k] for k in ("path", "n_new", "cap")} for name in TP_ENCDEC}
+    t0 = time.monotonic()
+    ranks.send(("encdec", msg))
+    got = ranks.collect(timeout=TP_WAIT_S)
+    print(f"[tp] (f) the ranks' loads, runs and checks: {time.monotonic() - t0:.1f}s", flush=True)
+    counts, checked, out = {}, {}, {}
+    for name in TP_ENCDEC:
+        base, rows = keep[name], [g[name] for g in got]
+        label = base["label"]
+        cfg = encdec_cfg(name)
+        layers = cfg.n_periods * len(cfg.pattern)
+        cross = int(any(b.cross for b in cfg.pattern))
+        want_comm = {"all_reduce": 1 + layers * (2 + cross), "all_gather": 1}
+        for r, row in enumerate(rows):
+            check(not row["bytes_bad"],
+                  f"(f) {label}: rank {r} holds other bytes than its shard: {row['bytes_bad'][:4]}")
+            print(f"[tp] (f) {label} rank {r}: holds {row['bytes_held'] / 2**30:.3f} GiB of the whole "
+                  f"artifact's {row['bytes_whole'] / 2**30:.3f} GiB "
+                  f"({row['bytes_held'] / row['bytes_whole']:.1%}), every leaf its shard (encoder "
+                  f"quantized: {row['enc_quantized']}); layouts {row['layouts']}; cross caches "
+                  f"{row['cross_cache']} a rank; loaded and moved in {row['t_load']:.1f}s; peak "
+                  f"device memory {row['peak_gib']:.2f} GiB; launches {row['counts']}; kernel 3 by "
+                  f"variant {row['variants']}, {row['stats']['kernel3_per_step']:g} a decode step "
+                  f"against {base['stats']['kernel3_per_step']:g} on one rank; one decode step's "
+                  f"collectives {row['decode_comm']} (expected {want_comm}); " + "; ".join(
+                      f"{k} {n} calls {b / 2**20:.2f} MiB {t:.3f}s"
+                      for k, (n, b, t) in row["comm"].items())
+                  + f"; checked {row['checked']}", flush=True)
+            check(row["decode_comm"] == want_comm,
+                  f"(f) {label}: rank {r}'s decode step ran {row['decode_comm']}, expected {want_comm}")
+            check(row["variants"]["tc_large"] > 0 and row["variants"]["tc_small"] > 0
+                  and row["variants"]["simt"] == 0 and row["checked"]["dequant_matmul"]["calls"] > 0,
+                  f"(f) {label}: rank {r}: kernel 3 by variant {row['variants']}, checked "
+                  f"{row['checked']}")
+            for k, v in row["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+            merge_checked(checked, row["checked"])
+        r0 = rows[0]
+        check(all(r["outputs"] == r0["outputs"] for r in rows), f"(f) {label}: the ranks' tokens differ")
+        trace, outputs = base["trace"], base["outputs"]
+        lanes = {b: float(np.abs(r0["trace"][b][0] - trace[b][0]).max() / np.abs(trace[b][0]).max())
+                 for b in trace}
+        compared, parted = tokens_under_margin(trace, outputs, r0["outputs"])
+        n_tok = sum(len(o) for o in outputs.values())
+        ms = [r["stats"]["ms_per_step"] for r in rows]
+        prefill = ", ".join(f"{r['stats']['prefill_s']:.2f}" for r in rows)
+        rel = max(lanes.values())
+        print(f"[tp] (f) {label}: first-decode logits within {rel:.3g} of max |logit| of the one-rank "
+              f"run (bound {TP_LOGIT_RTOL}) on {len(lanes)} lanes; {compared} of {n_tok} tokens "
+              f"compared before a top-2 margin under the bound, {len(parted)} parting {parted[:4]}; "
+              f"prefill {prefill}s on the ranks "
+              f"against {base['stats']['prefill_s']:.2f}s; decode {', '.join(f'{x:.2f}' for x in ms)} "
+              f"ms/step on the ranks against {base['stats']['ms_per_step']:.2f} on one rank (two "
+              f"ranks share one card and move activations through gloo on the host: no speed-up "
+              f"can show)", flush=True)
+        check(rel <= TP_LOGIT_RTOL, f"(f) {label}: first-decode logits off the one-rank run's: "
+              f"{sorted(lanes.items())}")
+        check(not parted, f"(f) {label}: tensor-parallel tokens part from the one-rank run's above "
+              f"the margin: {parted[:8]}")
+        out[name] = dict(label=label, lanes=lanes, tokens_compared=compared, parted=parted,
+                         ms_per_step_ranks=ms, ms_per_step_one=base["stats"]["ms_per_step"],
+                         prefill_s_ranks=[r["stats"]["prefill_s"] for r in rows],
+                         prefill_s_one=base["stats"]["prefill_s"],
+                         kernel3_per_step_ranks=[r["stats"]["kernel3_per_step"] for r in rows],
+                         kernel3_per_step_one=base["stats"]["kernel3_per_step"],
+                         launches=[r["counts"] for r in rows], variants=[r["variants"] for r in rows],
+                         comm=[r["comm"] for r in rows], decode_comm=[r["decode_comm"] for r in rows],
+                         checked=[r["checked"] for r in rows],
+                         bytes_held=[r["bytes_held"] for r in rows], bytes_whole=r0["bytes_whole"],
+                         load_seconds=[r["t_load"] for r in rows],
+                         peak_gib=[r["peak_gib"] for r in rows], layouts=r0["layouts"],
+                         cross_cache=r0["cross_cache"])
+    detail.setdefault("sharded", {})["tp_encdec"] = out
+    return counts, checked
+
+
 def tp_train_cfg(name: str):
+    """The config of TP_TRAIN's or TP_TRAIN_F's model ``name``."""
     from repro_torch.configs import get_config
 
-    arch, over = TP_TRAIN[name]
+    arch, over = (TP_TRAIN.get(name) or TP_TRAIN_F[name])[:2]
     return dataclasses.replace(get_config(arch), **over)
 
 
@@ -4659,19 +4905,24 @@ def whole_leaves_digest(params, shards) -> str:
     return _tree_bytes([t for t, d in zip(tree_leaves(params), shards.model_dims) if d is None])
 
 
-def _train_settings(ckpt_dir: str):
+def _train_settings(ckpt_dir: str, name: str):
+    """(e)'s and (f)'s optimizer and trainer settings for model ``name``:
+    TRAIN_BATCH x TRAIN_SEQ, or a TP_TRAIN_F model's own batch."""
     from repro_torch.train import AdamWConfig, TrainerConfig
 
+    batch, seq = TP_TRAIN_F[name][2] if name in TP_TRAIN_F else (TRAIN_BATCH, TRAIN_SEQ)
     return AdamWConfig(**TRAIN_OPT), TrainerConfig(
-        steps=TP_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_every=TP_TRAIN_STEPS + 1,
+        steps=TP_TRAIN_STEPS, batch=batch, seq=seq, ckpt_every=TP_TRAIN_STEPS + 1,
         ckpt_dir=ckpt_dir, log_every=1)
 
 
 # The leaves a unit permutation moves, by block leaf, and the dimension
-# (behind the period's): attention heads (kv slots with their query groups),
-# a dense MLP's ffn units, each expert's ffn units, Mamba-2's SSD heads.
+# (behind the period's): attention heads (kv slots with their query groups;
+# a cross-attention's too), a dense MLP's ffn units, each expert's ffn
+# units, Mamba-2's SSD heads.
 _UNIT_DIMS = {
-    "heads": {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1, "bv": 1},
+    "heads": {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1, "bv": 1,
+              "wq_c": 2, "wk_c": 2, "wv_c": 2, "wo_c": 1},
     "ffn": {"wg": 2, "wu": 2, "wd": 1},
     "expert_ffn": {"w_gate": 3, "w_up": 3, "w_down": 2},
     "ssm_heads": {"wz": 2, "wx": 2, "wdt": 2, "conv_x_w": 1, "conv_x_b": 1, "a_log": 1,
@@ -4680,9 +4931,10 @@ _UNIT_DIMS = {
 
 
 def permute_units(params, cfg, inverse: bool = False) -> dict:
-    """``params`` of the same model with each block's attention heads, ffn
-    units (dense or each expert's) and SSD heads in another order (numpy
-    seed 0; ``inverse`` puts them back): every reduction over those units
+    """``params`` of the same model with each block's attention heads (its
+    cross-attention's too), ffn units (dense or each expert's) and SSD heads
+    in another order (numpy seed 0; ``inverse`` puts them back), in the
+    decoder's and the encoder's stacks: every reduction over those units
     runs in another fp32 order, the math unchanged.  Heads move where no
     kv slot is duplicated or padded, SSD heads where one B/C group serves
     them all."""
@@ -4695,21 +4947,25 @@ def permute_units(params, cfg, inverse: bool = False) -> dict:
     moved = {"ffn", "expert_ffn"} | ({"heads"} if hp.kv_pad == hp.n_kv else set()) \
         | ({"ssm_heads"} if cfg.ssm_ngroups == 1 else set())
     rng = np.random.default_rng(0)
-    out = dict(params, dec={})
-    for blk, leaves in params["dec"].items():
-        new, perms = dict(leaves), {}
-        for unit in sorted(moved):
-            for leaf, dim in _UNIT_DIMS[unit].items():
-                if leaf not in leaves:
-                    continue
-                t = leaves[leaf]
-                if unit not in perms:
-                    perms[unit] = torch.from_numpy(rng.permutation(t.shape[dim]))
-                perm = perms[unit]
-                if inverse:
-                    perm = torch.argsort(perm)
-                new[leaf] = t.index_select(dim, perm.to(t.device))
-        out["dec"][blk] = new
+    out = dict(params)
+    for stack in ("dec", "enc"):
+        if stack not in params:
+            continue
+        out[stack] = {}
+        for blk, leaves in params[stack].items():
+            new, perms = dict(leaves), {}
+            for unit in sorted(moved):
+                for leaf, dim in _UNIT_DIMS[unit].items():
+                    if leaf not in leaves:
+                        continue
+                    t = leaves[leaf]
+                    if unit not in perms:
+                        perms[unit] = torch.from_numpy(rng.permutation(t.shape[dim]))
+                    perm = perms[unit]
+                    if inverse:
+                        perm = torch.argsort(perm)
+                    new[leaf] = t.index_select(dim, perm.to(t.device))
+            out[stack][blk] = new
     return out
 
 
@@ -4727,7 +4983,7 @@ def tp_train_control(name: str, dev, one: dict) -> float:
     cfg = tp_train_cfg(name)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_control_")
     try:
-        opt_cfg, tcfg = _train_settings(ckpt_dir)
+        opt_cfg, tcfg = _train_settings(ckpt_dir, name)
         init = permute_units(M.init_params(M.make_plan(cfg), 0, device=dev), cfg)
         tr = Trainer(cfg, opt_cfg, tcfg, params=init, device=dev)
         del init
@@ -4770,7 +5026,7 @@ def tp_train_rank(rank, world, name, spec, dev) -> dict:
     sums = leaf_sums(whole)
     ckpt_dir = tempfile.mkdtemp(prefix=f"chip_smoke_tp_train_{rank}_")
     try:
-        opt_cfg, tcfg = _train_settings(ckpt_dir)
+        opt_cfg, tcfg = _train_settings(ckpt_dir, name)
         tr = Trainer(cfg, opt_cfg, tcfg, mesh=mesh, params=whole, device=dev)
         bad, held, total = tp_shard_bytes(whole, tr.params, M.param_axes(plan), tr.rules, world)
         del whole
@@ -4825,9 +5081,11 @@ def tp_train_one_rank(name: str, dev) -> dict:
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_one_")
     try:
-        opt_cfg, tcfg = _train_settings(ckpt_dir)
+        opt_cfg, tcfg = _train_settings(ckpt_dir, name)
         tr = Trainer(tp_train_cfg(name), opt_cfg, tcfg, device=dev)
         init, sums = tree_to(tr.params, "cpu"), leaf_sums(tr.params)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         stamps = []
 
         def stamp(step=None):
@@ -4836,6 +5094,7 @@ def tp_train_one_rank(name: str, dev) -> dict:
 
         log = tr.run(fault_hook=stamp)["log"]
         stamp()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         after = tree_to(tr.params, "cpu")
         del tr
         _free()
@@ -4843,7 +5102,7 @@ def tp_train_one_rank(name: str, dev) -> dict:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     return dict(losses=[m["loss"] for m in log], grad_norms=[m["grad_norm"] for m in log],
                 ms=[(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])], sums=sums, init=init,
-                after=after)
+                after=after, peak_gib=peak, base_gib=base / 2**30)
 
 
 def update_distance(got, want, init, dev) -> tuple:
@@ -4858,34 +5117,41 @@ def update_distance(got, want, init, dev) -> tuple:
     return math.sqrt(off), math.sqrt(moved)
 
 
-def tp_train(dev, detail, ranks: "Ranks", keep: dict, base: dict) -> None:
-    """Phase 13 (e) in the parent: the ranks train each model of TP_TRAIN
-    (:func:`tp_train_rank`) while the parent trains the one-rank runs of
-    those without one (phase 5b's first steps are Phi-3's) and each model's
-    control (:func:`tp_train_control`), then stop.  Per model: the seeded
-    params the same on both sides (leaf sums); every rank holding exactly
-    its shard; the losses and gradient norms within TP_TRAIN_LOSS_RTOL of
-    the one-rank run's; the ranks' losses, gradient norms and whole-held
-    leaves the same bits before each step and after the last; the params
-    the ranks gathered off the one-rank run's after the last step by at
-    most TP_TRAIN_UPDATE_RTOL of how far that run moved them beyond the
-    control's distance; no kernel launched (dense training runs none)."""
+def tp_train(dev, detail, ranks: "Ranks", keep: dict, one: dict, names, part: str,
+             beside: bool = True) -> None:
+    """Phase 13 (e) or (f) (``part``) in the parent: the ranks train each
+    model of ``names`` (:func:`tp_train_rank`) while (``beside``), or after,
+    the parent trains the one-rank runs of those ``one`` lacks (in (e) it
+    holds phase 5b's first steps, Phi-3's) and each model's control
+    (:func:`tp_train_control`).  (f) runs them after: LLaVA's one-rank run
+    (its fp32 moments and a layer's attention scores at 3,392 positions)
+    and the two ranks' do not fit the card together.
+    Per model: the seeded params the same on both sides (leaf sums); every
+    rank holding exactly its shard; the losses and gradient norms within
+    TP_TRAIN_LOSS_RTOL of the one-rank run's; the ranks' losses, gradient
+    norms and whole-held leaves the same bits before each step and after
+    the last; the params the ranks gathered off the one-rank run's after
+    the last step by at most TP_TRAIN_UPDATE_RTOL of how far that run moved
+    them beyond the control's distance; no kernel launched (dense training
+    runs none).  The ranks stay up."""
     import torch
 
     t0 = time.monotonic()
-    ranks.send({"dir": keep["dir"]})
-    one = {"phi3": base}
-    for name in TP_TRAIN:
+    ranks.send(("train", {"dir": keep["dir"], "names": tuple(names)}))
+    got = None if beside else ranks.collect(timeout=TP_WAIT_S)
+    t1 = time.monotonic()
+    one = dict(one)
+    for name in names:
         if name not in one:
             one[name] = tp_train_one_rank(name, dev)
         one[name]["control_off"] = tp_train_control(name, dev, one[name])
-    t_one = time.monotonic() - t0
-    got = ranks.collect(timeout=TP_WAIT_S)
-    ranks.close()
-    print(f"[tp-train] the ranks' runs and the parent's one-rank runs and controls beside them: "
-          f"{time.monotonic() - t0:.1f}s (the one-rank runs and controls {t_one:.1f}s)", flush=True)
+    t_one = time.monotonic() - t1
+    got = got or ranks.collect(timeout=TP_WAIT_S)
+    print(f"[tp-train] {part}: the ranks' runs and the parent's one-rank runs and controls "
+          f"{'beside them' if beside else 'after them'}: {time.monotonic() - t0:.1f}s (the "
+          f"one-rank runs and controls {t_one:.1f}s)", flush=True)
     out = {}
-    for name in TP_TRAIN:
+    for name in names:
         rows, ref = [g[name] for g in got], one[name]
         label = tp_train_cfg(name).name
         path = os.path.join(keep["dir"], f"tp_train_{name}.pt")
@@ -4907,7 +5173,9 @@ def tp_train(dev, detail, ranks: "Ranks", keep: dict, base: dict) -> None:
                   f"({row['bytes_held'] / row['bytes_whole']:.1%}), every leaf its shard: "
                   f"{not row['bytes_bad']}; moments {row['moments_bytes'] / 2**30:.3f} GiB; peak "
                   f"{row['peak_gib']:.2f} GiB above the {row['base_gib']:.2f} GiB held before the "
-                  f"steps; ms per step {', '.join(f'{x:.1f}' for x in row['ms'])}; " + "; ".join(
+                  f"steps (one rank: {ref.get('peak_gib', float('nan')):.2f} above "
+                  f"{ref.get('base_gib', float('nan')):.2f}); ms per step "
+                  f"{', '.join(f'{x:.1f}' for x in row['ms'])}; " + "; ".join(
                       f"{k} {n} calls {b / 2**20:.2f} MiB {t:.3f}s"
                       for k, (n, b, t) in row["comm"].items())
                   + f"; launches {sum(row['launches'].values())}", flush=True)
@@ -4926,31 +5194,32 @@ def tp_train(dev, detail, ranks: "Ranks", keep: dict, base: dict) -> None:
               f"each step and after the last: {same_leaves}; ms per step "
               f"{[round(x, 1) for x in r0['ms']]} on the ranks against "
               f"{[round(x, 1) for x in ref['ms']]} on one rank (two ranks share one card over "
-              f"gloo; the one-rank runs of OLMoE and Mamba-2 share it with the ranks)", flush=True)
+              f"gloo; the parent's one-rank runs share it with the ranks)", flush=True)
         check(all(r["sums"] == ref["sums"] for r in rows),
-              f"(e) {label}: the ranks' seeded params differ from the one-rank run's")
+              f"{part} {label}: the ranks' seeded params differ from the one-rank run's")
         check(not any(r["bytes_bad"] for r in rows),
-              f"(e) {label}: a rank holds other bytes than its shard: {r0['bytes_bad'][:4]}")
+              f"{part} {label}: a rank holds other bytes than its shard: {r0['bytes_bad'][:4]}")
         check(len(r0["losses"]) == TP_TRAIN_STEPS
               and max(loss_rel + norm_rel) <= TP_TRAIN_LOSS_RTOL,
-              f"(e) {label}: losses {r0['losses']} and gradient norms {r0['grad_norms']} against "
+              f"{part} {label}: losses {r0['losses']} and gradient norms {r0['grad_norms']} against "
               f"one rank's {ref['losses']}, {ref['grad_norms']}")
         check(moved > 0 and off <= TP_TRAIN_UPDATE_RTOL * moved + ctrl,
-              f"(e) {label}: params {off / moved:.4g} of the movement off the one-rank run's, "
+              f"{part} {label}: params {off / moved:.4g} of the movement off the one-rank run's, "
               f"the control {ctrl / moved:.4g}")
-        check(same_loss and all(same_leaves), f"(e) {label}: the ranks' losses or whole-held "
+        check(same_loss and all(same_leaves), f"{part} {label}: the ranks' losses or whole-held "
               f"leaves differ ({same_loss}, {same_leaves})")
         check(all(sum(r["launches"].values()) == 0 for r in rows),
-              f"(e) {label}: dense training launched a kernel: {[r['launches'] for r in rows]}")
+              f"{part} {label}: dense training launched a kernel: {[r['launches'] for r in rows]}")
         out[name] = dict(label=label, losses=r0["losses"], losses_one=ref["losses"],
                          grad_norms=r0["grad_norms"], grad_norms_one=ref["grad_norms"],
                          loss_rel=loss_rel, norm_rel=norm_rel, update_off=off, update_moved=moved,
                          control_off=ctrl,
                          ms_ranks=[r["ms"] for r in rows], ms_one=ref["ms"],
                          comm=[r["comm"] for r in rows], peak_gib=[r["peak_gib"] for r in rows],
+                         peak_gib_one=ref.get("peak_gib"),
                          bytes_held=[r["bytes_held"] for r in rows], bytes_whole=r0["bytes_whole"],
                          moments_bytes=[r["moments_bytes"] for r in rows])
-    detail.setdefault("sharded", {})["tp_train"] = out
+    detail.setdefault("sharded", {})[f"tp_train {part}"] = out
 
 
 class Ranks:
@@ -5520,25 +5789,37 @@ def main() -> None:
     print(f"[phase] 13 (d), OLMoE and Jamba on a \"model\" axis of 2: {time.monotonic() - t0:.1f}s",
           flush=True)
     t0 = time.monotonic()
-    tp_train(dev, detail, ranks, tp_keep, tp_train_base)
+    tp_train(dev, detail, ranks, tp_keep, {"phi3": tp_train_base}, TP_TRAIN, "(e)")
     del tp_train_base
-    shutil.rmtree(tp_dir, ignore_errors=True)
     _free()
     print(f"[phase] 13 (e), Phi-3-mini, OLMoE and Mamba-2 trained on a \"model\" axis of 2: "
           f"{time.monotonic() - t0:.1f}s", flush=True)
+    # The ranks wait, holding nothing on the card, through phase 12, whose
+    # served runs and artifacts (f) takes.
     t0 = time.monotonic()
-    counts_enc, at_enc = encdec_families(dev, detail)
+    counts_enc, at_enc = encdec_families(dev, detail, tp_keep)
     print(f"[phase] 12, Whisper-large-v3 and LLaVA-NeXT-34B at full width: "
           f"{time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
+    counts_tpe, at_tpe = tp_encdec(detail, ranks, tp_keep)
+    t_serve = time.monotonic() - t0
+    tp_train(dev, detail, ranks, tp_keep, {}, TP_TRAIN_F, "(f)", beside=False)
+    ranks.close()
+    shutil.rmtree(tp_dir, ignore_errors=True)
+    _free()
+    print(f"[phase] 13 (f), Whisper-large-v3 and LLaVA-NeXT-34B served and trained on a \"model\" "
+          f"axis of 2: {time.monotonic() - t0:.1f}s (serving {t_serve:.1f}s)", flush=True)
     at_fam.update(at_ssm)
     at_fam.update(at_enc)
     # Each path's counts were read just after it ran, from 0.
     paths = dict(ptq=counts_ptq, train=counts_train, serving=counts_serve, quality=counts_quality,
                  cli=counts_cli, speculation=counts_spec, tune=counts_tune, families=counts_fam,
                  ssm=counts_ssm, encdec=counts_enc, sharded=counts_sharded, fsdp=counts_fsdp,
-                 tp_families=counts_tpf)
-    counts = {k: sum(c[k] for c in paths.values()) for k in counts_ptq}
+                 tp_families=counts_tpf, tp_encdec=counts_tpe)
     detail["launches"] = paths
+    # (d) and (f) report together under "tp_families", as the ranks' serving of the families.
+    at_tpf = merge_checked(merge_checked({}, at_tpf), at_tpe)
+    counts = {k: sum(c[k] for c in paths.values()) for k in counts_ptq}
 
     kernels = []
     for name, (_, source, replaces) in ops.KERNELS.items():
@@ -5559,7 +5840,7 @@ def main() -> None:
                       for cfg, c in at_fam.items()},
             sharded_launches=counts_sharded[name],
             sharded_calls_checked=at_sharded.get(name.replace("quantease_", ""), {}).get("calls", 0),
-            tp_families_launches=counts_tpf.get(name, 0),
+            tp_families_launches=counts_tpf.get(name, 0) + counts_tpe.get(name, 0),
             tp_families_calls_checked=at_tpf.get(name.replace("quantease_", ""), {}).get("calls", 0),
         ))
     detail["kernels"] = kernels

@@ -52,7 +52,6 @@ __all__ = [
     "model_axis",
     "data_axis",
     "shard_tree",
-    "TP_ENCDEC_ROADMAP",
     "TP_SPEC_ROADMAP",
 ]
 
@@ -60,11 +59,8 @@ __all__ = [
 # ("pod", "data")), or None (replicated).
 _Entry = Union[str, tuple, None]
 
-# Under a "model" axis the port serves and trains token-only decoders
-# (attention, mixture-of-experts and Mamba-2 blocks); the rest is queued in
-# ROADMAP.md queue 1, and each refusal names its item.
-TP_ENCDEC_ROADMAP = ("the encoder-decoder and prefix families under a \"model\" axis are "
-                     "ROADMAP.md queue 1 item 8.1.4")
+# Under a "model" axis the port serves and trains every family; what is
+# still queued in ROADMAP.md queue 1 refuses, naming its item.
 TP_SPEC_ROADMAP = ("speculative serving and deadlines under a \"model\" axis are ROADMAP.md "
                    "queue 1 item 8.1.5")
 

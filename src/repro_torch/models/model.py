@@ -64,7 +64,7 @@ from repro_torch.dist.collectives import (
     max_over,
     reduce_from,
 )
-from repro_torch.dist.sharding import TP_ENCDEC_ROADMAP, current_rules, data_axis, model_axis
+from repro_torch.dist.sharding import current_rules, data_axis, model_axis
 from repro_torch.models.common import (
     HeadPlan,
     HoistedDequant,
@@ -188,11 +188,12 @@ def tp_rules(plan: ModelPlan):
     the forward pass is one rank's part of a tensor-parallel program on its
     local params (:func:`repro_torch.dist.sharding.shard_tree`), and each
     leaf's layout is the rules' (:meth:`Rules.shard_dim` of its logical
-    axes, :data:`_TP_AXES`).  The plan must be padded for the axis, the
-    rules must cut the (padded) attention heads over it where the model has
-    attention blocks, and only token-only decoders run: attention, Mamba-2
-    and mixture-of-experts blocks (the encoder-decoder and prefix families
-    raise ``NotImplementedError`` naming their ROADMAP item)."""
+    axes, :data:`_TP_AXES`).  The plan must be padded for the axis, and
+    the rules must cut the (padded) attention heads over it where the model
+    has attention blocks.  Every family runs: attention, Mamba-2 and
+    mixture-of-experts blocks, the encoder-decoder family's encoder stack
+    and cross-attention (:func:`_cross_attention`), and the prefix family's
+    patches, which every rank holds whole (:func:`decoder_inputs`)."""
     mesh = model_axis()
     if mesh is None:
         return None
@@ -200,8 +201,6 @@ def tp_rules(plan: ModelPlan):
     if plan.axis_n != n:
         raise ValueError(f"the plan is padded for a \"model\" axis of {plan.axis_n}, the ambient "
                          f"rules' is {n}: make_plan(cfg, axis_n={n})")
-    if cfg.family == "encdec" or cfg.n_prefix:
-        raise NotImplementedError(f"{cfg.name}: {TP_ENCDEC_ROADMAP}")
     rules = current_rules()
     if (any(b.kind == "attn" for b in cfg.pattern)
             and rules.shard_dim(("heads",), "model") is None):
@@ -213,8 +212,7 @@ def tp_rules(plan: ModelPlan):
 def _kv_slots(plan: ModelPlan) -> int:
     """The kv slots a rank holds: all of them, or its share of the ambient
     "model" axis."""
-    tp = tp_rules(plan)
-    return plan.heads.kv_pad // (axis_size(tp.mesh, "model") if tp else 1)
+    return _rank_slots(plan.heads, tp_rules(plan))
 
 
 # The logical axes of the leaves whose layout the tensor-parallel forward
@@ -584,14 +582,19 @@ def init_params(plan: ModelPlan, seed, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _rank_slots(hp: HeadPlan, tp) -> int:
+    """The kv slots a rank runs under the rules ``tp`` (all without them)."""
+    return hp.kv_pad // (axis_size(tp.mesh, "model") if tp else 1)
+
+
 def _qkv(cfg, hp: HeadPlan, p, h, tp=None):
     """q on this rank's kv slots (all of them without a model axis), k and v
     expanded into the same slots (:func:`_kv`).  Under a model axis the
     rank's projections read ``copy_to(h)``: the gradient of the replicated
     ``h`` sums every rank's heads."""
-    kv_slots = hp.kv_pad // (axis_size(tp.mesh, "model") if tp else 1)
     hf = h if tp is None else copy_to(h, tp.mesh, "model")
-    q = apply_linear(p["wq"], hf, out_shape=(kv_slots, hp.g_pad, hp.head_dim), name="wq")
+    q = apply_linear(p["wq"], hf, out_shape=(_rank_slots(hp, tp), hp.g_pad, hp.head_dim),
+                     name="wq")
     if cfg.qkv_bias:
         q = q + p["bq"]
     return (q, *_kv(hp, p, h, bias=cfg.qkv_bias, tp=tp, hf=hf))
@@ -643,7 +646,7 @@ def _kv(hp: HeadPlan, p, h, suffix: str = "", bias: bool = False, tp=None, hf=No
             continue
         quantized = isinstance(wt, (QuantizedTensor, HoistedDequant))
         d = _cut(tp, "wk", wt)
-        kv_slots = hp.kv_pad // axis_size(tp.mesh, "model")
+        kv_slots = _rank_slots(hp, tp)
         # (…, rows) quantized, (…, KV', hd') dense
         y = apply_linear(wt, h if d is None else hf, name=f"w{w}{suffix}")
         if hp.kv_pad == hp.n_kv and d == (0 if quantized else 1):
@@ -802,27 +805,38 @@ def _attn_sublayer(cfg, hp, b: BlockDef, p, x, *, pos_ids, mode="train", cache=N
     if cfg.post_norms:
         out = apply_norm(p["post_ln"], out, cfg.norm)
     x = x + out
-    return _cross_attention(cfg, hp, p, x, mode=mode, cache=cache, enc_out=enc_out) if b.cross else x
+    if not b.cross:
+        return x
+    return _cross_attention(cfg, hp, p, x, mode=mode, cache=cache, enc_out=enc_out, tp=tp)
 
 
-def _cross_attention(cfg, hp, p, x, *, mode, cache, enc_out):
+def _cross_attention(cfg, hp, p, x, *, mode, cache, enc_out, tp=None):
     """Cross-attention over the encoder's output, non-causal.  In ``train``
     and ``prefill`` mode K/V are projected from ``enc_out`` (a prefill also
     writes them into the cache's ``ck``/``cv``, in bf16 whatever the
     model's dtype, as the reference's cache holds them); ``decode`` reads
-    them back and attends all ``n_frames`` keys."""
+    them back and attends all ``n_frames`` keys.  Under a model axis
+    (``tp``) the rank projects ``wq_c`` onto its kv slots, ``wk_c``/``wv_c``
+    from ``enc_out`` as :func:`_kv` does for self-attention (the gathered
+    fallback included), its cross caches hold those slots, and ``wo_c`` is
+    row-parallel.  ``enc_out`` is replicated and feeds each rank's own
+    slots: its projections read ``copy_to(enc_out)``, so the encoder's
+    gradient sums every rank's part."""
     h = apply_norm(p["ln_c"], x, cfg.norm)
-    q = apply_linear(p["wq_c"], h, out_shape=(hp.kv_pad, hp.g_pad, hp.head_dim), name="wq_c")
+    hf = h if tp is None else copy_to(h, tp.mesh, "model")
+    q = apply_linear(p["wq_c"], hf, out_shape=(_rank_slots(hp, tp), hp.g_pad, hp.head_dim),
+                     name="wq_c")
     if mode == "decode":
         kc, vc = cache["ck"], cache["cv"]
         o = decode_attention(q, kc, vc, kc.shape[1], window=None)
     else:
-        k, v = _kv(hp, p, enc_out, "_c")
+        ef = enc_out if tp is None else copy_to(enc_out, tp.mesh, "model")
+        k, v = _kv(hp, p, enc_out, "_c", tp=tp, hf=ef)
         if mode == "prefill":
             cache["ck"].copy_(k)
             cache["cv"].copy_(v)
         o = flash_attention(q, k, v, causal=False)
-    return x + _apply_out_proj(p["wo_c"], o, name="wo_c")
+    return x + _apply_out_proj(p["wo_c"], o, name="wo_c", tp=tp)
 
 
 def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None, tp=None):
@@ -1207,8 +1221,8 @@ def _block_cache_shape(plan: ModelPlan, b: BlockDef, B: int, cap: int) -> dict:
         out = {"k": (kv, torch.int8), "v": (kv, torch.int8), "ks": sc, "vs": sc}
     else:
         out = {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
-    if b.cross:  # the encoder's keys and values, bf16 whatever the KV dtype
-        ckv = ((B, cfg.n_frames, hp.kv_pad, hp.head_dim), torch.bfloat16)
+    if b.cross:  # the encoder's keys and values (the rank's slots), bf16 whatever the KV dtype
+        ckv = ((B, cfg.n_frames, kv_slots, hp.head_dim), torch.bfloat16)
         out.update(ck=ckv, cv=ckv)
     return out
 
@@ -1221,9 +1235,9 @@ def _stacked(plan: ModelPlan, per_block: dict) -> dict:
 
 def cache_shapes(plan: ModelPlan, B: int, cap: int) -> dict:
     """``{"b<i>": {leaf: (shape, dtype)}}`` of the contiguous decode cache,
-    stacked over periods (under a model axis, a rank's kv slots and SSD
-    heads: :func:`cache_axes`' layout)."""
-    tp_rules(plan)  # refuses a family the model axis does not run
+    stacked over periods (under a model axis, a rank's kv slots, its
+    cross caches' included, and SSD heads: :func:`cache_axes`' layout)."""
+    tp_rules(plan)  # the plan must be padded for the ambient axis
     return _stacked(plan, {f"b{i}": _block_cache_shape(plan, b, B, cap)
                            for i, b in enumerate(plan.cfg.pattern)})
 

@@ -107,13 +107,18 @@ def _lead(cfg, name: str, stack: str) -> tuple:
     return (n, cfg.n_experts) if name in _MOE_NAMES else (n,)
 
 
-def _map_quantizable(plan, dense: dict, fn) -> dict:
+def _map_quantizable(plan, dense: dict, fn, params: Optional[dict] = None) -> dict:
     """``dense`` with each stack's quantizable leaves replaced by
-    ``fn(name, stack)``."""
+    ``fn(name, stack)``; with ``params`` (an artifact), only those that are
+    quantized there."""
+    def quantized(stack, key, name):
+        return name in QUANTIZABLE and (
+            params is None or isinstance(params[stack][key][name], QuantizedTensor))
+
     out = dict(dense)
     for stack in ("dec", "enc"):
         if stack in dense:
-            out[stack] = {key: {name: fn(name, stack) if name in QUANTIZABLE else leaf
+            out[stack] = {key: {name: fn(name, stack) if quantized(stack, key, name) else leaf
                                 for name, leaf in blk.items()}
                           for key, blk in dense[stack].items()}
     return out
@@ -141,11 +146,14 @@ def qt_param_shapes(plan, bits: int = 4) -> dict:
     return _map_quantizable(plan, dense, quant)
 
 
-def qt_param_axes(plan) -> dict:
+def qt_param_axes(plan, params: Optional[dict] = None) -> dict:
     """The serving artifact's logical axes: dense leaves as
     :func:`param_axes` has them, a quantizable leaf ``{"codes": (…, out,
     in), "scale": (…, out, None), "zero": (…, out, None)}`` with lead axes
-    ``("layers",)`` or ``("layers", "experts")``."""
+    ``("layers",)`` or ``("layers", "experts")``.  With ``params`` (an
+    artifact) a quantizable leaf it holds dense keeps its dense axes: an
+    encoder-decoder artifact restacked without ``solver_qt_enc`` (the
+    reference's restack) has a dense ``"enc"``."""
     from repro_torch.models import model as M
 
     def quant(name, stack):
@@ -154,7 +162,7 @@ def qt_param_axes(plan) -> dict:
         return {"codes": (*lead, ax_o, ax_i), "scale": (*lead, ax_o, None),
                 "zero": (*lead, ax_o, None)}
 
-    return _map_quantizable(plan, M.param_axes(plan), quant)
+    return _map_quantizable(plan, M.param_axes(plan), quant, params)
 
 
 def serving_rules(plan, mesh):

@@ -24,8 +24,9 @@ the same rows) and the step averages over the data ranks
 axis' collectives run in the forward and backward passes.  ``save`` writes
 the whole padded-plan state from rank (0, 0) in the reference's format, so
 either package's loader reads it; ``restore`` loads on every rank and
-re-shards.  The encoder-decoder and prefix families under a "model" axis
-raise ``NotImplementedError`` naming their ROADMAP item.
+re-shards.  Every family trains on a "model" axis: an encoder-decoder
+model's batch carries its ``frames`` and a prefix model's its ``patches``,
+whose rows go with their tokens to each data coordinate.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from repro_torch.device import require_on_device, resolve_device
 from repro_torch.dist import checkpoint as ckpt
 from repro_torch.dist.collectives import axis_rank, axis_size, gather_dim, shard_dim
 from repro_torch.dist.elastic import RetryingRunner
-from repro_torch.dist.sharding import TP_ENCDEC_ROADMAP, axis_rules, axis_sizes, make_rules
+from repro_torch.dist.sharding import axis_rules, axis_sizes, make_rules
 from repro_torch.models.model import init_params, make_plan, param_axes, param_shapes
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, moment_axes
 from repro_torch.train.train_step import make_train_step
@@ -95,8 +96,6 @@ class Trainer:
         device="cuda",
     ):
         model_n = axis_sizes(mesh).get("model", 1)
-        if model_n > 1 and (model_cfg.family == "encdec" or model_cfg.n_prefix):
-            raise NotImplementedError(f"Trainer(mesh=) for {model_cfg.name}: {TP_ENCDEC_ROADMAP}")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg

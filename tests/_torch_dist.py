@@ -377,21 +377,29 @@ def tp_serve(plan, params, case, cache):
     """Prefill on a fresh contiguous cache, one decode step from ``cache``
     (the reference prefill's, or a rank's shard of it), then each engine
     on the case's prompts (logits recorded): what the tensor-parallel test
-    compares, run the same way on one rank or on a model axis."""
+    compares, run the same way on one rank or on a model axis.  A case of
+    the encoder-decoder or prefix family carries its frames or patches
+    (``"inputs"``) and decodes after the prefix; with ``"greedy"`` steps it
+    also returns its prefill's cross caches and a greedy run from that
+    prefill's cache (the engines take token-only models)."""
     from repro_torch.models import model as M
     from repro_torch.serve import PagedServingEngine, Request
 
     tokens = case["tokens"]
+    pos = tokens.shape[1] + plan.cfg.n_prefix
     fresh = M.init_cache(plan, tokens.shape[0], case["cap"], device="cpu")
-    l1, _ = M.prefill(plan, params, {"tokens": tokens}, fresh)
-    l2, cache = M.decode_step(plan, params, case["next"], cache, tokens.shape[1])
+    l1, _ = M.prefill(plan, params, dict(case.get("inputs", {}), tokens=tokens), fresh)
+    l2, cache = M.decode_step(plan, params, case["next"], cache, pos)
     # The cache entries the decode step wrote (bf16), one (k, v) per period
     # and attention block: (B, kv slots, hd).
-    wrote = [(c["k"][i, :, tokens.shape[1]].float().numpy(),
-              c["v"][i, :, tokens.shape[1]].float().numpy())
+    wrote = [(c["k"][i, :, pos].float().numpy(), c["v"][i, :, pos].float().numpy())
              for c in (cache[k] for k in sorted(cache)) if "k" in c
              for i in range(c["k"].shape[0])]
     out = {"prefill": l1.float().numpy(), "decode": l2.float().numpy(), "wrote": wrote}
+    if case.get("greedy"):
+        out["cross"] = [(c["ck"].float().numpy(), c["cv"].float().numpy())
+                        for c in (fresh[k] for k in sorted(fresh)) if "ck" in c]
+        out["greedy"] = greedy_run(plan, params, l1, fresh, pos, case["greedy"])
     for eng_name, kw in case["engines"].items():
         cls = PagedServingEngine if eng_name.startswith("paged") else _admissions()
         eplan = dataclasses.replace(plan, kv_cache_dtype="int8") if eng_name == "paged_int8" \
@@ -404,6 +412,23 @@ def tp_serve(plan, params, case, cache):
         if eng_name == "contiguous":
             out[f"{eng_name}_admitted"] = eng.admitted
     return out
+
+
+def greedy_run(plan, params, logits, cache, pos: int, steps: int) -> tuple:
+    """``steps`` greedy decode steps after a prefill's ``logits`` and
+    ``cache``, recorded as an engine records them: ``({row: tokens}, {row:
+    [logits a step]})``, the prefill's logits and argmax first."""
+    from repro_torch.models import model as M
+
+    trace, tok = [logits.float().numpy()], logits.argmax(-1)
+    out = [tok.numpy()]
+    for j in range(steps):
+        logits, cache = M.decode_step(plan, params, tok[:, None], cache, pos + j)
+        tok = logits.argmax(-1)
+        trace.append(logits.float().numpy())
+        out.append(tok.numpy())
+    rows = range(len(out[0]))
+    return {b: [int(t[b]) for t in out] for b in rows}, {b: [l[b] for l in trace] for b in rows}
 
 
 def _admissions():
@@ -434,7 +459,7 @@ def _admissions():
 
 
 
-def tp_rank(rank, world, cases):
+def tp_rank(rank, world, cases, root=None):
     """Every case of ``cases`` on a ("model",) mesh over all ranks: the
     whole params (dense or a serving artifact) cut by
     ``dist.sharding.shard_tree`` under ``serve.qparams.serving_rules``, then
@@ -445,7 +470,10 @@ def tp_rank(rank, world, cases):
     whole case, and those of its decode step alone under ``"decode"``)
     come back with its
     outputs, with the MoE routers' top-k expert ids of every call
-    (``"routes"``: their count and the digest of their bytes)."""
+    (``"routes"``: their count and the digest of their bytes).  With
+    ``root`` each rank also saves its local tree with
+    ``dist.checkpoint.save_checkpoint`` under ``root`` and loads it back
+    into that tree's form (``"ckpt"``: the same bits)."""
     import hashlib
 
     import torch.distributed as dist
@@ -488,7 +516,7 @@ def tp_rank(rank, world, cases):
         for name, case in cases.items():
             plan = M.make_plan(case["cfg"], world)
             rules = serving_rules(plan, mesh)
-            axes = qt_param_axes(plan) if case["quantized"] else M.param_axes(plan)
+            axes = qt_param_axes(plan, case["params"]) if case["quantized"] else M.param_axes(plan)
             local = shard_tree(case["params"], axes, rules)
             cache = shard_tree(case["cache"], M.cache_axes(plan), rules)
             comm.clear()
@@ -499,6 +527,12 @@ def tp_rank(rank, world, cases):
             res["bytes"] = storage_bytes(local)
             res["comm"] = {k: (dict(v) if k == "decode" else list(v)) for k, v in comm.items()}
             res["routes"] = (len(routes), hashlib.sha256(b"".join(routes)).hexdigest())
+            if root is not None:
+                from repro_torch.dist import checkpoint as ckpt
+
+                d = os.path.join(root, f"{name}_{rank}")
+                ckpt.save_checkpoint(d, 0, local)
+                res["ckpt"] = tree_bits(ckpt.load_checkpoint(d, local)[0]) == tree_bits(local)
             out[name] = res
     finally:
         C.all_reduce, C.gather_dim = originals["all_reduce"], originals["gather_dim"]

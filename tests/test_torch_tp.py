@@ -29,11 +29,12 @@
   two entries it departs in on purpose (``ROADMAP.md`` §3): ``expert_ffn``
   stays whole where neither the experts nor the per-expert ffn divide the
   axis, and ``ssm_heads`` splits where the SSD heads divide it.
-* Outside the slice a model axis refuses: the encoder-decoder and prefix
-  families, speculation and deadlines, each naming its ROADMAP item.  The
-  mixture-of-experts and Mamba-2 families serve on the axis:
-  ``tests/test_torch_tp_families.py``; every token-only family trains on
-  it: ``tests/test_torch_tp_train.py``.
+* Outside the slice a model axis refuses speculation and deadlines, naming
+  their ROADMAP item.  The mixture-of-experts and Mamba-2 families serve on
+  the axis: ``tests/test_torch_tp_families.py``; the encoder-decoder and
+  prefix families serve and train on it: ``tests/test_torch_tp_encdec.py``
+  (here, their caches take the rank's kv slots); every token-only family
+  trains on it: ``tests/test_torch_tp_train.py``.
 """
 
 import concurrent.futures
@@ -191,12 +192,13 @@ ENGINE_KW = {"paged": dict(max_batch=2, max_seq=64, page_size=8, prefill_chunk=1
              "contiguous": dict(max_batch=2, max_seq=64, prefill_pad=8)}
 
 
-def _rtn_artifact(jp, params, group_size=None, outlier_frac=0.0):
+def _rtn_artifact(jp, params, group_size=None, outlier_frac=0.0, stacks=("dec",)):
     """The reference's ``rtn_quantize_for_serving`` loop (its
     ``quantize_tensor``, COO planes of the largest residuals and
     ``pack_codes``) with an optional group size, without its layout
     prepack: a packed 4-bit serving artifact of per-channel or grouped
-    grids."""
+    grids, of the ``stacks`` named (the reference's quantizes ``"dec"``;
+    an encoder-decoder model's ``"enc"`` may be added)."""
     from repro.core.solver import QUANTIZABLE
     from repro.quant import quantize_tensor
     from repro.quant.pack import pack_codes
@@ -217,8 +219,9 @@ def _rtn_artifact(jp, params, group_size=None, outlier_frac=0.0):
         return jax.tree.map(lambda *ls: jnp.stack(ls), *qts)
 
     out = dict(params)
-    out["dec"] = {k: {n: qt_of(n, v) if n in QUANTIZABLE else v for n, v in blk.items()}
-                  for k, blk in params["dec"].items()}
+    for stack in stacks:
+        out[stack] = {k: {n: qt_of(n, v) if n in QUANTIZABLE else v for n, v in blk.items()}
+                      for k, blk in params[stack].items()}
     return out
 
 
@@ -428,7 +431,8 @@ def _expected_bytes(case, world, rank):
     for the COO entries a rank owns)."""
     plan = tmodel.make_plan(case["cfg"], world)
     rules = tqparams.serving_rules(plan, {"model": world})
-    axes = tqparams.qt_param_axes(plan) if case["quantized"] else tmodel.param_axes(plan)
+    axes = (tqparams.qt_param_axes(plan, case["params"]) if case["quantized"]
+            else tmodel.param_axes(plan))
     out = {}
 
     def walk(node, ax, path):
@@ -556,20 +560,28 @@ def test_shard_tree_coo_planes_rebase():
 @pytest.mark.parametrize("arch,item", [("whisper_large_v3", "8.1.4"),
                                        ("llava_next_34b", "8.1.4")])
 def test_families_outside_the_slice_refuse_a_model_axis(arch, item):
+    """The encoder-decoder and prefix families refused a model axis until
+    ROADMAP item ``item`` lifted it: under the stub mesh's serving rules
+    ``init_cache`` now gives ``k``/``v`` and Whisper's ``ck``/``cv`` the
+    rank's kv slots (``cache_axes`` puts them on "heads"), as ``shard_tree``
+    cuts the whole plan's cache (their parity on ranks:
+    ``tests/test_torch_tp_encdec.py``)."""
+    assert item == "8.1.4"
     cfg = dataclasses.replace(reduce_cfg(tget(arch)), dtype=torch.float32)
     plan = tmodel.make_plan(cfg, 2)
-    params = tmodel.init_params(plan, 0, device="cpu")
-    rules = tsharding.make_rules(_stub_mesh())
+    rules = tqparams.serving_rules(plan, _stub_mesh(rank=1))
+    whole = tmodel.init_cache(plan, 1, 16, device="cpu")
     with tsharding.axis_rules(rules):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tmodel.init_cache(plan, 1, 16, device="cpu")
-        batch = {"tokens": np.zeros((1, 4), np.int32)}
-        if cfg.family == "encdec":
-            batch["frames"] = np.zeros((1, cfg.n_frames, cfg.d_model), np.float32)
-        if cfg.n_prefix:
-            batch["patches"] = np.zeros((1, cfg.n_prefix, cfg.d_model), np.float32)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tmodel.train_loss(plan, params, batch)
+        local = tmodel.init_cache(plan, 1, 16, device="cpu")
+    cut = tsharding.shard_tree(whole, tmodel.cache_axes(plan), rules, rank=1)
+    names = ("k", "v", "ck", "cv") if cfg.family == "encdec" else ("k", "v")
+    for blk in local:
+        assert sorted(local[blk]) == sorted(names)
+        for k in names:
+            assert local[blk][k].shape == cut[blk][k].shape
+            assert local[blk][k].shape[3] == plan.heads.kv_pad // 2 == whole[blk][k].shape[3] // 2
+    if cfg.family == "encdec":
+        assert local["b0"]["ck"].shape[2] == cfg.n_frames
 
 
 def test_speculation_deadlines_training_and_plan_refuse_a_model_axis():

@@ -41,8 +41,8 @@ and 3 ranks against one-rank autograd, and under ``torch.no_grad()`` to
 the bits of the plain calls.  Without ranks: the training rules equal the
 reference trainer's table at every architecture and axis but for the two
 entries the port passes on purpose (``ROADMAP.md`` §3), a tree's layout
-over both axes, and the encoder-decoder and prefix families refusing a
-model axis (ROADMAP item 8.1.4).
+over both axes, and the encoder-decoder and prefix families' trainers
+built on a model axis (their parity: ``tests/test_torch_tp_encdec.py``).
 """
 
 import concurrent.futures
@@ -411,7 +411,26 @@ def test_tree_shards_lay_a_leaf_out_on_both_axes():
 
 @pytest.mark.parametrize("arch", ["whisper_large_v3", "llava_next_34b"])
 def test_trainer_refuses_encdec_and_prefix_families_on_a_model_axis(arch):
+    """The encoder-decoder and prefix families refused ``Trainer(mesh=)``
+    with a model axis until ROADMAP item 8.1.4 lifted it: on a stub
+    ("data", "model") mesh of 1 × 2 the trainer builds, pads the plan for
+    the axis and holds its rank's shard of every leaf, the encoder's and
+    the cross-attention's heads cut and ``prefix_ln``/``enc_pos_emb`` whole
+    (their training on ranks: ``tests/test_torch_tp_encdec.py``)."""
     cfg = dataclasses.replace(reduce_cfg(tget(arch)), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 8.1.4"):
-        Trainer(cfg, AdamWConfig(), TrainerConfig(steps=1, batch=1, seq=8),
-                mesh={"data": 1, "model": 2}, device="cpu")
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2),
+                                 get_local_rank=lambda axis: 1 if axis == "model" else 0,
+                                 get_group=lambda axis: None)
+    tr = Trainer(cfg, AdamWConfig(), TrainerConfig(steps=1, batch=1, seq=8), mesh=mesh,
+                 device="cpu")
+    assert tr.plan.axis_n == 2 and tr.shards.model_dims is not None
+    whole = tmodel.param_shapes(tr.plan)
+    stack = "enc" if cfg.family == "encdec" else "dec"
+    assert tr.params[stack]["b0"]["wq"].shape[2] == whole[stack]["b0"]["wq"].shape[2] // 2
+    for key in ("enc_pos_emb", "prefix_ln"):
+        if key in whole:
+            got = tree_leaves(tr.params[key])
+            assert [t.shape for t in got] == [t.shape for t in tree_leaves(whole[key])]
+    if cfg.family == "encdec":
+        assert tr.params["dec"]["b0"]["wo_c"].shape[1] == whole["dec"]["b0"]["wo_c"].shape[1] // 2
+    assert tr.params["embed"].shape[0] == tr.plan.vocab_pad // 2

@@ -285,19 +285,32 @@ def test_trainer_leaves_no_tensor_in_reference_cycles(tmp_path):
 
 def test_trainer_refuses_a_mesh():
     """Data meshes and "model" axes train (tests/test_torch_dist_train.py,
-    tests/test_torch_tp_train.py); under a "model" axis larger than 1 the
-    encoder-decoder and prefix families refuse by their ROADMAP item, with
-    or without FSDP.  fsdp=True without a mesh is the local trainer, as in
-    the reference.  The name is kept from when every mesh was refused, so
-    the test's record carries on."""
+    tests/test_torch_tp_train.py, tests/test_torch_tp_encdec.py).  The
+    encoder-decoder and prefix families refused a "model" axis larger than
+    1 until ROADMAP item 8.1.4 lifted it: on stub ("data", "model") meshes
+    of 1 × 2 and 4 × 16, with or without FSDP, their trainers now build on
+    the plan padded for the axis, the encoder's and the decoder's heads cut
+    on "model" (and, with FSDP, every "embed" dimension on "data").
+    fsdp=True without a mesh is the local trainer, as in the reference.
+    The name is kept from when every mesh was refused, so the test's
+    record carries on."""
+    import types
+
     _, tcfg = _cfgs()
     for arch in ("whisper_large_v3", "llava_next_34b"):
         cfg = dataclasses.replace(reduce_cfg(tget(arch)), dtype=torch.float32)
-        for mesh in ({"data": 1, "model": 2}, {"data": 4, "model": 16}):
+        for n_data, n_model in ((1, 2), (4, 16)):
+            mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(n_data, n_model),
+                                         get_local_rank=lambda axis: 0, get_group=lambda axis: None)
             for fsdp in (False, True):
-                with pytest.raises(NotImplementedError, match=r"\"model\" axis.*item 8\.1\.4"):
-                    Trainer(cfg, topt.AdamWConfig(), TrainerConfig(), mesh=mesh, fsdp=fsdp,
-                            device=CPU)
+                tr = Trainer(cfg, topt.AdamWConfig(), TrainerConfig(), mesh=mesh, fsdp=fsdp,
+                             device=CPU)
+                hp = tr.plan.heads
+                assert tr.plan.axis_n == n_model and hp.kv_pad % n_model == 0
+                stack = "enc" if cfg.family == "encdec" else "dec"
+                wq = tr.params[stack]["b0"]["wq"]  # (layers, embed, heads, G, hd)
+                d_local = cfg.d_model // n_data if fsdp and n_data > 1 else cfg.d_model
+                assert wq.shape[1:3] == (d_local, hp.kv_pad // n_model), (arch, n_model, fsdp)
     assert Trainer(tcfg, topt.AdamWConfig(), TrainerConfig(), fsdp=True, device=CPU).shards is None
 
 
