@@ -242,7 +242,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
    run's, their tokens equal up to its first top-2 margin below that
    bound; launches, the collectives' calls, bytes and seconds, and ms per
    decode step against one rank are printed (kernel 3's fp32 partials cost
-   nothing measurable against bf16 out: PERF.md); (d) the same
+   nothing measurable against bf16 out: PERF.md); (g) right after (c) the
+   same ranks serve (c)'s prompts on their shard speculatively (γ = 4; the
+   1-period draft of the shard and an RTN@3 draft of the whole dense stack
+   cut by ``shard_tree``), each stream held to (c)'s bf16 stream under the
+   margin rule, with no page leaked and no round short of min(γ, budget),
+   then under the SLO scheduler on a 40-page pool with mixed requests
+   (deadlines none, generous, expiring mid-generation and provably
+   unmeetable; priorities 0-2): rank 0's engine on a virtual clock, rank
+   1's on ``time.monotonic() + 1e3``, every reading rank 0's, broadcast;
+   both ranks must agree in every output, request and counter, request 4
+   must expire, request 8 be shed and one request be preempted; then again
+   with rank 0 on ``time.monotonic()`` and deadlines the card's timing
+   decides, where only the ranks' agreement is required; the
+   `[tp-spec]` and `[tp-slo]` lines print tok/s and ms a round against
+   (c)'s ms a step, the acceptance, the collectives a round and the
+   clock's readings; every kernel-3 and kernel-5 signature of (g) held
+   against its plain version once; (d) the same
    ranks stay up, their card freed, until phases 10 and 11 have run: then
    each loads on the CPU the artifact those phases saved (10 (a)'s OLMoE
    quantease@4, one layer; 11 (b)(ii)'s Jamba blocks 0+1 RTN@4, 7.5 GB),
@@ -461,6 +477,40 @@ TP_TRAIN_UPDATE_RTOL = 0.05
 # their frames or patches), held as (e) holds its models; the parent
 # trains the one-rank runs and controls while the ranks work.
 TP_ENCDEC = ("whisper_large_v3", "llava_next_34b")
+# (g) Speculation and SLO deadlines on the axis: right after (c) the same
+# ranks serve their shard of (c)'s artifact again on the paged engine (bf16
+# KV, TP_PAGED, (c)'s TP_PROMPTS prompts).  (i) Speculatively, γ =
+# SPEC_GAMMA, TP_NEW tokens a request, with the truncated self-draft (the
+# first of the 2 periods of the rank's shard) and an RTN draft of the whole
+# dense stack at SPEC_DRAFT_BITS, cut by shard_tree like any artifact; the
+# pool holds SPEC_POOL times the ample one (target and draft pages share
+# it).  Each stream is held to (c)'s bf16 stream on the rank under phase
+# 9's margin rule (SERVE_LOGIT_TOL), with phase 9's per-run checks (every
+# request complete, no page leaked, no round short of min(γ, budget),
+# kernel 5 once a verify or draft step and layer, the verify's GEMMs
+# tc_small).  (ii) The SLO scheduler on a pool of TP_SLO_PAGES pages, which
+# forces preemption, with TP_SLO's requests (rid: (c)'s prompt, new tokens,
+# deadline ms or None, priority), the last after the engine has measured
+# its step costs.  Rank 0's engine reads a virtual clock, TP_SLO_TICK_S a
+# reading (no token moves the schedule, so it is the CPU rehearsal's);
+# rank 1's reads time.monotonic() + 1e3.  Every reading either engine
+# takes is rank 0's, broadcast (a reading only recorded rides on the next
+# broadcast): request 4 expires mid-generation, request 8 is shed as
+# provably unmeetable, one request is preempted and resumes.  (iii) The
+# same with rank 0's engine on time.monotonic (rank 1's skewed again) and
+# TP_SLO_LIVE's requests: deadlines generous, tight (a few of (c)'s steps)
+# or clearly unmeetable, so the card's real timing decides them and only
+# the ranks' agreement is required.  Both ranks must end every request
+# alike; tokens are held to (c)'s stream under the margin rule.
+TP_SLO_TICK_S = 1e-3
+TP_SLO_PAGES = 40
+TP_SLO = ({0: (0, TP_NEW, None, 0), 1: (1, TP_NEW, None, 0), 2: (2, TP_NEW, 1e9, 1),
+           3: (3, TP_NEW, 1e9, 1), 4: (4, 48, 100.0, 2), 5: (5, TP_NEW, None, 2),
+           6: (6, TP_NEW, None, 1), 7: (7, TP_NEW, 1e9, 0)},
+          {8: (0, TP_NEW, 10.0, 1)})
+TP_SLO_LIVE = ({0: (0, TP_NEW, None, 0), 1: (1, TP_NEW, 1e6, 1), 2: (2, TP_NEW, 300.0, 2),
+                3: (3, TP_NEW, 1.0, 0), 4: (4, 48, 600.0, 1)},
+               {5: (5, TP_NEW, 1.0, 2), 6: (6, TP_NEW, 1e6, 0), 7: (7, TP_NEW, 400.0, 1)})
 TP_TRAIN_F = {"whisper": ("whisper_large_v3", dict(n_periods=1, n_enc_periods=1), (4, 448)),
               "llava": ("llava_next_34b", dict(n_periods=1), (2, 512))}
 # Phase 7: the reference's quality table (benchmarks/bench_eval.py, its full
@@ -4159,8 +4209,9 @@ def _sharded_rank(rank, world, store, out_path, dev_type, queue, go):
     against their plain versions on one call per signature.  Rank 0 saves
     its artifact and each group's Σ; every rank reports its launches, its
     collectives and the digests of its artifact, Σ's and params, with (c)'s
-    results (:func:`tp_serve_rank`).  Then the rank frees the card and
-    serves (d), (e) and (f) one message at a time (:func:`rank_messages`)."""
+    results (:func:`tp_serve_rank`, (g) with them).  Then the rank frees the
+    card and serves (d), (e) and (f) one message at a time
+    (:func:`rank_messages`)."""
     import traceback
 
     import torch
@@ -4324,30 +4375,35 @@ def counted_collectives():
     """While open, the tensor-parallel collectives of the forward and
     backward passes (``dist.collectives.all_reduce``, ``gather_dim``,
     through which ``copy_to``, ``reduce_from``, ``gather_from`` and
-    ``max_over`` run) are counted into the dict it yields: per kind the
-    calls, the bytes a rank sends (its tensor, or its shard) and the
-    seconds each holds the host (gloo returns once the data has arrived)."""
+    ``max_over`` run) and the agreed clock's ``broadcast_from`` (a serving
+    engine's clock readings on the axis) are counted into the dict it
+    yields: per kind the calls, the bytes a rank sends (its tensor, or its
+    shard; 8 a broadcast reading) and the seconds each holds the host (gloo
+    returns once the data has arrived)."""
     from repro_torch.dist import collectives as M
 
-    comm = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+    import torch
+
+    comm = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0], "broadcast": [0, 0, 0.0]}
 
     def counted(kind, fn):
         def call(t, *a, **k):
             t0 = time.perf_counter()
             out = fn(t, *a, **k)
             row = comm[kind]
-            row[0], row[1], row[2] = (row[0] + 1, row[1] + t.numel() * t.element_size(),
-                                      row[2] + time.perf_counter() - t0)
+            n = t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 8 * len(t)
+            row[0], row[1], row[2] = row[0] + 1, row[1] + n, row[2] + time.perf_counter() - t0
             return out
         return call
 
-    originals = M.all_reduce, M.gather_dim
-    M.all_reduce, M.gather_dim = counted("all_reduce", M.all_reduce), counted("all_gather",
-                                                                             M.gather_dim)
+    originals = M.all_reduce, M.gather_dim, M.broadcast_from
+    M.all_reduce, M.gather_dim, M.broadcast_from = (
+        counted("all_reduce", M.all_reduce), counted("all_gather", M.gather_dim),
+        counted("broadcast", M.broadcast_from))
     try:
         yield comm
     finally:
-        M.all_reduce, M.gather_dim = originals
+        M.all_reduce, M.gather_dim, M.broadcast_from = originals
 
 
 def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
@@ -4356,8 +4412,10 @@ def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
     leaf by leaf against 1/TP_RANKS of each sharded leaf, serves TP_PROMPTS
     requests on the paged engine inside the axis' rules, for each KV dtype
     of TP_KV; then every kernel-3 and kernel-5 signature of the runs once
-    against its plain version.  Returns the outputs, the first decode
-    step's logits, the launches, the collectives and the step times."""
+    against its plain version.  Then (g) on the same shard
+    (:func:`tp_spec_rank`).  Returns the outputs, the first decode step's
+    logits, the launches, the collectives, the step times and (g)'s
+    results."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
 
@@ -4394,16 +4452,135 @@ def tp_serve_rank(rank, plan, params, qdec, dev) -> dict:
             check(ops.launch_counts()["paged_attention"] - k5 == eng.n_decode_steps * n_attn,
                   f"phase 13 (c) {kv}: kernel 5 not launched once a decode step and layer")
             runs[kv] = dict(stats=stats, outputs=outputs,
-                            first={rid: t[0] for rid, t in eng.logit_trace.items()})
+                            first={rid: t[0] for rid, t in eng.logit_trace.items()},
+                            clock=(eng.clock.n_reads, eng.clock.n_broadcasts))
+            if kv == "bf16":
+                plain = (eng.logit_trace, outputs)
             del eng
         torch.cuda.synchronize()
     counts = ops.launch_counts()
     variants = {v: n - variants0[v] for v, n in dequant_matmul_cuda.launches_by_variant.items()}
     checked = family_checks("tensor-parallel", calls, variants, phase="phase 13 (c)")
     del calls
+    spec = tp_spec_rank(rank, tplan, rules, local, params, plain, prompts,
+                        runs["bf16"]["stats"]["ms_per_step"], dev)
     return dict(runs=runs, counts=counts, comm=comm, variants=variants, checked=checked,
                 bytes_bad=bad, bytes_held=held, bytes_whole=total,
-                kv_slots=tplan.heads.kv_pad // TP_RANKS, prompts=[len(p) for p in prompts])
+                kv_slots=tplan.heads.kv_pad // TP_RANKS, prompts=[len(p) for p in prompts],
+                spec=spec)
+
+
+class _Ticks:
+    """A virtual engine clock: ``dt`` seconds a reading."""
+
+    def __init__(self, dt: float):
+        self.t, self.dt = 0.0, dt
+
+    def __call__(self) -> float:
+        self.t += self.dt
+        return self.t
+
+
+def _prefix_agree(plain_trace, plain_out, out, tol) -> tuple:
+    """:func:`spec_agree` over the steps both streams have (a request that
+    expired holds only its first tokens)."""
+    trace = {rid: plain_trace[rid][: len(out[rid])] for rid in out}
+    return spec_agree(trace, {rid: plain_out[rid][: len(out[rid])] for rid in out}, out, tol)
+
+
+def tp_spec_rank(rank, tplan, rules, local, dense, plain, prompts, plain_ms, dev) -> dict:
+    """Phase 13 (g) on one rank, inside (c)'s rules on (c)'s shard: (i) the
+    speculative runs of both drafts (:func:`spec_serve`, each stream held
+    to (c)'s bf16 stream ``plain`` under the margin rule), (ii) the SLO run
+    on the small pool (TP_SLO) with rank 0 on a virtual clock, (iii) again
+    (TP_SLO_LIVE) with rank 0 on ``time.monotonic``, rank 1 skewed in both,
+    then every kernel-3 and kernel-5 signature of (g) once against its
+    plain version.  Returns
+    each run's outputs, request records, counters, collectives and times,
+    the launches of (g) (read before the replays) and the checks."""
+    import torch
+
+    from repro_torch.dist.sharding import axis_rules, shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dequant_matmul import dequant_matmul_cuda
+    from repro_torch.serve import PagedServingEngine
+    from repro_torch.serve.qparams import qt_param_axes, rtn_quantize_for_serving
+    from repro_torch.serve.spec import SpecConfig, truncate_draft
+
+    t_start = time.monotonic()
+    rtn, layout = rtn_quantize_for_serving(tplan, dense, bits=SPEC_DRAFT_BITS)
+    rtn_local = shard_tree(rtn, qt_param_axes(tplan, rtn), rules)
+    del rtn
+    pool = SPEC_POOL * (1 + TP_PAGED["max_batch"] * -(-TP_PAGED["max_seq"] // TP_PAGED["page_size"]))
+    ops.reset_launch_counts()
+    variants0 = dict(dequant_matmul_cuda.launches_by_variant)
+    out = {"spec": {}, "rtn_layout": layout, "plain_ms": plain_ms}
+    with recording_calls() as calls, axis_rules(rules):
+        drafts = {"1-period draft": truncate_draft(tplan, local, 1),
+                  f"{SPEC_DRAFT_BITS}-bit RTN draft": (tplan, rtn_local)}
+        for label, draft in drafts.items():
+            with counted_collectives() as comm:
+                stats, outputs, eng = spec_serve(
+                    f"phase 13 (g) rank {rank} {label}", lambda: PagedServingEngine(
+                        tplan, local, **TP_PAGED, n_pages=pool,
+                        spec=SpecConfig(*draft, gamma=SPEC_GAMMA), device=dev),
+                    prompts, TP_NEW, SPEC_GAMMA)
+            parted, compared = spec_agree(*plain, outputs, SERVE_LOGIT_TOL)
+            check(not parted, f"phase 13 (g) rank {rank} {label}: the speculative stream parts "
+                              f"from (c)'s above the margin at {parted}")
+            stats.pop("rejection_margins")
+            out["spec"][label] = dict(
+                stats=stats, outputs=outputs, comm=comm, parted=parted, compared=compared,
+                counters=(eng.n_decode_steps, eng.n_spec_rounds, eng.n_draft_tokens,
+                          eng.n_draft_accepted, eng.spec_mgr.n_propose_calls),
+                requests={r.rid: (r.n_spec_rounds, r.n_draft_tokens, r.n_draft_accepted)
+                          for r in eng.finished})
+            del eng
+        skewed = lambda: time.monotonic() + 1e3
+        out["slo"] = _tp_slo_run(local, tplan, prompts, plain, TP_SLO,
+                                 _Ticks(TP_SLO_TICK_S) if rank == 0 else skewed, dev)
+        out["slo_live"] = _tp_slo_run(local, tplan, prompts, plain, TP_SLO_LIVE,
+                                      time.monotonic if rank == 0 else skewed, dev)
+    out["counts"] = ops.launch_counts()
+    variants = {v: n - variants0[v] for v, n in dequant_matmul_cuda.launches_by_variant.items()}
+    out["variants"] = variants
+    out["checked"] = family_checks("tensor-parallel (g)", calls, variants, phase="phase 13 (g)")
+    del calls, rtn_local
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+def _tp_slo_run(local, tplan, prompts, plain, waves, clock, dev) -> dict:
+    """Phase 13 (g)'s SLO run on the rank: ``waves`` of requests (rid:
+    (c)'s prompt, new tokens, deadline ms or None, priority) on a pool of
+    TP_SLO_PAGES pages, the engine on ``clock``, each wave run to the end.
+    Returns every request's record, the counters, the free pages, the
+    collectives, the agreed clock's readings and broadcasts, the wall time
+    and where a stream parts from (c)'s ``plain`` under the margin rule."""
+    import torch
+
+    from repro_torch.serve import PagedServingEngine, Request
+
+    eng = PagedServingEngine(tplan, local, **TP_PAGED, n_pages=TP_SLO_PAGES, clock=clock,
+                             device=dev)
+    reqs, t0 = [], time.monotonic()
+    with counted_collectives() as comm:
+        for wave in waves:
+            for rid, (i, n_new, deadline, prio) in wave.items():
+                req = Request(rid=rid, prompt=prompts[i], max_new_tokens=n_new,
+                              deadline_ms=deadline, priority=prio)
+                eng.submit(req)
+                reqs.append(req)
+            eng.run()
+        torch.cuda.synchronize()
+    return dict(
+        requests={r.rid: (r.status, r.output, r.error, r.n_preemptions, r.submit_t,
+                          r.finish_t) for r in reqs},
+        counters=(eng.n_shed, eng.n_deadline_missed, eng.n_preemptions, eng.n_decode_steps),
+        free=(eng.pool.n_free, eng.n_pages - 1), comm=comm, reads=eng.clock.n_reads,
+        broadcasts=eng.clock.n_broadcasts, wall_s=time.monotonic() - t0,
+        parted=_prefix_agree(*plain, {r.rid: r.output for r in reqs if r.output and
+                                      r.rid in plain[1]}, SERVE_LOGIT_TOL)[0])
 
 
 def tokens_under_margin(trace: dict, outputs: dict, got: dict) -> tuple:
@@ -4468,16 +4645,111 @@ def tp_against_one_rank(dev, detail, plan, served, ranks) -> None:
               f"before a top-2 margin under the bound, {len(parted)} parting {parted[:4]}; decode "
               f"{', '.join(f'{x:.2f}' for x in ms)} ms/step on the ranks against "
               f"{stats['ms_per_step']:.2f} on one rank (two ranks share one card and move "
-              f"activations through gloo on the host: no speed-up can show)", flush=True)
+              f"activations through gloo on the host: no speed-up can show); the agreed clock's "
+              f"readings and broadcasts {tp['clock'][0]}, {tp['clock'][1]} over "
+              f"{tp['stats']['decode_steps']} decode steps and {tp['stats']['prefill_chunks']} "
+              f"prefill chunks", flush=True)
         check(rel <= TP_LOGIT_RTOL, f"{kv}: tensor-parallel first-decode logits off the one-rank run's")
         check(not parted, f"{kv}: tensor-parallel tokens part from the one-rank run's above the margin")
         out[kv] = dict(first_decode_rel=rel, tokens_compared=compared, parted=parted,
                        ms_per_step_ranks=ms, ms_per_step_one=stats["ms_per_step"],
+                       clock=tp["clock"],
                        stats_ranks=[r["stats"] for r in runs], stats_one=stats)
     detail["sharded"]["tp"] = dict(
         runs=out, launches=[r["tp"]["counts"] for r in ranks], comm=[r["tp"]["comm"] for r in ranks],
         variants=[r["tp"]["variants"] for r in ranks], checked=[r["tp"]["checked"] for r in ranks],
         bytes_held=[r["tp"]["bytes_held"] for r in ranks], bytes_whole=ranks[0]["tp"]["bytes_whole"])
+
+
+def _tp_slo_checks(slo, lead_clock, label) -> dict:
+    """Both ranks' SLO runs alike in every request, counter, free page and
+    clock count, every broadcast one ``broadcast_from``, fewer broadcasts
+    than readings, no stream parting from (c)'s and the pool full again;
+    prints a ``[tp-slo]`` line a rank and returns the statuses."""
+    for key in ("requests", "counters", "free", "reads", "broadcasts"):
+        check(all(x[key] == slo[0][key] for x in slo), f"phase 13 (g) {label}: the ranks' {key} differ")
+    reqs, (n_shed, n_missed, n_pre, steps) = slo[0]["requests"], slo[0]["counters"]
+    status = {rid: r[0] for rid, r in reqs.items()}
+    for r, x in enumerate(slo):
+        comm = x["comm"]
+        clock = lead_clock if r == 0 else "time.monotonic() + 1e3"
+        print(f"[tp-slo] {label} rank {r} ({clock}): statuses {status}; shed {n_shed}, deadline "
+              f"missed {n_missed}, preemptions {n_pre}; {steps} decode steps; free pages "
+              f"{x['free'][0]} of {x['free'][1]}; {x['reads']} clock readings in "
+              f"{x['broadcasts']} broadcasts, " + ", ".join(
+                  f"{k} {n} calls {t:.3f}s" for k, (n, b, t) in comm.items())
+              + f"; wall {x['wall_s']:.2f}s; margin rule against (c): parted at {x['parted']}",
+              flush=True)
+        check(comm["broadcast"][0] == x["broadcasts"] < x["reads"],
+              f"{label} rank {r}: {comm['broadcast'][0]} broadcasts for the clock's "
+              f"{x['broadcasts']}, {x['reads']} readings")
+        check(not x["parted"], f"phase 13 (g) {label} rank {r}: tokens part from (c)'s above the "
+                               f"margin at {x['parted']}")
+    check(slo[0]["free"][0] == slo[0]["free"][1], f"phase 13 (g) {label}: pages leaked {slo[0]['free']}")
+    return status
+
+
+def tp_spec_checks(detail, ranks) -> None:
+    """Phase 13 (g) in the parent: both ranks' speculative runs and SLO run
+    the same in every output, request and counter; the virtual-clock SLO
+    run's decisions (request 4 expired mid-generation, request 8 shed as
+    provably unmeetable, a preemption); the SLO run on rank 0's real time
+    alike on both ranks; in both, the agreed clock's readings in fewer
+    broadcasts than readings; the ranks' kernel launches of (g)."""
+    spec = [r["tp"]["spec"] for r in ranks]
+    s0 = spec[0]
+    for label, run in s0["spec"].items():
+        for key in ("outputs", "counters", "requests"):
+            check(all(sp["spec"][label][key] == run[key] for sp in spec),
+                  f"phase 13 (g) {label}: the ranks' {key} differ")
+        for r, sp in enumerate(spec):
+            st, comm = sp["spec"][label]["stats"], sp["spec"][label]["comm"]
+            rounds = st["decode_steps"]
+            acc = "-" if st["acceptance"] is None else f"{st['acceptance']:.3f}"
+            print(f"[tp-spec] rank {r} {label}: {st['tokens']} tokens, decode "
+                  f"{st['decode_tok_s']:.1f} tok/s, {st['ms_per_round']:.2f} ms a round over "
+                  f"{rounds} rounds ({st['spec_rounds']} speculative; propose "
+                  f"{st['propose_s']:.2f}s of {st['decode_s']:.2f}s) against (c)'s plain "
+                  f"{sp['plain_ms']:.2f} ms a step; proposed {st['proposed']}, accepted "
+                  f"{st['accepted']} (acceptance {acc}); free pages {st['free_before']} -> "
+                  f"{st['free_after']}; rounds with budget {st['rounds_with_budget']}, short "
+                  f"{len(st['short_rounds'])}; collectives a round: " + ", ".join(
+                      f"{k} {n / rounds:.1f} ({b / rounds / 2**10:.1f} KiB, "
+                      f"{t / rounds * 1e3:.2f} ms)" for k, (n, b, t) in comm.items())
+                  + f"; margin rule against (c): {sp['spec'][label]['compared']} tokens "
+                  f"compared, parted at {sp['spec'][label]['parted']}", flush=True)
+    slo = [sp["slo"] for sp in spec]
+    status = _tp_slo_checks(slo, f"a virtual clock, {TP_SLO_TICK_S} s a reading", "SLO")
+    reqs, n_pre = slo[0]["requests"], slo[0]["counters"][2]
+    check(status[4] == "deadline_missed" and 0 < len(reqs[4][1]) < TP_SLO[0][4][1],
+          f"phase 13 (g) SLO: request 4 {status[4]} with {len(reqs[4][1])} tokens")
+    check(status[8] == "shed" and "provably unmeetable" in (reqs[8][2] or ""),
+          f"phase 13 (g) SLO: request 8 {status[8]} ({reqs[8][2]})")
+    check(n_pre >= 1 and "preempted_resumed" in status.values(),
+          f"phase 13 (g) SLO: {n_pre} preemptions")
+    check(all(st in ("completed", "preempted_resumed") for rid, st in status.items()
+              if rid not in (4, 8)), f"phase 13 (g) SLO: statuses {status}")
+    live = [sp["slo_live"] for sp in spec]
+    live_status = _tp_slo_checks(live, "time.monotonic()", "SLO on the card's time")
+    for r, sp in enumerate(spec):
+        print(f"[tp-spec] rank {r}: (g) took {sp['seconds']:.1f}s; launches {sp['counts']}, kernel "
+              f"3 by variant {sp['variants']}; RTN draft layout {sp['rtn_layout']}; checked "
+              f"{sp['checked']}", flush=True)
+        for name in ("dequant_matmul", "paged_attention"):
+            check(sp["counts"][name] > 0, f"rank {r}: (g) launched no {name}")
+    detail["sharded"]["tp_spec"] = dict(
+        spec={label: dict(stats=[sp["spec"][label]["stats"] for sp in spec],
+                          comm=[sp["spec"][label]["comm"] for sp in spec],
+                          compared=run["compared"], counters=run["counters"])
+              for label, run in s0["spec"].items()},
+        slo=dict(status=status, counters=slo[0]["counters"], comm=[x["comm"] for x in slo],
+                 reads=slo[0]["reads"], broadcasts=slo[0]["broadcasts"],
+                 wall_s=[x["wall_s"] for x in slo]),
+        slo_live=dict(status=live_status, counters=live[0]["counters"],
+                      comm=[x["comm"] for x in live], reads=live[0]["reads"],
+                      broadcasts=live[0]["broadcasts"], wall_s=[x["wall_s"] for x in live]),
+        launches=[sp["counts"] for sp in spec], checked=[sp["checked"] for sp in spec],
+        seconds=[sp["seconds"] for sp in spec], plain_ms=[sp["plain_ms"] for sp in spec])
 
 
 def tp_save(keep: dict, name: str, label: str, cfg, artifact) -> None:
@@ -4819,7 +5091,8 @@ def tp_encdec(detail, ranks: "Ranks", keep: dict) -> tuple:
         cfg = encdec_cfg(name)
         layers = cfg.n_periods * len(cfg.pattern)
         cross = int(any(b.cross for b in cfg.pattern))
-        want_comm = {"all_reduce": 1 + layers * (2 + cross), "all_gather": 1}
+        # No engine runs a greedy decode step, so it reads no agreed clock.
+        want_comm = {"all_reduce": 1 + layers * (2 + cross), "all_gather": 1, "broadcast": 0}
         for r, row in enumerate(rows):
             check(not row["bytes_bad"],
                   f"(f) {label}: rank {r} holds other bytes than its shard: {row['bytes_bad'][:4]}")
@@ -5355,7 +5628,8 @@ def sharded_path(dev, detail, plan, artifact, dense, keep, tp_dir):
     ops.reset_launch_counts()
     metrics = eval_model(plan, served, eval_fn, budget=EvalBudget(), device=dev)
     torch.cuda.synchronize()
-    counts = {k: v + sum(r["counts"][k] + r["tp"]["counts"][k] for r in ranks)
+    counts = {k: v + sum(r["counts"][k] + r["tp"]["counts"][k] + r["tp"]["spec"]["counts"][k]
+                         for r in ranks)
               for k, v in ops.launch_counts().items()}
 
     mean13 = float(np.mean(list(r0["report"].values())))
@@ -5374,6 +5648,7 @@ def sharded_path(dev, detail, plan, artifact, dense, keep, tp_dir):
     for r in ranks:
         merge_checked(checked, r["checked"])
         merge_checked(checked, r["tp"]["checked"])
+        merge_checked(checked, r["tp"]["spec"]["checked"])
     detail["sharded"] = out = dict(
         ranks=SHARD_RANKS, seconds_with_start=t_ranks, ptq_seconds=[r["t_ptq"] for r in ranks],
         seconds_per_layer=r0["blocks"], seconds_per_layer_local=layer5, comm=[r["comm"] for r in ranks],
@@ -5466,6 +5741,7 @@ def sharded_path(dev, detail, plan, artifact, dense, keep, tp_dir):
     t0 = time.monotonic()
     tp_against_one_rank(dev, detail, plan, served, ranks)
     print(f"[tp] the one-rank runs and checks: {time.monotonic() - t0:.1f}s", flush=True)
+    tp_spec_checks(detail, ranks)
     return counts, checked, handle
 
 
@@ -5839,6 +6115,7 @@ def main() -> None:
             families={cfg: c.get(name.replace("quantease_", ""), {}).get("calls", 0)
                       for cfg, c in at_fam.items()},
             sharded_launches=counts_sharded[name],
+            tp_spec_launches=sum(c[name] for c in detail["sharded"]["tp_spec"]["launches"]),
             sharded_calls_checked=at_sharded.get(name.replace("quantease_", ""), {}).get("calls", 0),
             tp_families_launches=counts_tpf.get(name, 0) + counts_tpe.get(name, 0),
             tp_families_calls_checked=at_tpf.get(name.replace("quantease_", ""), {}).get("calls", 0),

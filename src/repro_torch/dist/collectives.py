@@ -22,6 +22,8 @@ the CPU (and, two ranks on one card, on CUDA tensors as well).
   gather whose result each rank uses in its own way.  Under
   ``torch.no_grad()`` each forward computes the bits of the plain call.
 * :func:`max_over` is a max over the dim, outside autograd.
+* :func:`broadcast_from` gives every rank of the dim its rank 0's floats:
+  the serving engines' agreed clock.
 * :func:`shard_dim` takes a rank's contiguous block of a tensor dimension.
 * :func:`block_bounds` splits ``n`` items over the dim in contiguous
   blocks of ``ceil(n / size)``, as a batch-sharded JAX array lays them out
@@ -50,6 +52,7 @@ __all__ = [
     "reduce_from",
     "gather_from",
     "max_over",
+    "broadcast_from",
     "shard_dim",
     "block_bounds",
 ]
@@ -178,6 +181,20 @@ def max_over(t: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """The elementwise max of ``t`` over the mesh dim, in a new tensor that
     carries no gradient."""
     return all_reduce(t.detach().clone(memory_format=torch.contiguous_format), mesh, axis, "max")
+
+
+def broadcast_from(values, mesh, axis: str = "model") -> list:
+    """Rank 0's ``values`` (floats) of the mesh dim on every rank of it, as
+    a list, carried as float64 on the mesh's device type in one broadcast,
+    so they arrive exactly.  Every rank passes as many; only rank 0's are
+    read."""
+    group = mesh.get_group(axis)
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64, device=dev)
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return t.tolist()
 
 
 def shard_dim(t: torch.Tensor, dim: int, mesh, axis: str = "data") -> torch.Tensor:

@@ -52,17 +52,11 @@ __all__ = [
     "model_axis",
     "data_axis",
     "shard_tree",
-    "TP_SPEC_ROADMAP",
 ]
 
 # A table value: one mesh axis, a tuple of mesh axes (batch over
 # ("pod", "data")), or None (replicated).
 _Entry = Union[str, tuple, None]
-
-# Under a "model" axis the port serves and trains every family; what is
-# still queued in ROADMAP.md queue 1 refuses, naming its item.
-TP_SPEC_ROADMAP = ("speculative serving and deadlines under a \"model\" axis are ROADMAP.md "
-                   "queue 1 item 8.1.5")
 
 
 def axis_sizes(mesh) -> dict:

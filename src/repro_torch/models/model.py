@@ -129,6 +129,10 @@ class ModelPlan:
     # codes per byte (quant.kv_pack_int4, fold-in-half) and the contiguous
     # cache refuses it.
     kv_cache_dtype: str = "bf16"
+    # MoE dispatch groups: every MoE layer routes, caps capacity and
+    # combines within this many contiguous token groups (models/moe.py),
+    # lined up with the data shards where the batch is split over "data".
+    dispatch_groups: int = 1
     # Optional per-period param transform (the int8-quantized FSDP gather,
     # dist/qgather.py), applied to each period's params in train mode.
     param_transform: Optional[Callable] = dataclasses.field(default=None, compare=False)
@@ -165,20 +169,24 @@ def check_token_only(cfg: ModelConfig, what: str) -> None:
 
 
 def make_plan(cfg: ModelConfig, axis_n: int = 1, kv_cache_dtype: str = "bf16",
-              param_transform=None) -> ModelPlan:
+              param_transform=None, dispatch_groups: int = 1) -> ModelPlan:
     """The plan for a "model" axis of ``axis_n``: heads padded by
     :func:`~repro_torch.models.common.make_head_plan`, the vocabulary to a
     multiple of the axis (the reference's).  A padded plan is a model of
     its own (its params carry the padded slots and vocabulary rows); run on
-    one rank it is the reference's padded plan on one device."""
+    one rank it is the reference's padded plan on one device.
+    ``dispatch_groups``: the MoE layers' token groups, in every mode
+    (:func:`~repro_torch.models.moe.moe_apply`)."""
     _check_supported(cfg)
     if kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}; expected one of {KV_CACHE_DTYPES}")
+    if dispatch_groups < 1:
+        raise ValueError(f"dispatch_groups must be >= 1, got {dispatch_groups}")
     n = max(axis_n, 1)
     return ModelPlan(
         cfg=cfg, axis_n=axis_n, heads=make_head_plan(cfg.n_heads, cfg.n_kv_heads, cfg.hd, axis_n),
         vocab_pad=-(-cfg.vocab // n) * n, kv_cache_dtype=kv_cache_dtype,
-        param_transform=param_transform,
+        dispatch_groups=dispatch_groups, param_transform=param_transform,
     )
 
 
@@ -839,14 +847,16 @@ def _cross_attention(cfg, hp, p, x, *, mode, cache, enc_out, tp=None):
     return x + _apply_out_proj(p["wo_c"], o, name="wo_c", tp=tp)
 
 
-def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None, tp=None):
+def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None, tp=None,
+                  dispatch_groups: int = 1):
     """Dense or MoE MLP; an MoE block appends its router's load-balancing
     loss to ``aux`` when one is given (training).  Under a model axis whose
     rules cut "ffn", ``wg``/``wu`` are column-parallel and ``wd``
     row-parallel (:func:`_row_parallel`), reading ``copy_to(h)``; else the
-    MLP is replicated.  An MoE layer takes the rank's layout
-    (:func:`_expert_shard`) and, where "data" splits the batch, routes the
-    whole batch (:func:`_batch_shard`)."""
+    MLP is replicated.  An MoE layer routes within the plan's
+    ``dispatch_groups``, takes the rank's layout (:func:`_expert_shard`)
+    and, where "data" splits the batch, routes the whole batch's groups
+    (:func:`_batch_shard`)."""
     if b.mlp == "none":
         return x
     h = apply_norm(p["ln2"], x, cfg.norm)
@@ -854,7 +864,8 @@ def _mlp_sublayer(cfg, b: BlockDef, p, x, aux: Optional[list] = None, tp=None):
         batch = _batch_shard()
         y, probs = moe_apply(p, h, n_experts=cfg.n_experts, top_k=cfg.top_k, act=cfg.act,
                              gated=cfg.gated_mlp, norm_topk=cfg.router_norm_topk,
-                             return_aux=aux is not None, shard=_expert_shard(tp, p), batch=batch)
+                             return_aux=aux is not None, shard=_expert_shard(tp, p), batch=batch,
+                             dispatch_groups=dispatch_groups)
         if aux is not None:
             aux.append(router_aux_loss(probs, batch))
     else:
@@ -889,13 +900,13 @@ def _mamba_sublayer(cfg, p, x, *, mode="train", cache=None, shard=None):
 
 
 def _block_apply(cfg, hp, b, p, x, *, pos_ids, aux: Optional[list] = None, tp=None,
-                 ssm=None, **attn_kw):
+                 ssm=None, dispatch_groups: int = 1, **attn_kw):
     if b.kind == "mamba":
         x = _mamba_sublayer(cfg, p, x, mode=attn_kw.get("mode", "train"),
                             cache=attn_kw.get("cache"), shard=ssm)
     else:
         x = _attn_sublayer(cfg, hp, b, p, x, pos_ids=pos_ids, tp=tp, **attn_kw)
-    return _mlp_sublayer(cfg, b, p, x, aux, tp=tp)
+    return _mlp_sublayer(cfg, b, p, x, aux, tp=tp, dispatch_groups=dispatch_groups)
 
 
 def _quantized(a) -> bool:
@@ -934,7 +945,7 @@ def _run_stack(plan: ModelPlan, stack_params: dict, stack: str, x, *, mode: str,
             cache = None if caches is None else {k: t[period] for k, t in caches[f"b{i}"].items()}
             x = _block_apply(cfg, hp, b, p_period[f"b{i}"], x, mode=mode, pos_ids=pos_ids,
                              cache=cache, kv_dtype=plan.kv_cache_dtype, tp=tp, ssm=ssm,
-                             **attn_kw)
+                             dispatch_groups=plan.dispatch_groups, **attn_kw)
             if b.kind == "mamba" and cache is not None:
                 _store_state(caches[f"b{i}"], period, cache)
     return x

@@ -2,20 +2,23 @@
 (the port's ``repro.models.moe``).
 
   1. router (fp32) → top-k expert ids and weights per token;
-  2. the N·k routed copies take slots in an (E, C) table, C the capacity
-     ``max(int(N·k/E · CAPACITY_FACTOR), 8)``; copies past an expert's
-     capacity are dropped;
-  3. gather → (E, C, D), one batched product per projection over the
-     stacked expert weights;
+  2. the N tokens split into g dispatch groups of N/g contiguous tokens
+     (``dispatch_groups``; g = 1 where it does not divide N); each group's
+     N/g·k routed copies take slots in its own (E, C) table, C the capacity
+     ``max(int(N/g·k/E · CAPACITY_FACTOR), 8)`` per (group, expert); copies
+     past an expert's capacity in their group are dropped;
+  3. gather → (E, g·C, D), expert e's slots of every group in group order,
+     one batched product per projection over the stacked expert weights;
   4. weighted fp32 sum back to (N, D): each token gathers its kept copies
      and adds them in the order of their slots (the reference scatter-adds
      them), so the sum is the same on every run and device.
 
-Empty slots of the table are filled with token 0 of the dispatch group,
-as the reference fills them (``repro/models/moe.py:118``): their outputs
-carry weight 0, so the forward pass is unaffected, but the calibration
-capture records the whole table, so each expert's Σ gains one x₀x₀ᵀ per
-empty slot.  The port copies this on purpose (``ROADMAP.md`` §3).
+Empty slots of a group's table are filled with token 0 of that dispatch
+group, as the reference fills them (``repro/models/moe.py:118``): their
+outputs carry weight 0, so the forward pass is unaffected, but the
+calibration capture records the whole (E, g·C) table, so each expert's Σ
+gains one x₀x₀ᵀ of its group per empty slot.  The port copies this on
+purpose (``ROADMAP.md`` §3).
 
 A quantized expert weight runs through the dequant-GEMM once per expert
 (``kernels.ops.dequant_matmul_experts``).  Its outlier planes are not
@@ -35,12 +38,15 @@ the experts split, the top-k weights that combine the rank's copies: the
 router's gradient then holds every expert's share, while the router loss,
 computed whole on every rank, is not summed again.
 
-Where a "data" axis splits the batch (``batch``, a :class:`BatchShard`:
-data-parallel training) the rank's tokens are a block of one dispatch
-group, the whole batch's, as the reference's one-device step routes it:
-the ranks' top-k ids are all-gathered, every rank builds the whole
-dispatch table (the capacity the whole batch's) and keeps the slots of its
-own copies.  The router loss's means run over the whole batch too.
+Where a "data" axis of d ranks splits the batch (``batch``, a
+:class:`BatchShard`: data-parallel training) the groups are the whole
+batch's, as the reference's one-device step routes them.  Where g is a
+multiple of d (and divides the whole batch's tokens) the rank's block is
+exactly its g/d groups: it dispatches them alone, with no collective.
+Otherwise the rank's tokens share groups with other ranks': the ranks'
+top-k ids are all-gathered, every rank builds the whole batch's tables and
+keeps the slots of its own copies.  The router loss's means run over the
+whole batch in both cases.
 """
 
 from __future__ import annotations
@@ -142,23 +148,47 @@ def _dispatch_table(expert_ids: torch.Tensor, n_experts: int, capacity: int):
     return copy_for_slot[:-1], slot
 
 
+def _group_tables(ids: torch.Tensor, g: int, n_experts: int, capacity: int):
+    """ids: (g·R,) the routed copies of g groups in group order → the
+    (E, g·C) slot table (:func:`_dispatch_table`'s outputs with every index
+    global: copy of each slot ``(E·g·C,)``, -1 where empty; slot of each
+    copy ``(g·R,)``, ``E·g·C`` where dropped).  Each group ranks its copies
+    by expert on its own (one table over (group, expert) keys), and slot
+    ``(i, e, c)`` moves to ``e·g·C + i·C + c``."""
+    if g == 1:
+        return _dispatch_table(ids, n_experts, capacity)
+    per = ids.shape[0] // g
+    group = torch.arange(g, device=ids.device).repeat_interleave(per)
+    copy_for_slot, slot = _dispatch_table(group * n_experts + ids, g * n_experts, capacity)
+    copy_for_slot = copy_for_slot.reshape(g, n_experts, capacity).transpose(0, 1).reshape(-1)
+    total = g * n_experts * capacity
+    i, e, c = slot // (n_experts * capacity), slot // capacity % n_experts, slot % capacity
+    slot = torch.where(slot < total, e * g * capacity + i * capacity + c, total)
+    return copy_for_slot, slot
+
+
 def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, act: str, gated: bool,
               norm_topk: bool, return_aux: bool = False, shard: Optional[ExpertShard] = None,
-              batch: Optional[BatchShard] = None):
-    """x: (B, S, D) → ``(y, router probs or None)``; the batch's tokens form
-    one dispatch group (the reference's ``dispatch_groups=1``, which its
-    trainer passes).  ``shard``: this rank's layout on a "model" axis (None:
-    the whole layer); ``batch``: x is this rank's block of a batch split
-    over a "data" axis (None: x is the whole batch)."""
+              batch: Optional[BatchShard] = None, dispatch_groups: int = 1):
+    """x: (B, S, D) → ``(y, router probs or None)``; the tokens route within
+    ``dispatch_groups`` contiguous groups (the reference's semantics; its
+    trainer passes 1).  ``shard``: this rank's layout on a "model" axis
+    (None: the whole layer); ``batch``: x is this rank's block of a batch
+    split over a "data" axis (None: x is the whole batch)."""
     B, S, D = x.shape
     n = B * S
     xf = x.reshape(n, D)
     probs, top_w, top_e = _route(p["router"], xf, top_k, norm_topk)
 
-    ids = top_e.reshape(-1) if batch is None else batch.gather(top_e.reshape(-1))
-    capacity = max(int(ids.shape[0] / n_experts * CAPACITY_FACTOR), 8)
-    copy_for_slot, slot_of_copy = _dispatch_table(ids, n_experts, capacity)
-    if batch is not None:  # the whole batch's table: the slots of this rank's copies
+    n_all = n * (batch.n if batch is not None else 1)  # the whole batch's tokens
+    g = dispatch_groups if n_all % dispatch_groups == 0 else 1
+    ng = n_all // g  # tokens a group
+    capacity = max(int(ng * top_k / n_experts * CAPACITY_FACTOR), 8)
+    aligned = batch is None or g % batch.n == 0
+    g_here = g // batch.n if batch is not None and aligned else g  # groups in the table
+    ids = top_e.reshape(-1) if aligned else batch.gather(top_e.reshape(-1))
+    copy_for_slot, slot_of_copy = _group_tables(ids, g_here, n_experts, capacity)
+    if not aligned:  # the whole batch's tables: the slots of this rank's copies
         c0 = batch.rank * n * top_k
         slot_of_copy = slot_of_copy[c0 : c0 + n * top_k]
         mine = (copy_for_slot >= c0) & (copy_for_slot < c0 + n * top_k)
@@ -169,12 +199,19 @@ def moe_apply(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int, act: str,
         if kind == "experts":
             top_w = shard.enter(top_w)
     filled = copy_for_slot >= 0
-    token_for_slot = torch.where(filled, copy_for_slot // top_k, 0)
+    # An empty slot reads its group's token 0 (the rank's own token 0 where
+    # the tables are the whole batch's: its weight is 0 either way).
+    first = 0
+    if aligned and g_here > 1:
+        first = (torch.arange(g_here, device=x.device) * ng).repeat_interleave(capacity)
+        first = first.repeat(n_experts)
+    token_for_slot = torch.where(filled, copy_for_slot // top_k, first)
     w_for_slot = torch.where(filled, top_w.reshape(-1)[copy_for_slot.clamp_min(0)], 0.0)
 
+    gc = g_here * capacity  # an expert's slots
     e0, ne = (shard.first, shard.n_local) if kind == "experts" else (0, n_experts)
-    s0, ns = e0 * capacity, ne * capacity  # this rank's slots
-    xs = xf[token_for_slot[s0 : s0 + ns]].reshape(ne, capacity, D)
+    s0, ns = e0 * gc, ne * gc  # this rank's slots
+    xs = xf[token_for_slot[s0 : s0 + ns]].reshape(ne, gc, D)
     h = activation(_expert_matmul(p["w_gate"], xs, "w_gate"), act)
     if gated:
         h = h * _expert_matmul(p["w_up"], xs, "w_up")

@@ -45,10 +45,17 @@ Tensor parallelism: built and run inside ``dist.sharding.axis_rules`` of a
 "model" axis larger than 1, on a rank's local params
 (``dist.sharding.shard_tree``), an engine is one rank's part of an SPMD
 program: every rank of the axis runs the same engine on the same requests,
-its caches (and the paged pool's pages) hold the rank's kv slots, and the
-logits each step brings back are the whole vocabulary's, gathered, so every
-rank picks the same greedy token and makes the same scheduling decisions.
-Deadlines (ranks' clocks differ) and speculation are refused there.
+its caches (and the paged pool's pages, the draft's included) hold the
+rank's kv slots, and the logits each step brings back are the whole
+vocabulary's, gathered, so every rank picks the same greedy token, proposes
+and commits the same draft tokens and makes the same page allocations.  The
+clock is agreed (:class:`AgreedClock`): every reading the engine takes is
+rank 0's, broadcast over the axis (a reading that is only recorded rides
+on the next broadcast), so the SLO decisions that follow from it
+(timestamps, provable shedding, expiry, the queue's deadline order, the
+preemption victim's slack, the fastest step costs) are the same on every
+rank, whatever each rank's own clock reads.  Without an axis the engine
+reads its clock directly and takes no collective.
 
 Speculative decoding (``spec=``, a :class:`~repro_torch.serve.spec.SpecConfig`):
 each decode round of the paged engine is propose → verify → commit.  A
@@ -71,8 +78,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import require_on_device
-from repro_torch.dist.collectives import axis_size
-from repro_torch.dist.sharding import TP_SPEC_ROADMAP
+from repro_torch.dist import collectives
+from repro_torch.dist.collectives import axis_rank, axis_size
 from repro_torch.faults import TransientFault, fault_point
 from repro_torch.models import (
     decode_step,
@@ -92,7 +99,7 @@ from repro_torch.models.model import (
 from repro_torch.serve.kv_cache import NULL_PAGE, PagePool, page_nbytes
 from repro_torch.serve.spec import DraftManager, SpecConfig, greedy_accept_len, maybe_hoist
 
-__all__ = ["Request", "ServingEngine", "PagedServingEngine", "TERMINAL_STATUSES"]
+__all__ = ["Request", "ServingEngine", "PagedServingEngine", "AgreedClock", "TERMINAL_STATUSES"]
 
 TERMINAL_STATUSES = ("completed", "preempted_resumed", "shed", "deadline_missed")
 
@@ -140,9 +147,83 @@ def _host_logits(logits: torch.Tensor) -> np.ndarray:
     return logits.to(torch.float32).cpu().numpy()
 
 
-def _check_tp_request(tp, req) -> None:
-    if tp is not None and req.deadline_ms is not None:
-        raise NotImplementedError(f"request {req.rid}: a deadline ({TP_SPEC_ROADMAP})")
+class AgreedClock:
+    """The engine clock of one rank of a "model" axis.  Rank 0 reads its own
+    clock at each of the engine's reading points and every rank of the axis
+    gets those readings (``dist.collectives.broadcast_from``, float64,
+    exact); the other ranks' clocks are never read.  A reading the engine
+    decides on at once (``__call__``: a submit time, expiry, shedding, a
+    preemption victim's slack) is one broadcast, which also carries the
+    readings noted since the last.  A reading the engine only records
+    (:meth:`note`: the two ends of a timed prefill chunk or decode round, a
+    first token's or a finish's time) reaches its ``then`` on every rank
+    with the next broadcast or :meth:`settle`; the engine settles at the end
+    of a step that stamped a request, and before it reads its step costs.
+    Every rank's engine reads at the same points of the same schedule, so
+    the broadcasts pair up.  ``n_reads`` counts the readings,
+    ``n_broadcasts`` the collectives."""
+
+    def __init__(self, clock: Callable[[], float], mesh):
+        self.clock, self.mesh = clock, mesh
+        self.lead = axis_rank(mesh, "model") == 0
+        self.n_reads = self.n_broadcasts = 0
+        self.stamped = False  # a request's timestamp is among the notes
+        self._notes: list = []  # (rank 0's reading, then)
+
+    def _read(self) -> float:
+        self.n_reads += 1
+        return self.clock() if self.lead else 0.0
+
+    def __call__(self) -> float:
+        return self._send(self._read())
+
+    def note(self, then: Optional[Callable[[float], None]] = None, stamp: bool = False):
+        """A reading for ``then`` (none: read, as the schedule does, and
+        dropped); ``stamp`` marks a request's timestamp."""
+        t = self._read()
+        if then is not None:
+            self._notes.append((t, then))
+            self.stamped |= stamp
+
+    def settle(self):
+        if self._notes:
+            self._send(None)
+
+    def _send(self, now: Optional[float]) -> Optional[float]:
+        notes, self._notes, self.stamped = self._notes, [], False
+        got = collectives.broadcast_from(
+            [t for t, _ in notes] + ([] if now is None else [now]), self.mesh, "model")
+        self.n_broadcasts += 1
+        for (_, then), t in zip(notes, got):
+            then(t)
+        return None if now is None else got[-1]
+
+
+def _engine_clock(clock, tp):
+    clock = clock or time.monotonic
+    return clock if tp is None else AgreedClock(clock, tp.mesh)
+
+
+def _note(clock, then: Optional[Callable[[float], None]] = None, stamp: bool = False):
+    """A reading the engine only records: noted for the next broadcast on
+    an axis, read and handed to ``then`` at once without one."""
+    if isinstance(clock, AgreedClock):
+        clock.note(then, stamp)
+    else:
+        t = clock()
+        if then is not None:
+            then(t)
+
+
+def _stamp(clock, attr: str, reqs: list):
+    """A reading as each of ``reqs``' timestamp ``attr``."""
+    _note(clock, (lambda t: [setattr(r, attr, t) for r in reqs]) if reqs else None, stamp=True)
+
+
+def _settle(clock, stamps_only: bool = False):
+    """Every rank's notes delivered (only where a request was stamped)."""
+    if isinstance(clock, AgreedClock) and (clock.stamped or not stamps_only):
+        clock.settle()
 
 
 class ServingEngine:
@@ -176,11 +257,11 @@ class ServingEngine:
         self.max_seq = max_seq
         self.prefill_pad = prefill_pad
         self.record_logits = record_logits
-        self.clock = clock or time.monotonic
         self.logit_trace: dict[int, list] = {}
 
         self.cache = init_cache(plan, max_batch, max_seq, device=self.device)
         self._tp = tp_rules(plan)
+        self.clock = _engine_clock(clock, self._tp)
         self.slot_req: list[Optional[Request]] = [None] * max_batch
         self.slot_pos = np.zeros(max_batch, np.int64)
         self.queue: list[Request] = []
@@ -204,7 +285,6 @@ class ServingEngine:
                 f"request {req.rid} cannot fit: prompt {len(req.prompt)} + "
                 f"max_new {req.max_new_tokens} > max_seq {self.max_seq}"
             )
-        _check_tp_request(self._tp, req)
         req.output = []
         req.status = "queued"
         req.submit_t = self.clock()
@@ -241,11 +321,16 @@ class ServingEngine:
             if len(req.output) >= req.max_new_tokens or self.slot_pos[i] >= self.max_seq - 1:
                 req.done = True
                 req.status = "completed"
-                req.finish_t = self.clock()
+                _stamp(self.clock, "finish_t", [req])
                 self.finished.append(req)
                 self.slot_req[i] = None
 
     def step(self) -> bool:
+        progressed = self._step()
+        _settle(self.clock, stamps_only=True)
+        return progressed
+
+    def _step(self) -> bool:
         try:
             fault_point("engine.step")
         except TransientFault:
@@ -264,7 +349,7 @@ class ServingEngine:
         logits = _host_logits(logits)
         self.decode_seconds += time.perf_counter() - w0
         self.n_decode_steps += 1
-        now = self.clock()
+        firsts = []
         for i in active:
             tok = int(np.argmax(logits[i]))
             if self.record_logits:
@@ -272,9 +357,10 @@ class ServingEngine:
             self._last_tok[i, 0] = tok
             req = self.slot_req[i]
             if not req.output:
-                req.first_token_t = now
+                firsts.append(req)
             req.output.append(tok)
             self.slot_pos[i] += 1
+        _stamp(self.clock, "first_token_t", firsts)
         self._retire()
         return True
 
@@ -325,10 +411,8 @@ class PagedServingEngine:
         check_token_only(plan.cfg, "the paged serving engine")
         if scheduler not in ("slo", "fifo"):
             raise ValueError(f"unknown scheduler {scheduler!r}; expected slo|fifo")
-        if spec is not None and spec.draft_plan.cfg.vocab != plan.cfg.vocab:
-            raise ValueError(
-                f"draft vocab {spec.draft_plan.cfg.vocab} != target vocab {plan.cfg.vocab}: "
-                "draft proposals would not be target tokens")
+        if spec is not None:
+            spec.check_target(plan)
         check_positions(plan.cfg, max_seq, "engine max_seq")
         self.device = require_on_device(params["embed"], device)
         self.plan = plan
@@ -344,12 +428,10 @@ class PagedServingEngine:
         self.prefix_cache = prefix_cache
         self.record_logits = record_logits
         self.scheduler = scheduler
-        self.clock = clock or time.monotonic
 
         self.cache = init_paged_cache(plan, n_pages, page_size, device=self.device)
         self._tp = tp_rules(plan)
-        if spec is not None and self._tp is not None:
-            raise NotImplementedError(f"spec=: {TP_SPEC_ROADMAP}")
+        self.clock = _engine_clock(clock, self._tp)
         self.pool = PagePool(n_pages, page_size)
         self.table = np.full((max_batch, self.pages_per_seq), NULL_PAGE, np.int32)
         self._dev_table = None  # rebuilt lazily when self.table changes
@@ -424,7 +506,6 @@ class PagedServingEngine:
                 f"request {req.rid} cannot fit: needs {need} pages / "
                 f"{len(req.prompt) + req.max_new_tokens} positions"
             )
-        _check_tp_request(self._tp, req)
         req.output = []
         req.status = "queued"
         req.submit_t = self.clock()
@@ -436,7 +517,7 @@ class PagedServingEngine:
         req.done = True
         req.status = status
         req.error = error
-        req.finish_t = self.clock()
+        _stamp(self.clock, "finish_t", [req])
         if status == "shed":
             self.n_shed += 1
         elif status == "deadline_missed":
@@ -493,8 +574,11 @@ class PagedServingEngine:
         """A rejection reason when even the optimistic completion bound (own
         prefill chunks + remaining decode steps at the fastest observed step
         costs, no queueing, no pool pressure) overshoots the deadline."""
-        if req.deadline_ms is None or self._min_decode_s is None:
-            return None  # no deadline, or no cost evidence: nothing is provable
+        if req.deadline_ms is None:
+            return None
+        _settle(self.clock)  # the step costs noted since the last agreed reading
+        if self._min_decode_s is None:
+            return None  # no cost evidence: nothing is provable
         now = self.clock()
         deadline = req.deadline_at()
         T = len(req.prompt) + len(req.output)
@@ -650,16 +734,14 @@ class PagedServingEngine:
         C = min(self.prefill_chunk, seq.n_target - off)
         buf = np.zeros((1, self.prefill_chunk), np.int32)
         buf[0, :C] = seq.tokens[off : off + C]
-        t0, w0 = self.clock(), time.perf_counter()
+        timed, w0 = self._timed("_min_chunk_s"), time.perf_counter()
         self.cache = paged_prefill_chunk(
             self.plan, self.params, buf, self.cache,
             self._dev_table_now()[lane : lane + 1], off,
         )
         self._sync()
         self.prefill_seconds += time.perf_counter() - w0
-        dt = self.clock() - t0
-        if dt > 0:
-            self._min_chunk_s = dt if self._min_chunk_s is None else min(self._min_chunk_s, dt)
+        timed()
         seq.n_prefilled += C
         self.n_prefill_chunks += 1
         self.n_prefill_tokens += C
@@ -802,16 +884,14 @@ class PagedServingEngine:
                 pos[i] = self.slot_pos[i]
                 write_page[i] = seq.pages[int(self.slot_pos[i]) // self.page_size]
                 self.n_kv_page_reads += -(-(int(self.slot_pos[i]) + 1) // self.page_size)
-            t0 = self.clock()
+            timed = self._timed("_min_decode_s")
             logits, self.cache = paged_decode_step(
                 self.plan, self.params, self._last_tok, self.cache, pos,
                 self._dev_table_now(), write_page,
             )
             logits = _host_logits(logits)
             self.n_decode_steps += 1
-            dt = self.clock() - t0
-            if dt > 0:
-                self._min_decode_s = dt if self._min_decode_s is None else min(self._min_decode_s, dt)
+            timed()
             return logits[:, None]
 
         L = self.spec.gamma + 1  # one shape for every outcome
@@ -827,26 +907,38 @@ class PagedServingEngine:
             for j in range(len(props) + 1):
                 wp[i, j] = seq.pages[(p0 + j) // self.page_size]
                 self.n_kv_page_reads += -(-(p0 + j + 1) // self.page_size)
-        t0 = self.clock()
+        # Per position: a position never costs less, so the shed bound stays
+        # a lower bound.
+        timed = self._timed("_min_decode_s", per=L)
         logits, self.cache = paged_verify_tokens(self.plan, self._verify_params, toks, self.cache,
                                                  pos, self._dev_table_now(), wp)
         logits = _host_logits(logits)
         self.n_decode_steps += 1
         self.n_spec_rounds += 1
-        dt = self.clock() - t0
-        if dt > 0:
-            # Per position: a position never costs less, so the shed bound
-            # stays a lower bound.
-            per = dt / L
-            self._min_decode_s = per if self._min_decode_s is None else min(self._min_decode_s, per)
+        timed()
         return logits
+
+    def _timed(self, attr: str, per: int = 1) -> Callable[[], None]:
+        """Reads the clock before a timed call; the function it returns
+        reads it after, and folds the difference over ``per`` into the
+        fastest cost ``attr`` (on an axis once both readings have arrived)."""
+        start = []
+        _note(self.clock, start.append)
+
+        def fold(t: float):
+            dt = t - start[0]
+            if dt > 0:
+                best = getattr(self, attr)
+                setattr(self, attr, dt / per if best is None else min(best, dt / per))
+
+        return lambda: _note(self.clock, fold)
 
     def _commit(self, active: list, proposals: dict, logits: np.ndarray):
         """Per lane, commit the longest prefix of the proposal that matches
         the target's argmaxes and the target's token after it (the whole
         round without a proposal); draft pages past the new frontier roll
         back."""
-        now = self.clock()
+        firsts = []
         for i in active:
             seq, props = self.lanes[i], proposals[i]
             greedy = [int(np.argmax(logits[i, j])) for j in range(len(props) + 1)]
@@ -863,12 +955,13 @@ class PagedServingEngine:
                     self.logit_trace.setdefault(seq.req.rid, []).append(logits[i, j])
                 self._last_tok[i, 0] = tok
                 if not seq.req.output:
-                    seq.req.first_token_t = now
+                    firsts.append(seq.req)
                 seq.req.output.append(tok)
                 seq.tokens.append(tok)
                 self.slot_pos[i] += 1
             if self.spec_mgr is not None:
                 self.spec_mgr.commit(i, int(self.slot_pos[i]))
+        _stamp(self.clock, "first_token_t", firsts)
 
     def _retire(self):
         for i, seq in enumerate(self.lanes):
@@ -881,6 +974,11 @@ class PagedServingEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> bool:
+        progressed = self._step()
+        _settle(self.clock, stamps_only=True)
+        return progressed
+
+    def _step(self) -> bool:
         try:
             fault_point("engine.step")
         except TransientFault:

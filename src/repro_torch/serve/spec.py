@@ -28,6 +28,15 @@ Drafts: a lower-bit RTN copy of the target
 (:func:`repro_torch.serve.qparams.rtn_quantize_for_serving`), the target's
 first periods (:func:`truncate_draft`), or any stack with the same
 vocabulary.
+
+On a rank of a "model" axis (the engine built inside the axis' rules) the
+draft runs on the rank's shard under the same rules as the target: a
+truncated draft of the rank's local params is a view of its shard, an RTN
+draft is cut by ``dist.sharding.shard_tree`` like any artifact, and the
+draft plan is padded for the same axis (:meth:`SpecConfig.check_target`).
+Its proposals are the argmaxes of the gathered logits, the same on every
+rank, and its page allocations and rollbacks follow from them and from
+the pool's state, so the shared pool stays the same on every rank.
 """
 
 from __future__ import annotations
@@ -158,6 +167,23 @@ class SpecConfig:
     def __post_init__(self):
         if self.gamma < 1:
             raise ValueError(f"gamma must be >= 1, got {self.gamma}")
+
+    def check_target(self, plan: ModelPlan) -> None:
+        """The draft must propose the target's tokens: the same vocabulary,
+        padded for the same "model" axis (``axis_n`` and ``vocab_pad``); on
+        an axis also the same head plan, so the draft's pages hold the kv
+        slots the target's do on each rank.  On one rank any stack with the
+        target's vocabulary drafts."""
+        d = self.draft_plan
+        if d.cfg.vocab != plan.cfg.vocab:
+            raise ValueError(f"draft vocab {d.cfg.vocab} != target vocab {plan.cfg.vocab}: "
+                             "draft proposals would not be target tokens")
+        if (d.axis_n, d.vocab_pad) != (plan.axis_n, plan.vocab_pad) or (
+                plan.axis_n > 1 and d.heads != plan.heads):
+            raise ValueError(
+                f"the draft plan is padded for a \"model\" axis of {d.axis_n} (vocabulary "
+                f"{d.vocab_pad}, {d.heads}), the target's for {plan.axis_n} (vocabulary "
+                f"{plan.vocab_pad}, {plan.heads}): make the draft's plan for the target's axis")
 
 
 def maybe_hoist(params, flag: Optional[bool]):

@@ -82,7 +82,10 @@ def train_rules(plan, mesh, fsdp: bool = False):
 class Trainer:
     """``params=`` starts from given whole weights of the (padded) plan on
     ``device`` instead of the seeded init; ``device`` (this rank's) defaults
-    to ``"cuda"``."""
+    to ``"cuda"``.  ``dispatch_groups`` goes into the plan
+    (``make_plan(..., dispatch_groups=)``): every MoE layer routes each
+    microbatch within that many token groups, a data rank's own where it is
+    a multiple of the "data" axis (no gather of the routes)."""
 
     def __init__(
         self,
@@ -94,6 +97,7 @@ class Trainer:
         *,
         params=None,
         device="cuda",
+        dispatch_groups: int = 1,
     ):
         model_n = axis_sizes(mesh).get("model", 1)
         self.device = resolve_device(device)
@@ -101,7 +105,7 @@ class Trainer:
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
         self.mesh = mesh
-        self.plan = make_plan(model_cfg, model_n)
+        self.plan = make_plan(model_cfg, model_n, dispatch_groups=dispatch_groups)
         self.n_data = axis_size(mesh)
         if tcfg.batch % (self.n_data * tcfg.n_microbatches):
             raise ValueError(f"batch {tcfg.batch} does not split into {tcfg.n_microbatches} "

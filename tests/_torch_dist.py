@@ -607,7 +607,7 @@ def _tp_trainer(case, ckpt_dir, mesh, **tc):
     return Trainer(case["cfg"], AdamWConfig(moments=case["moments"], **case["opt"]),
                    TrainerConfig(ckpt_dir=ckpt_dir, **dict(case["tc"], **tc)), mesh=mesh,
                    fsdp=case["fsdp"], params=interop.params_from_jax(case["params"], device="cpu"),
-                   device="cpu")
+                   device="cpu", dispatch_groups=case.get("dispatch_groups", 1))
 
 
 def tp_train_rank(rank, world, cases, root, dims):
@@ -660,4 +660,219 @@ def tp_train_rank(rank, world, cases, root, dims):
             res["resumed"] = tree_bits({"p": again.params, "o": again.opt_state}) == before
         out[label] = res
     dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rank functions of tests/test_torch_tp_spec.py
+# ---------------------------------------------------------------------------
+
+
+class StepClock:
+    """A deterministic engine clock: each call advances one virtual second
+    (``tests/test_torch_paged_engine.py``'s)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        self.t += 1.0
+        return self.t
+
+
+class SkewedClock:
+    """A clock far from rank 0's and running faster: 1,000 s ahead of the
+    host's monotonic clock at three times its rate; ``reads`` counts the
+    calls."""
+
+    def __init__(self):
+        self.reads = 0
+
+    def __call__(self) -> float:
+        import time
+
+        self.reads += 1
+        return 1e3 + 3.0 * time.monotonic()
+
+
+class _PoolLog:
+    """Every allocation and release of a page pool, in order."""
+
+    def __init__(self, pool):
+        self.ops = []
+        alloc, release = pool.alloc, pool.release
+
+        def logged_alloc(n):
+            got = alloc(n)
+            self.ops.append(("alloc", n, None if got is None else tuple(got)))
+            return got
+
+        def logged_release(p):
+            self.ops.append(("release", p))
+            return release(p)
+
+        pool.alloc, pool.release = logged_alloc, logged_release
+
+
+def _error_kind(error):
+    if error is None:
+        return None
+    for kind in ("provably unmeetable", "unsatisfiable"):
+        if kind in error:
+            return kind
+    return error
+
+
+def tp_spec_serve(plan, params, case, rules=None, draft=None):
+    """One engine run of a ``tests/test_torch_tp_spec.py`` case: the paged
+    engine (with ``draft``, a ``(plan, params)`` pair, speculative at the
+    case's γ) or the contiguous one, on the case's clock (``"step"``: a
+    :class:`StepClock` on rank 0 of ``rules``' mesh, or without rules, and
+    a :class:`SkewedClock` elsewhere), serving the case's waves of requests
+    one ``run()`` after another.  Returns every request's output, status,
+    error kind, counters and timestamps, the engine's counters, its logits
+    a step, the pool's free pages and the digest of its allocations and
+    releases, the clock readings it took and the skewed clock's own."""
+    import hashlib
+
+    from repro_torch.dist.collectives import axis_rank
+    from repro_torch.serve import PagedServingEngine, Request, ServingEngine
+    from repro_torch.serve.spec import SpecConfig
+
+    clock = None
+    if case["clock"] == "step":
+        lead = rules is None or axis_rank(rules.mesh, "model") == 0
+        clock = StepClock() if lead else SkewedClock()
+    if case["engine"] == "contiguous":
+        eng = ServingEngine(plan, params, record_logits=True, clock=clock, device="cpu",
+                            **case["kw"])
+        log = None
+    else:
+        spec = None if draft is None else SpecConfig(*draft, gamma=case["gamma"])
+        eng = PagedServingEngine(plan, params, spec=spec, record_logits=True, clock=clock,
+                                 device="cpu", **case["kw"])
+        log = _PoolLog(eng.pool)
+    proposals = []
+    if getattr(eng, "spec_mgr", None) is not None:
+        propose = eng.spec_mgr.propose
+
+        def recorded(items):  # the draft's proposals, before the verify trims any
+            got = propose(items)
+            proposals.append(sorted(got.items()))
+            return got
+
+        eng.spec_mgr.propose = recorded
+    reqs = []
+    for wave in case["waves"]:
+        for r in wave:
+            req = Request(rid=r["rid"], prompt=r["prompt"], max_new_tokens=r["max_new"],
+                          deadline_ms=r.get("deadline_ms"), priority=r.get("priority", 0))
+            eng.submit(req)
+            reqs.append(req)
+        eng.run()
+    out = {
+        "outputs": {r.rid: list(r.output) for r in reqs},
+        "requests": {r.rid: dict(status=r.status, error=_error_kind(r.error),
+                                 n_preemptions=r.n_preemptions, n_spec_rounds=r.n_spec_rounds,
+                                 n_draft_tokens=r.n_draft_tokens,
+                                 n_draft_accepted=r.n_draft_accepted, submit_t=r.submit_t,
+                                 first_token_t=r.first_token_t, finish_t=r.finish_t)
+                     for r in reqs},
+        "trace": {rid: [l.copy() for l in ls] for rid, ls in eng.logit_trace.items()},
+        "counters": {k: getattr(eng, k, None) for k in (
+            "n_decode_steps", "n_shed", "n_deadline_missed", "n_preemptions", "n_spec_rounds",
+            "n_draft_tokens", "n_draft_accepted")},
+        "clock_reads": getattr(eng.clock, "n_reads", None),
+        "clock_broadcasts": getattr(eng.clock, "n_broadcasts", None),
+        "own_clock_reads": clock.reads if isinstance(clock, SkewedClock) else None,
+    }
+    if log is not None:
+        out["proposals"] = hashlib.sha256(repr(proposals).encode()).hexdigest()
+        out["free"] = (eng.pool.n_free, eng.n_pages - 1)
+        out["pool_log"] = hashlib.sha256(repr(log.ops).encode()).hexdigest()
+        out["pool_ops"] = len(log.ops)
+    return out
+
+
+def tp_spec_rank(rank, world, cases):
+    """Every case of ``cases`` on a ("model",) mesh over all ranks: the
+    whole params cut by ``dist.sharding.shard_tree`` under
+    ``serve.qparams.serving_rules``, the draft the truncation of the rank's
+    local params or its shard of the case's RTN artifact, then
+    :func:`tp_spec_serve` inside the rules, with the collectives of the run
+    counted per kind (the broadcasts of the agreed clock among them)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import axis_rules, shard_tree
+    from repro_torch.models import model as M
+    from repro_torch.serve.qparams import qt_param_axes, serving_rules
+    from repro_torch.serve.spec import truncate_draft
+
+    mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=("model",))
+    out = {"broadcast": C.broadcast_from([rank + 0.25 + 1e-12, rank - 3.5], mesh)}
+    comm = {}
+
+    def counted(kind, fn):
+        def call(*a, **k):
+            comm[kind] = comm.get(kind, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    originals = {"all_reduce": C.all_reduce, "gather_dim": C.gather_dim,
+                 "broadcast_from": C.broadcast_from}
+    for name, fn in originals.items():
+        setattr(C, name, counted(name, fn))
+    try:
+        for name, case in cases.items():
+            plan = M.make_plan(case["cfg"], world)
+            rules = serving_rules(plan, mesh)
+            local = shard_tree(case["params"], M.param_axes(plan), rules)
+            draft = None
+            if case.get("draft") == "truncate":
+                draft = truncate_draft(plan, local, 1)
+            elif case.get("draft") == "rtn":
+                draft = (plan, shard_tree(case["rtn"], qt_param_axes(plan, case["rtn"]), rules))
+            comm.clear()
+            with axis_rules(rules):
+                res = tp_spec_serve(plan, local, case, rules, draft)
+            res["comm"] = dict(comm)
+            out[name] = res
+    finally:
+        for name, fn in originals.items():
+            setattr(C, name, fn)
+    dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Rank functions of tests/test_torch_moe_groups.py
+# ---------------------------------------------------------------------------
+
+
+def moe_groups_rank(rank, world, cases, root):
+    """Each case of ``cases`` trained by :func:`tp_train_rank` on a
+    ("data", "model") mesh of 2 × 2, one at a time, with the all-gathers
+    over "data" of integer tensors (the MoE routers' top-k ids, the only
+    such gather) counted per case under ``"id_gathers"``."""
+    from repro_torch.dist import collectives as C
+
+    gather = C.gather_dim
+    counts = {"n": 0}
+
+    def counted(t, dim, mesh, axis="data"):
+        if axis == "data" and not t.is_floating_point():
+            counts["n"] += 1
+        return gather(t, dim, mesh, axis)
+
+    C.gather_dim = counted
+    out = {}
+    try:
+        for label, case in cases.items():
+            counts["n"] = 0
+            out[label] = tp_train_rank(rank, world, {label: case}, root, ("data", "model"))[label]
+            out[label]["id_gathers"] = counts["n"]
+    finally:
+        C.gather_dim = gather
     return out

@@ -29,9 +29,10 @@
   two entries it departs in on purpose (``ROADMAP.md`` §3): ``expert_ffn``
   stays whole where neither the experts nor the per-expert ffn divide the
   axis, and ``ssm_heads`` splits where the SSD heads divide it.
-* Outside the slice a model axis refuses speculation and deadlines, naming
-  their ROADMAP item.  The mixture-of-experts and Mamba-2 families serve on
-  the axis: ``tests/test_torch_tp_families.py``; the encoder-decoder and
+* A model axis takes speculation and deadlines (ROADMAP item 8.1.5; their
+  parity on ranks: ``tests/test_torch_tp_spec.py``).  The
+  mixture-of-experts and Mamba-2 families serve on the axis:
+  ``tests/test_torch_tp_families.py``; the encoder-decoder and
   prefix families serve and train on it: ``tests/test_torch_tp_encdec.py``
   (here, their caches take the rank's kv slots); every token-only family
   trains on it: ``tests/test_torch_tp_train.py``.
@@ -584,21 +585,30 @@ def test_families_outside_the_slice_refuse_a_model_axis(arch, item):
         assert local["b0"]["ck"].shape[2] == cfg.n_frames
 
 
-def test_speculation_deadlines_training_and_plan_refuse_a_model_axis():
-    from repro_torch.serve import PagedServingEngine, Request, ServingEngine
-    from repro_torch.serve.spec import SpecConfig
+def test_speculation_deadlines_training_and_plan_refuse_a_model_axis(monkeypatch):
+    """Speculation and deadlines on a model axis (ROADMAP item 8.1.5) are
+    accepted: a spec engine builds, and a deadline request enters either
+    engine, timestamped by the agreed clock (rank 0's reading, here the stub
+    mesh's broadcast standing in for the collective; on gloo ranks:
+    ``tests/test_torch_tp_spec.py``).  A plan padded for no axis still
+    refuses the axis' rules."""
+    from repro_torch.dist import collectives
+    from repro_torch.serve import AgreedClock, PagedServingEngine, Request, ServingEngine
+    from repro_torch.serve.spec import SpecConfig, truncate_draft
 
+    monkeypatch.setattr(collectives, "broadcast_from", lambda value, mesh, axis: value)
     cfg = dataclasses.replace(reduce_cfg(tget("phi3_mini_3_8b")), dtype=torch.float32)
     plan = tmodel.make_plan(cfg, 2)
     params = tmodel.init_params(plan, 0, device="cpu")
     with tsharding.axis_rules(tqparams.serving_rules(plan, _stub_mesh())):
-        spec = SpecConfig(draft_plan=plan, draft_params=params, gamma=2)
-        with pytest.raises(NotImplementedError, match="item 8.1.5"):
-            PagedServingEngine(plan, params, max_batch=1, max_seq=32, spec=spec, device="cpu")
+        spec = SpecConfig(*truncate_draft(plan, params, 1), gamma=2)
+        eng = PagedServingEngine(plan, params, max_batch=1, max_seq=32, spec=spec, device="cpu")
+        assert eng.spec_mgr is not None
         for cls in (PagedServingEngine, ServingEngine):
-            eng = cls(plan, params, max_batch=1, max_seq=32, device="cpu")
-            with pytest.raises(NotImplementedError, match="item 8.1.5"):
-                eng.submit(Request(rid=0, prompt=np.ones(3, np.int32), max_new_tokens=2,
-                                   deadline_ms=50.0))
+            eng = cls(plan, params, max_batch=1, max_seq=32, clock=lambda: 7.0, device="cpu")
+            assert isinstance(eng.clock, AgreedClock)
+            req = Request(rid=0, prompt=np.ones(3, np.int32), max_new_tokens=2, deadline_ms=50.0)
+            eng.submit(req)
+            assert req.status == "queued" and req.submit_t == 7.0 and req.deadline_at() == 7.0 + 50.0 / 1e3
         with pytest.raises(ValueError, match="axis_n=2"):
             tmodel.init_cache(tmodel.make_plan(cfg), 1, 16, device="cpu")
